@@ -1,0 +1,3 @@
+"""MPG accounting of the port: its own copies of the reference's
+framework-free ``repro.core`` modules (goodput, ledger, and the exact
+accumulation helpers of attribution)."""

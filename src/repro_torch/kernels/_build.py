@@ -1,0 +1,90 @@
+"""Build the port's CUDA kernels at first use and load them with ctypes.
+
+Each ``csrc/<name>.cu`` is compiled on its own by ``nvcc`` for ``sm_90a``
+into a shared library with a plain C interface (no PyTorch headers, so a
+build takes seconds, not minutes).  The libraries go to
+``build/repro_torch_kernels/`` at the root of the checkout, named by a
+hash of the sources and flags, so an edit rebuilds and an unchanged tree
+reuses what it built.  :func:`build` starts one ``nvcc`` per source, all
+at once, and waits for them together.
+
+Nothing here runs at import: the CPU tests import every module of the
+port on a machine without ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Sequence
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+KERNELS = ("flash_attention", "paged_attention")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (looked on PATH and in "
+                           "/usr/local/cuda/bin); the port's kernels are "
+                           "built from source on the machine with the card")
+    return path
+
+
+def _artifact(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Sequence[str] = KERNELS) -> Dict[str, str]:
+    """Compile every listed kernel that is not built yet, in parallel.
+
+    Returns ``{name: ptxas report}`` for the ones compiled now (the
+    registers, shared memory and spills ``-Xptxas -v`` prints).  Raises
+    ``RuntimeError`` with the compiler's output if one fails.
+    """
+    todo = {n: out for n in names if not (out := _artifact(n)).exists()}
+    if not todo:
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for name, out in todo.items():
+        tmp = out.with_suffix(f".tmp{os.getpid()}")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    reports, failed = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"--- {name} (nvcc exit {proc.returncode}) ---\n"
+                          f"{log}")
+            continue
+        os.replace(tmp, out)
+        reports[name] = log
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return reports
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of one kernel, building it first if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build([name])
+        lib = _LIBS[name] = ctypes.CDLL(str(_artifact(name)))
+    return lib

@@ -1,0 +1,128 @@
+"""Model configuration: the port's copy of ``repro.models.config.ModelConfig``.
+
+The fields and derived properties are the reference's, so a config file
+reads the same on both sides; only the two dtypes are ``torch`` dtypes.
+The port implements the dense family so far (``repro_torch.models.
+transformer``); the other families' fields are kept so that their config
+files can be copied over unchanged when their slices land.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Architecture hyperparameters (exact values live in repro_torch/configs)."""
+
+    name: str = "model"
+    family: str = "dense"  # dense | moe | hybrid | ssm | encdec | vlm
+
+    # Trunk
+    num_layers: int = 2
+    d_model: int = 128
+    num_heads: int = 2
+    num_kv_heads: int = 2
+    head_dim: int = 0          # 0 -> d_model // num_heads
+    d_ff: int = 256
+    vocab_size: int = 256
+
+    # Attention
+    attention_window: int = 0   # 0 -> full attention; >0 -> sliding window
+    qkv_bias: bool = False
+    rope_theta: float = 10_000.0
+    # hybrid models: every `attn_every`-th block is attention, rest recurrent.
+    attn_every: int = 0         # 0 -> all attention
+
+    # Norm / MLP
+    norm_eps: float = 1e-6
+    norm_type: str = "rmsnorm"      # rmsnorm | layernorm
+    mlp_activation: str = "silu"    # silu | gelu  (gated for silu/gelu-glu)
+    mlp_gated: bool = True
+    tie_embeddings: bool = False
+    logit_softcap: float = 0.0
+
+    # MoE
+    num_experts: int = 0
+    num_shared_experts: int = 0
+    experts_per_token: int = 0
+    first_k_dense: int = 0          # leading layers use a dense FFN
+    d_ff_dense: int = 0             # d_ff of those dense layers (0 -> d_ff)
+    router_renormalize: bool = True
+    capacity_factor: float = 1.25
+    moe_impl: str = "gspmd"
+
+    # Recurrent (RG-LRU) blocks — RecurrentGemma
+    lru_width: int = 0              # 0 -> d_model
+    conv_width: int = 4
+
+    # RWKV6
+    rwkv_head_dim: int = 64
+
+    # Encoder-decoder (Whisper)
+    encoder_layers: int = 0
+    encoder_positions: int = 0
+
+    # VLM backbone (LLaVA) — patch embeddings are provided pre-computed.
+    num_patches: int = 0
+
+    # Numerics
+    param_dtype: torch.dtype = torch.float32
+    compute_dtype: torch.dtype = torch.bfloat16
+
+    # Performance knobs of the reference (kept so config files match;
+    # the port reads none of them yet)
+    attn_chunk: int = 1024
+    remat: bool = True
+    scan_layers: bool = True
+    seq_shard_activations: bool = True
+    unroll_loops: bool = False
+    loss_chunk: int = 0
+    microbatches: int = 1
+    decode_unroll: bool = False
+    attn_kv_gather: bool = False
+    bf16_grad_reduce: bool = False
+
+    def __post_init__(self):
+        if self.head_dim == 0:
+            object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
+        if self.family == "hybrid" and self.lru_width == 0:
+            object.__setattr__(self, "lru_width", self.d_model)
+
+    # ---- derived ------------------------------------------------------
+    @property
+    def q_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.head_dim
+
+    @property
+    def rwkv_heads(self) -> int:
+        return self.d_model // self.rwkv_head_dim
+
+    def is_attention_layer(self, layer_idx: int) -> bool:
+        """Hybrid models: attention every `attn_every` blocks (else recurrent)."""
+        if self.family != "hybrid" or self.attn_every <= 0:
+            return True
+        return (layer_idx % self.attn_every) == (self.attn_every - 1)
+
+    def is_moe_layer(self, layer_idx: int) -> bool:
+        return self.num_experts > 0 and layer_idx >= self.first_k_dense
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """True when a 500k-token decode is feasible (windowed or attn-free)."""
+        if self.family == "ssm":
+            return True
+        return self.attention_window > 0
+
+    def num_params(self) -> int:
+        """Exact parameter count from the parameter specs."""
+        from repro_torch.models.init import param_specs
+
+        return sum(math.prod(s.shape) for s in param_specs(self).values())

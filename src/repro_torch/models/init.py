@@ -1,0 +1,185 @@
+"""Parameter specification, initialisation and the weight bridge.
+
+The port's counterpart of ``repro.models.init`` for the dense family:
+the same nested-dict tree, the same keys, shapes, dtypes and init rules,
+so a tree of the reference's params (as numpy arrays) drops straight in
+through :func:`params_from_numpy`.
+
+Parameter tree layout (nested dicts of tensors):
+  embed.tok                 (vocab, d)
+  blocks.*                  stacked decoder blocks (leading L dim):
+                            ln1, ln2, attn.{wq,wk,wv,wo[,bq,bk,bv]},
+                            mlp.{wi,wg,wo}
+  final_norm                (d,)
+  lm_head                   (d, vocab)                  [absent when tied]
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models.config import ModelConfig
+
+PyTree = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: Tuple[int, ...]
+    dtype: torch.dtype = torch.float32
+    init: str = "fan_in"           # fan_in | normal | zeros | ones
+
+
+def _attn_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    d, q, kv = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    p = {
+        "wq": ParamSpec((d, q)),
+        "wk": ParamSpec((d, kv)),
+        "wv": ParamSpec((d, kv)),
+        "wo": ParamSpec((q, d)),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = ParamSpec((q,), init="zeros")
+        p["bk"] = ParamSpec((kv,), init="zeros")
+        p["bv"] = ParamSpec((kv,), init="zeros")
+    return p
+
+
+def _mlp_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    d, ff = cfg.d_model, cfg.d_ff
+    p = {"wi": ParamSpec((d, ff)), "wo": ParamSpec((ff, d))}
+    if cfg.mlp_gated:
+        p["wg"] = ParamSpec((d, ff))
+    return p
+
+
+def _decoder_block_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    p: Dict[str, Any] = {
+        "ln1": ParamSpec((cfg.d_model,), init="ones"),
+        "ln2": ParamSpec((cfg.d_model,), init="ones"),
+        "attn": _attn_specs(cfg),
+    }
+    if cfg.norm_type == "layernorm":
+        p["ln1_b"] = ParamSpec((cfg.d_model,), init="zeros")
+        p["ln2_b"] = ParamSpec((cfg.d_model,), init="zeros")
+    p["mlp"] = _mlp_specs(cfg)
+    return p
+
+
+def _map_specs(fn, tree):
+    if isinstance(tree, ParamSpec):
+        return fn(tree)
+    return {k: _map_specs(fn, v) for k, v in tree.items()}
+
+
+def check_dense(cfg: ModelConfig) -> None:
+    """Raise for a config outside the ported dense family."""
+    if cfg.family != "dense" or cfg.num_experts or cfg.first_k_dense:
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not ported yet (the port "
+            f"covers dense decoders; MoE, recurrent, enc-dec and VLM "
+            f"families come in later slices, see ROADMAP.md)")
+
+
+def spec_tree(cfg: ModelConfig) -> Dict[str, Any]:
+    check_dense(cfg)
+    d = cfg.d_model
+    tree: Dict[str, Any] = {
+        "embed": {"tok": ParamSpec((cfg.vocab_size, d), init="normal")},
+        "final_norm": ParamSpec((d,), init="ones"),
+    }
+    if cfg.norm_type == "layernorm":
+        tree["final_norm_b"] = ParamSpec((d,), init="zeros")
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = ParamSpec((d, cfg.vocab_size))
+    n = cfg.num_layers
+    tree["blocks"] = _map_specs(
+        lambda s: ParamSpec((n,) + s.shape, s.dtype, s.init),
+        _decoder_block_specs(cfg))
+    # matrix weights take cfg.param_dtype; vectors and norms stay fp32
+    if cfg.param_dtype != torch.float32:
+        tree = _map_specs(
+            lambda s: (ParamSpec(s.shape, cfg.param_dtype, s.init)
+                       if len(s.shape) >= 2 else s), tree)
+    return tree
+
+
+def param_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    """Flat {dotted.name: ParamSpec} view (for counting)."""
+    flat: Dict[str, ParamSpec] = {}
+
+    def visit(prefix, node):
+        if isinstance(node, ParamSpec):
+            flat[prefix] = node
+            return
+        for k, v in node.items():
+            visit(f"{prefix}.{k}" if prefix else k, v)
+
+    visit("", spec_tree(cfg))
+    return flat
+
+
+def _init_leaf(spec: ParamSpec, generator: torch.Generator,
+               device: torch.device) -> torch.Tensor:
+    shape, dtype = spec.shape, spec.dtype
+    if spec.init == "zeros":
+        return torch.zeros(shape, dtype=dtype, device=device)
+    if spec.init == "ones":
+        return torch.ones(shape, dtype=dtype, device=device)
+    # draws come from the generator's own device, then move
+    x = torch.randn(shape, generator=generator, device=generator.device)
+    if spec.init == "normal":
+        x = 0.02 * x
+    else:                                   # fan_in scaled
+        fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+        x = x * (1.0 / math.sqrt(max(fan_in, 1)))
+    return x.to(device=device, dtype=dtype)
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device=None) -> PyTree:
+    """Random params with the reference's init rules.  The numbers differ
+    from ``repro.models.init.init_params`` (another generator); tests that
+    need both sides on the same weights use :func:`params_from_numpy`."""
+    dev = resolve_device(device)
+    return _map_specs(lambda s: _init_leaf(s, generator, dev),
+                      spec_tree(cfg))
+
+
+def abstract_params(cfg: ModelConfig) -> PyTree:
+    """Tree of ``meta`` tensors: shapes and dtypes, nothing allocated."""
+    return _map_specs(
+        lambda s: torch.empty(s.shape, dtype=s.dtype, device="meta"),
+        spec_tree(cfg))
+
+
+def _to_tensor(a, device: torch.device,
+               dtype: Optional[torch.dtype]) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":         # ml_dtypes bf16: no numpy twin
+        t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a, copy=True))
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def params_from_numpy(tree: PyTree, device=None,
+                      dtype: Optional[torch.dtype] = None) -> PyTree:
+    """Turn a nested dict of numpy arrays (e.g. the reference's params via
+    ``np.asarray``) into the port's tree on ``device``.  Floating leaves
+    keep their dtype unless ``dtype`` is given."""
+    dev = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return _to_tensor(node, dev, dtype)
+
+    return conv(tree)

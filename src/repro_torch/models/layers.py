@@ -1,0 +1,92 @@
+"""Primitive layers (the port's ``repro.models.layers``).
+
+Same numerics contract as the reference: norms compute in fp32 and cast
+back; ``dense`` multiplies in the compute dtype with fp32 accumulation
+(cuBLAS accumulates bf16 products in fp32) and casts back; logits come
+out in fp32.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.config import ModelConfig
+
+
+def rmsnorm(x, w, eps: float):
+    dt = x.dtype
+    x32 = x.float()
+    x32 = x32 * torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + eps)
+    return (x32 * w.float()).to(dt)
+
+
+def layernorm(x, w, b, eps: float):
+    dt = x.dtype
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x32 - mu), dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * w.float() + b.float()).to(dt)
+
+
+def norm(x, block, name: str, cfg: ModelConfig):
+    if cfg.norm_type == "layernorm":
+        return layernorm(x, block[name], block[f"{name}_b"], cfg.norm_eps)
+    return rmsnorm(x, block[name], cfg.norm_eps)
+
+
+def dense(x, w, b=None):
+    """x @ w in compute dtype with fp32 accumulation."""
+    y = torch.matmul(x, w.to(x.dtype))
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y
+
+
+def _act(cfg: ModelConfig):
+    if cfg.mlp_activation == "silu":
+        return F.silu
+    # jax.nn.gelu defaults to the tanh approximation
+    return lambda h: F.gelu(h, approximate="tanh")
+
+
+def mlp(x, p, cfg: ModelConfig):
+    """(Gated) MLP: silu/gelu — SwiGLU or GeGLU when cfg.mlp_gated."""
+    act = _act(cfg)
+    h = dense(x, p["wi"])
+    if cfg.mlp_gated:
+        h = act(dense(x, p["wg"])) * h
+    else:
+        h = act(h)
+    return dense(h, p["wo"])
+
+
+def rope(x, positions, theta: float):
+    """Rotary embedding. x: (..., seq, heads, head_dim); positions: (..., seq)."""
+    head_dim = x.shape[-1]
+    half = head_dim // 2
+    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                          device=x.device) / half))
+    angles = positions[..., :, None].float() * freqs    # (..., seq, half)
+    cos = torch.cos(angles)[..., :, None, :]             # (..., seq, 1, half)
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
+def embed_tokens(tokens, w, compute_dtype):
+    return w[tokens].to(compute_dtype)
+
+
+def lm_logits(x, params, cfg: ModelConfig, softcap: float = 0.0):
+    """fp32 logits of compute-dtype inputs: both operands are rounded to
+    the compute dtype, then multiplied and summed in fp32 (the
+    reference's ``preferred_element_type=float32``)."""
+    w = params["embed"]["tok"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = torch.matmul(x.float(), w.to(x.dtype).float())
+    cap = softcap or cfg.logit_softcap
+    if cap > 0:
+        logits = cap * torch.tanh(logits / cap)
+    return logits

@@ -1,0 +1,36 @@
+"""Family dispatch façade of the port (the serving subset of
+``repro.models.model``).
+
+    prefill_fn(cfg)      -> f(params, batch)   (logits, cache)
+    paged_decode_fn(cfg) -> f(params, token, lengths, k_pages, v_pages,
+                              block_tables)    (logits, k_pages, v_pages)
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+from repro_torch.models import transformer
+from repro_torch.models.config import ModelConfig
+
+
+def supports_paged_decode(cfg: ModelConfig, max_len: int) -> bool:
+    """Whether the batched paged-decode path can serve this config: the
+    reference's rule (dense/moe caches page cleanly, a window narrower
+    than ``max_len`` does not), restricted to the dense family, the one
+    the port implements so far."""
+    if cfg.family != "dense" or cfg.num_experts or cfg.first_k_dense:
+        return False
+    return cfg.attention_window == 0 or cfg.attention_window >= max_len
+
+
+def prefill_fn(cfg: ModelConfig, max_len: int = 0,
+               attn_impl: str = "auto") -> Callable:
+    return lambda p, b: transformer.prefill(p, b, cfg, max_len=max_len,
+                                            attn_impl=attn_impl)
+
+
+def paged_decode_fn(cfg: ModelConfig, attn_impl: str = "auto") -> Callable:
+    """f(params, token, lengths, k_pages, v_pages, block_tables) ->
+    (logits, k_pages, v_pages) — see transformer.paged_decode_step."""
+    return lambda p, t, ln, kp, vp, bt: transformer.paged_decode_step(
+        p, t, ln, kp, vp, bt, cfg, attn_impl=attn_impl)

@@ -1,0 +1,188 @@
+"""Batched real-model executor: one decode at fixed width over the paged
+KV pool (the port's ``repro.serve.batched_executor.JaxBatchedExecutor``).
+
+The design is the reference's:
+
+  * **fixed batch width** — the decode runs at ``n_slots`` rows; a live
+    request is a *row assignment*, admission pops a free row, detach
+    pushes it back.  Inactive rows carry ``length == 0`` and an all-null
+    block table, so they mask out inside the paged-attention kernel
+    instead of changing any shape;
+  * **block-table ABI** — the engine allocates/grows/frees block tables
+    on ``self.kv``; before each decode the executor re-reads the live
+    tables and lengths into its fixed (W,)/(W, nb_max) host arrays, so
+    allocator state IS the kernel's gather map (one extra *null* page
+    backs inactive rows' writes);
+  * **prefill** — each admitted prompt runs a batch-1 prefill (the
+    flash-attention kernel on CUDA), then its cache scatters into the
+    request's pages.
+
+JAX compiles the decode once and counts compiles as its zero-recompile
+probe; PyTorch runs eagerly, so the port records the signature of the
+decode's inputs instead (:meth:`decode_shape_count` stays 1 across
+admission churn).
+
+Construct the engine with ``kv_cache=executor.kv`` — the allocator must
+be shared or the gather map and the bookkeeping drift apart.
+"""
+from __future__ import annotations
+
+import time
+from typing import Callable, Dict, List, Sequence, Set, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import model, transformer
+from repro_torch.models.init import init_params
+from repro_torch.serve.kv_cache import FLASH_ATTENTION_BLOCK_K, PagedKVCache
+
+
+class TorchBatchedExecutor:
+    """Fixed-width batched paged decode for the continuous engine.
+
+    ``params=None`` draws random params from a ``torch.Generator`` seeded
+    with 0; otherwise the given tree (e.g. ``params_from_numpy``
+    of the reference's) is used as it is.  ``attn_impl`` selects the
+    attention of both phases ("auto" = the kernels on CUDA, the plain
+    versions on the CPU).
+    """
+
+    def __init__(self, cfg, max_len: int, n_slots: int,
+                 clock: Callable[[], float] = time.monotonic,
+                 attn_impl: str = "auto", device=None, params=None):
+        if not model.supports_paged_decode(cfg, max_len):
+            raise ValueError(
+                f"family {cfg.family!r} (window={cfg.attention_window}) "
+                f"does not support paged decode")
+        self.cfg = cfg
+        self.max_len = max_len
+        self.n_slots = n_slots
+        self.clock = clock
+        self.device = resolve_device(device)
+        self.block_tokens = FLASH_ATTENTION_BLOCK_K
+        self.nb_max = -(-max_len // self.block_tokens)
+        n_blocks = n_slots * self.nb_max
+        # the allocator the engine must share (kv_cache=executor.kv)
+        self.kv = PagedKVCache(n_blocks, self.block_tokens)
+        self.null_page = n_blocks          # pool holds n_blocks + 1 pages
+        shape = transformer.paged_kv_shape(cfg, n_blocks + 1,
+                                           self.block_tokens)
+        self._kp = torch.zeros(shape, dtype=cfg.compute_dtype,
+                               device=self.device)
+        self._vp = torch.zeros_like(self._kp)
+        if params is None:
+            params = init_params(cfg, torch.Generator().manual_seed(0),
+                                 self.device)
+        self.params = params
+        self._prefill = model.prefill_fn(cfg, max_len=max_len,
+                                         attn_impl=attn_impl)
+        self._step = model.paged_decode_fn(cfg, attn_impl=attn_impl)
+
+        # host-side row state (fixed width W)
+        self.rows: Dict[int, int] = {}              # rid -> row
+        self._free_rows: List[int] = list(range(n_slots - 1, -1, -1))
+        self._tok = np.zeros((n_slots,), np.int32)
+        self._len = np.zeros((n_slots,), np.int32)
+        self._tables = np.full((n_slots, self.nb_max), self.null_page,
+                               np.int32)
+        # what a run did: prefilled requests, decode calls, and the
+        # distinct decode input signatures (the zero-recompile analogue)
+        self.prefills = 0
+        self.decode_steps = 0
+        self._decode_shapes: Set[Tuple] = set()
+
+    # ---- introspection ----------------------------------------------------
+    def decode_shape_count(self) -> int:
+        """Distinct (shape, dtype) signatures the decode was called with;
+        1 for any run: admission and detach never change a shape."""
+        return len(self._decode_shapes)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _dev(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.device)
+
+    # ---- executor protocol ------------------------------------------------
+    def prefill(self, reqs: Sequence) -> Tuple[List[int], float]:
+        t0 = self.clock()
+        pend = []
+        with torch.inference_mode():
+            for r in reqs:
+                if r.prompt is None:
+                    raise ValueError(
+                        f"request {r.rid} carries no prompt tokens")
+                row = self._free_rows.pop()
+                self.rows[r.rid] = row
+                prompt = np.asarray(r.prompt, np.int64)
+                logits, cache = self._prefill(
+                    self.params, {"tokens": self._dev(prompt[None, :])})
+                tok = torch.argmax(logits, -1)
+                table = np.asarray(self.kv.block_table(r.rid), np.int64)
+                pos = np.arange(prompt.shape[-1])
+                transformer.scatter_prefill_pages(
+                    cache, self.cfg, self._kp, self._vp,
+                    self._dev(table[pos // self.block_tokens]),
+                    self._dev(pos % self.block_tokens))
+                self._len[row] = prompt.shape[-1]
+                self.prefills += 1
+                pend.append((row, tok))
+        self._sync()
+        cost = max(0.0, self.clock() - t0)
+        toks = []
+        for row, tok in pend:
+            t = int(tok[0])
+            self._tok[row] = t
+            toks.append(t)
+        return toks, cost
+
+    def decode(self, reqs: Sequence) -> Tuple[List[int], float]:
+        t0 = self.clock()
+        # refresh the gather map from the allocator (the engine's
+        # append_token may have claimed fresh blocks since last step)
+        for r in reqs:
+            row = self.rows[r.rid]
+            self._len[row] = self.kv.seq_len(r.rid)
+            table = self.kv.block_table(r.rid)
+            self._tables[row, :len(table)] = table
+        args = [self._dev(a) for a in (self._tok, self._len, self._tables)]
+        self._decode_shapes.add(tuple((tuple(a.shape), a.dtype)
+                                      for a in [*args, self._kp, self._vp]))
+        with torch.inference_mode():
+            logits, _, _ = self._step(self.params, args[0], args[1],
+                                      self._kp, self._vp, args[2])
+            tok_np = torch.argmax(logits, -1).to(torch.int32).cpu().numpy()
+        cost = max(0.0, self.clock() - t0)
+        self.decode_steps += 1
+        self._tok = tok_np.copy()
+        return [int(tok_np[self.rows[r.rid]]) for r in reqs], cost
+
+    def release(self, req) -> None:
+        row = self.rows.pop(req.rid, None)
+        if row is None:
+            return
+        self._free_rows.append(row)
+        self._tok[row] = 0
+        self._len[row] = 0
+        self._tables[row, :] = self.null_page
+
+
+def make_executor(cfg, max_len: int, n_slots: int,
+                  clock: Callable[[], float] = time.monotonic,
+                  attn_impl: str = "auto", device=None, params=None):
+    """The batched paged executor and its allocator (pass the allocator
+    to the engine).  Families without paged decode raise: the per-slot
+    executor they need is not ported yet (a later slice, ROADMAP.md), and
+    there is no silent substitute."""
+    if not model.supports_paged_decode(cfg, max_len):
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} needs the per-slot "
+            f"executor, which comes with the per-slot executor slice "
+            f"(ROADMAP.md); only batched paged decode is ported")
+    ex = TorchBatchedExecutor(cfg, max_len, n_slots, clock=clock,
+                              attn_impl=attn_impl, device=device,
+                              params=params)
+    return ex, ex.kv

@@ -1,0 +1,66 @@
+"""Boundaries of the port: it imports neither JAX nor the reference
+package, and its entry points refuse to run on the host unless asked."""
+import ast
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_no_jax_or_reference_imports(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), f"{path}: {mod}"
+
+
+def test_port_has_modules_and_smoke_script():
+    names = {p.relative_to(ROOT / "src").as_posix() for p in PORT_FILES[:-1]}
+    assert {"repro_torch/serve/batched_executor.py",
+            "repro_torch/launch/serve.py",
+            "repro_torch/kernels/paged_attention/paged_attention.py",
+            "repro_torch/kernels/flash_attention/flash_attention.py"} <= names
+    assert PORT_FILES[-1].exists()
+
+
+def test_resolve_device_raises_without_cuda(monkeypatch):
+    from repro_torch.device import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.serve import main
+    from repro_torch.models.init import init_params
+    from repro_torch.serve.batched_executor import TorchBatchedExecutor
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke("smollm-135m")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["--smoke", "--requests", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TorchBatchedExecutor(cfg, 32, 2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_params(cfg, torch.Generator().manual_seed(0))

@@ -1,0 +1,142 @@
+"""Card-only: each CUDA kernel against its plain version on the card, and
+the batched executor on the card against the same executor on the host.
+
+The kernels have no CPU mode, so every test here carries the ``cuda``
+marker and skips without a card.  On a machine with one:
+
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_kernels_cuda.py
+
+Tolerances: fp32 atol/rtol 1e-5 (the same fp32 arithmetic in another
+order; TF32 is off); bf16 atol 1.6e-2, rtol 1e-2 — both sides compute in
+fp32 and round once to bf16, so they differ by at most one bf16 ulp,
+2^-6 = 0.0156 for outputs below 4 in magnitude.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels.flash_attention import \
+    flash_attention as fmod  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import \
+    flash_attention_bshd  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.paged_attention import \
+    paged_attention as pmod  # noqa: E402
+from repro_torch.kernels.paged_attention.ref import \
+    paged_attention_ref  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+TOLS = {torch.float32: dict(atol=1e-5, rtol=1e-5),
+        torch.bfloat16: dict(atol=1.6e-2, rtol=1e-2)}
+
+
+@pytest.fixture(autouse=True)
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the port's kernels have no CPU mode")
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield torch.device("cuda")
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
+
+
+def _close(out, ref, dtype):
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), **TOLS[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,hq,hkv,sq,d,window", [
+    (1, 9, 3, 1, 64, 0), (1, 9, 3, 127, 64, 0), (1, 9, 3, 129, 64, 0),
+    (1, 9, 3, 300, 64, 0), (1, 9, 3, 300, 64, 100), (2, 3, 1, 77, 16, 0),
+    (2, 4, 2, 150, 32, 40), (1, 10, 2, 200, 128, 0)])
+def test_flash_kernel_matches_plain(card, dtype, b, hq, hkv, sq, d, window):
+    g = torch.Generator(device=card).manual_seed(sq + d)
+    q, k, v = (torch.randn((b, s, h, d), generator=g, device=card).to(dtype)
+               for s, h in ((sq, hq), (sq, hkv), (sq, hkv)))
+    n0 = fmod.LAUNCHES
+    out = flash_attention_bshd(q, k, v, window=window, impl="auto")
+    assert fmod.LAUNCHES == n0 + 1
+    ref = flash_attention_bshd(q, k, v, window=window, impl="ref")
+    _close(out, ref, dtype)
+    # contiguous (b, h, s, d) inputs straight into the kernel
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    _close(fmod.flash_attention(qt, kt, vt, window=window),
+           attention_ref(qt, kt, vt, window=window), dtype)
+
+
+def _paged_inputs(dev, dtype, b, hq, hkv, d, bt, nb, lengths, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n_pages = b * nb + 1
+    q = torch.randn((b, hq, d), generator=g, device=dev).to(dtype)
+    kp = torch.randn((hkv, n_pages, bt, d), generator=g, device=dev).to(dtype)
+    vp = torch.randn((hkv, n_pages, bt, d), generator=g, device=dev).to(dtype)
+    rng = np.random.default_rng(seed)
+    tables = rng.permutation(b * nb).reshape(b, nb).astype(np.int32)
+    for r, n in enumerate(lengths):
+        tables[r, -(-n // bt):] = n_pages - 1          # null-page tail
+    return (q, kp, vp, torch.from_numpy(tables).to(dev),
+            torch.tensor(lengths, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,hq,hkv,d,bt,nb,window,lengths", [
+    (8, 9, 3, 64, 128, 3, 0, [0, 1, 127, 128, 129, 200, 300, 384]),
+    (8, 9, 3, 64, 128, 3, 100, [0, 1, 127, 128, 129, 200, 300, 384]),
+    (4, 3, 1, 16, 16, 3, 0, [48, 0, 17, 1]),
+    (3, 10, 2, 128, 64, 4, 70, [256, 3, 130]),
+])
+def test_paged_kernel_matches_plain(card, dtype, b, hq, hkv, d, bt, nb,
+                                    window, lengths):
+    args = _paged_inputs(card, dtype, b, hq, hkv, d, bt, nb, lengths,
+                         seed=b + d + bt)
+    n0 = pmod.LAUNCHES
+    out = pmod.paged_attention(*args, window=window)
+    assert pmod.LAUNCHES == n0 + 1
+    ref = paged_attention_ref(*args, window=window)
+    _close(out, ref, dtype)
+    zero = [i for i, n in enumerate(lengths) if n == 0]
+    assert torch.all(out[zero] == 0)
+
+
+def test_executor_on_card_matches_host(card):
+    """SMOKE smollm-135m (fp32) served on the card through both kernels
+    gives the host's tokens on the same weights and requests."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.init import init_params
+    from repro_torch.serve.batched_executor import TorchBatchedExecutor
+    from repro_torch.serve.engine import (NO_SLO, ContinuousServeEngine,
+                                          ServeRequest)
+
+    cfg = get_smoke("smollm-135m")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = {}
+    def to(tree, dev):
+        if isinstance(tree, dict):
+            return {k: to(v, dev) for k, v in tree.items()}
+        return tree.to(dev)
+
+    for dev in ("cpu", "cuda"):
+        ex = TorchBatchedExecutor(cfg, 160, 4, device=dev,
+                                  params=to(params, dev))
+        rng = np.random.default_rng(1)
+        reqs = [ServeRequest(rid=i, prompt_len=n, max_new=m,
+                             prompt=rng.integers(0, cfg.vocab_size, n)
+                             .astype(np.int32))
+                for i, (n, m) in enumerate([(5, 9), (130, 20), (60, 4),
+                                            (17, 12), (99, 30), (3, 2)])]
+        n_f, n_p = fmod.LAUNCHES, pmod.LAUNCHES
+        ContinuousServeEngine(4, ex, slo=NO_SLO, kv_cache=ex.kv).run(reqs)
+        if dev == "cuda":
+            assert fmod.LAUNCHES - n_f == cfg.num_layers * ex.prefills
+            assert pmod.LAUNCHES - n_p == cfg.num_layers * ex.decode_steps
+        toks[dev] = [r.out_tokens for r in reqs]
+    assert toks["cuda"] == toks["cpu"]
