@@ -5,7 +5,7 @@
     ARCH_IDS              -> the architectures ported so far
 
 The reference registers ten architectures (``repro.configs``); the
-remaining eight come over with the slices of their families (ROADMAP.md).
+remaining six come over with the slices of their families (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -14,6 +14,8 @@ import importlib
 ARCH_IDS = (
     "smollm-135m",
     "qwen2.5-14b",
+    "deepseek-moe-16b",
+    "mixtral-8x7b",
 )
 
 _MOD = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}

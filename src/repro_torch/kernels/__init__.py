@@ -18,5 +18,5 @@ def resolve_impl(impl: str, t) -> str:
     if impl == "auto":
         return "kernel" if t.is_cuda else "ref"
     if impl not in ("kernel", "ref"):
-        raise ValueError(f"unknown attention impl: {impl!r}")
+        raise ValueError(f"unknown kernel impl: {impl!r}")
     return impl

@@ -1,4 +1,4 @@
-// Helpers shared by the port's attention kernels: dtype conversion to
+// Helpers shared by the port's kernels: dtype conversion to
 // and from fp32, and warp reductions.  Every kernel computes in fp32 and
 // takes fp32 or bf16 tensors (dtype code 0 = fp32, 1 = bf16).
 #pragma once

@@ -2,9 +2,10 @@
 
 The fields and derived properties are the reference's, so a config file
 reads the same on both sides; only the two dtypes are ``torch`` dtypes.
-The port implements the dense family so far (``repro_torch.models.
-transformer``); the other families' fields are kept so that their config
-files can be copied over unchanged when their slices land.
+The port implements the dense and MoE families so far
+(``repro_torch.models.transformer``); the other families' fields are kept
+so that their config files can be copied over unchanged when their
+slices land.
 """
 from __future__ import annotations
 

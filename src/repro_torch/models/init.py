@@ -1,15 +1,19 @@
 """Parameter specification, initialisation and the weight bridge.
 
-The port's counterpart of ``repro.models.init`` for the dense family:
-the same nested-dict tree, the same keys, shapes, dtypes and init rules,
-so a tree of the reference's params (as numpy arrays) drops straight in
-through :func:`params_from_numpy`.
+The port's counterpart of ``repro.models.init`` for the dense and MoE
+families: the same nested-dict tree, the same keys, shapes, dtypes and
+init rules, so a tree of the reference's params (as numpy arrays) drops
+straight in through :func:`params_from_numpy`.
 
 Parameter tree layout (nested dicts of tensors):
   embed.tok                 (vocab, d)
+  dense_layers.<i>          the first ``first_k_dense`` layers, unrolled:
+                            ln1, ln2, attn.*, mlp.* of width d_ff_dense
   blocks.*                  stacked decoder blocks (leading L dim):
                             ln1, ln2, attn.{wq,wk,wv,wo[,bq,bk,bv]},
-                            mlp.{wi,wg,wo}
+                            mlp.{wi,wg,wo}  or  moe.{router (d, E),
+                            experts.{wi,wg (E, d, f), wo (E, f, d)},
+                            shared.{wi,wg,wo} of width num_shared * f}
   final_norm                (d,)
   lm_head                   (d, vocab)                  [absent when tied]
 """
@@ -50,15 +54,35 @@ def _attn_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     return p
 
 
-def _mlp_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
-    d, ff = cfg.d_model, cfg.d_ff
+def _mlp_specs(cfg: ModelConfig, d_ff: int = 0) -> Dict[str, ParamSpec]:
+    d, ff = cfg.d_model, (d_ff or cfg.d_ff)
     p = {"wi": ParamSpec((d, ff)), "wo": ParamSpec((ff, d))}
     if cfg.mlp_gated:
         p["wg"] = ParamSpec((d, ff))
     return p
 
 
-def _decoder_block_specs(cfg: ModelConfig) -> Dict[str, Any]:
+def _moe_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    d, ff, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    p: Dict[str, Any] = {
+        "router": ParamSpec((d, e)),
+        "experts": {
+            "wi": ParamSpec((e, d, ff)),
+            "wg": ParamSpec((e, d, ff)),
+            "wo": ParamSpec((e, ff, d)),
+        },
+    }
+    if cfg.num_shared_experts > 0:
+        sff = cfg.num_shared_experts * ff
+        p["shared"] = {
+            "wi": ParamSpec((d, sff)),
+            "wg": ParamSpec((d, sff)),
+            "wo": ParamSpec((sff, d)),
+        }
+    return p
+
+
+def _decoder_block_specs(cfg: ModelConfig, moe: bool) -> Dict[str, Any]:
     p: Dict[str, Any] = {
         "ln1": ParamSpec((cfg.d_model,), init="ones"),
         "ln2": ParamSpec((cfg.d_model,), init="ones"),
@@ -67,7 +91,10 @@ def _decoder_block_specs(cfg: ModelConfig) -> Dict[str, Any]:
     if cfg.norm_type == "layernorm":
         p["ln1_b"] = ParamSpec((cfg.d_model,), init="zeros")
         p["ln2_b"] = ParamSpec((cfg.d_model,), init="zeros")
-    p["mlp"] = _mlp_specs(cfg)
+    if moe:
+        p["moe"] = _moe_specs(cfg)
+    else:
+        p["mlp"] = _mlp_specs(cfg)
     return p
 
 
@@ -77,17 +104,20 @@ def _map_specs(fn, tree):
     return {k: _map_specs(fn, v) for k, v in tree.items()}
 
 
-def check_dense(cfg: ModelConfig) -> None:
-    """Raise for a config outside the ported dense family."""
-    if cfg.family != "dense" or cfg.num_experts or cfg.first_k_dense:
+PORTED_FAMILIES = ("dense", "moe")
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise for a config outside the ported families."""
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet (the port "
-            f"covers dense decoders; MoE, recurrent, enc-dec and VLM "
+            f"covers dense and MoE decoders; recurrent, enc-dec and VLM "
             f"families come in later slices, see ROADMAP.md)")
 
 
 def spec_tree(cfg: ModelConfig) -> Dict[str, Any]:
-    check_dense(cfg)
+    check_ported(cfg)
     d = cfg.d_model
     tree: Dict[str, Any] = {
         "embed": {"tok": ParamSpec((cfg.vocab_size, d), init="normal")},
@@ -97,10 +127,20 @@ def spec_tree(cfg: ModelConfig) -> Dict[str, Any]:
         tree["final_norm_b"] = ParamSpec((d,), init="zeros")
     if not cfg.tie_embeddings:
         tree["lm_head"] = ParamSpec((d, cfg.vocab_size))
-    n = cfg.num_layers
+    if cfg.first_k_dense > 0:
+        tree["dense_layers"] = {
+            str(i): {
+                "ln1": ParamSpec((d,), init="ones"),
+                "ln2": ParamSpec((d,), init="ones"),
+                "attn": _attn_specs(cfg),
+                "mlp": _mlp_specs(cfg, cfg.d_ff_dense or cfg.d_ff),
+            }
+            for i in range(cfg.first_k_dense)
+        }
+    n = cfg.num_layers - cfg.first_k_dense
     tree["blocks"] = _map_specs(
         lambda s: ParamSpec((n,) + s.shape, s.dtype, s.init),
-        _decoder_block_specs(cfg))
+        _decoder_block_specs(cfg, moe=cfg.num_experts > 0))
     # matrix weights take cfg.param_dtype; vectors and norms stay fp32
     if cfg.param_dtype != torch.float32:
         tree = _map_specs(
@@ -131,21 +171,30 @@ def _init_leaf(spec: ParamSpec, generator: torch.Generator,
         return torch.zeros(shape, dtype=dtype, device=device)
     if spec.init == "ones":
         return torch.ones(shape, dtype=dtype, device=device)
-    # draws come from the generator's own device, then move
-    x = torch.randn(shape, generator=generator, device=generator.device)
     if spec.init == "normal":
-        x = 0.02 * x
+        scale = 0.02
     else:                                   # fan_in scaled
         fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
-        x = x * (1.0 / math.sqrt(max(fan_in, 1)))
-    return x.to(device=device, dtype=dtype)
+        scale = 1.0 / math.sqrt(max(fan_in, 1))
+    # draws come from the generator's own device, one slice of the leading
+    # (layer / expert) dim at a time into the preallocated leaf, so a
+    # stacked leaf never needs a second full-size fp32 temporary
+    out = torch.empty(shape, dtype=dtype, device=device)
+    parts = out if len(shape) >= 3 else out[None]
+    for part in parts:
+        x = torch.randn(part.shape, generator=generator,
+                        device=generator.device)
+        part.copy_(x.mul_(scale))
+    return out
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> PyTree:
-    """Random params with the reference's init rules.  The numbers differ
-    from ``repro.models.init.init_params`` (another generator); tests that
-    need both sides on the same weights use :func:`params_from_numpy`."""
+    """Random params with the reference's init rules, drawn on the
+    generator's device (give it one on ``device`` to keep the draws off
+    the host).  The numbers differ from ``repro.models.init.init_params``
+    (another generator); tests that need both sides on the same weights
+    use :func:`params_from_numpy`."""
     dev = resolve_device(device)
     return _map_specs(lambda s: _init_leaf(s, generator, dev),
                       spec_tree(cfg))

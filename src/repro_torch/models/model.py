@@ -15,22 +15,25 @@ from repro_torch.models.config import ModelConfig
 
 def supports_paged_decode(cfg: ModelConfig, max_len: int) -> bool:
     """Whether the batched paged-decode path can serve this config: the
-    reference's rule (dense/moe caches page cleanly, a window narrower
-    than ``max_len`` does not), restricted to the dense family, the one
-    the port implements so far."""
-    if cfg.family != "dense" or cfg.num_experts or cfg.first_k_dense:
+    reference's rule.  dense/moe caches page cleanly; the other families
+    carry state the block tables don't model; a window narrower than
+    ``max_len`` trims the prefill cache below the full positional
+    coverage the page scatter needs."""
+    if cfg.family not in ("dense", "moe"):
         return False
     return cfg.attention_window == 0 or cfg.attention_window >= max_len
 
 
-def prefill_fn(cfg: ModelConfig, max_len: int = 0,
-               attn_impl: str = "auto") -> Callable:
+def prefill_fn(cfg: ModelConfig, max_len: int = 0, attn_impl: str = "auto",
+               gmm_impl: str = "auto") -> Callable:
     return lambda p, b: transformer.prefill(p, b, cfg, max_len=max_len,
-                                            attn_impl=attn_impl)
+                                            attn_impl=attn_impl,
+                                            gmm_impl=gmm_impl)
 
 
-def paged_decode_fn(cfg: ModelConfig, attn_impl: str = "auto") -> Callable:
+def paged_decode_fn(cfg: ModelConfig, attn_impl: str = "auto",
+                    gmm_impl: str = "auto") -> Callable:
     """f(params, token, lengths, k_pages, v_pages, block_tables) ->
     (logits, k_pages, v_pages) — see transformer.paged_decode_step."""
     return lambda p, t, ln, kp, vp, bt: transformer.paged_decode_step(
-        p, t, ln, kp, vp, bt, cfg, attn_impl=attn_impl)
+        p, t, ln, kp, vp, bt, cfg, attn_impl=attn_impl, gmm_impl=gmm_impl)

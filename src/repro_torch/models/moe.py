@@ -1,0 +1,123 @@
+"""Mixture-of-Experts FFN of the port (``repro.models.moe``): top-k
+routing with capacity-bounded, sort-based dispatch (token drop on
+overflow, GShard-style), the experts' three products through the
+grouped-matmul kernel (``repro_torch.kernels.moe_gmm``).
+
+Only the reference's single-device branch is ported (``moe_gspmd``, the
+one ``moe_block`` takes with no mesh); the expert- and tensor-parallel
+branches come with the distribution slice.
+
+Two departures from the reference's arithmetic, neither changing the
+function: the dispatch writes each kept row once (dropped rows go to a
+spare row of the buffer) instead of scatter-adding, and the combine sums
+each token's k rows in a fixed order (the top-k order) instead of
+scatter-adding in the experts' order, so a bf16 run on the card gives
+the same result every time.  In fp32 the second changes the sum's order
+only (about 1e-7 relative).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels.moe_gmm.ops import moe_gmm
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import _act, dense
+
+
+def router_topk(x2d, router_w, cfg: ModelConfig):
+    """x2d: (T, d) -> gates (T, k) fp32, expert idx (T, k) int64, aux loss
+    (the Switch load-balancing loss)."""
+    logits = x2d.float() @ router_w.float()
+    probs = torch.softmax(logits, dim=-1)
+    gates, idx = torch.topk(probs, cfg.experts_per_token, dim=-1)
+    if cfg.router_renormalize:
+        gates = gates / (gates.sum(dim=-1, keepdim=True) + 1e-9)
+    e = cfg.num_experts
+    me = torch.nn.functional.one_hot(idx[:, 0], e).float().mean(dim=0)
+    ce = probs.mean(dim=0)
+    aux = e * torch.sum(me * ce)
+    return gates, idx, aux
+
+
+def capacity(n_tokens: int, cfg: ModelConfig) -> int:
+    c = int(math.ceil(n_tokens * cfg.experts_per_token
+                      / cfg.num_experts * cfg.capacity_factor))
+    return max(8, -(-c // 8) * 8)  # round up to 8, as the reference does
+
+
+def build_dispatch(idx, n_tokens: int, cap: int, cfg: ModelConfig):
+    """Sort assignments by expert; compute (expert, slot) for each (token, k).
+
+    Returns sorted token ids, expert ids, slot-in-expert, keep mask
+    (slot < capacity) and the sorting order; all shape (T*k,).
+    """
+    k = cfg.experts_per_token
+    flat_e = idx.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    pos = torch.arange(n_tokens * k, device=idx.device)
+    tok = (pos // k)[order]
+    e_sorted = flat_e[order]
+    starts = torch.searchsorted(
+        e_sorted, torch.arange(cfg.num_experts, device=idx.device,
+                               dtype=e_sorted.dtype))
+    slot = pos - starts[e_sorted]
+    keep = slot < cap
+    return tok, e_sorted, slot, keep, order
+
+
+def expert_ffn(xe, experts, cfg: ModelConfig, *, gmm_impl: str = "auto"):
+    """xe: (E, C, d) batched through each expert's gated MLP -> (E, C, d);
+    each product is one grouped matmul (fp32 sums, xe's dtype out)."""
+    act = _act(cfg)
+    h = moe_gmm(xe, experts["wi"].to(xe.dtype), impl=gmm_impl)
+    g = moe_gmm(xe, experts["wg"].to(xe.dtype), impl=gmm_impl)
+    h = act(g) * h
+    return moe_gmm(h, experts["wo"].to(xe.dtype), impl=gmm_impl)
+
+
+def moe_gspmd(x, p, cfg: ModelConfig, *, gmm_impl: str = "auto"):
+    """x: (b, s, d) -> (b, s, d), aux_loss."""
+    b, s, d = x.shape
+    t = b * s
+    k = cfg.experts_per_token
+    x2d = x.reshape(t, d)
+    gates, idx, aux = router_topk(x2d, p["router"], cfg)
+    cap = capacity(t, cfg)
+    tok, e_sorted, slot, keep, order = build_dispatch(idx, t, cap, cfg)
+
+    # each kept assignment owns its (expert, slot) row; dropped ones all
+    # land on one spare row past the buffer, which the experts never see
+    n_rows = cfg.num_experts * cap
+    dest = torch.where(keep, e_sorted * cap + slot,
+                       torch.full_like(slot, n_rows))
+    buf = x.new_zeros((n_rows + 1, d))
+    buf[dest] = x2d[tok]
+    ye = expert_ffn(buf[:n_rows].view(cfg.num_experts, cap, d),
+                    p["experts"], cfg, gmm_impl=gmm_impl)
+
+    # gather expert outputs back, weighted by gate prob, then sum each
+    # token's k rows in top-k order
+    g_sorted = gates.reshape(-1)[order]
+    w = torch.where(keep, g_sorted, torch.zeros_like(g_sorted)).to(x.dtype)
+    out_rows = ye.reshape(n_rows, d)[torch.where(keep, dest, 0)] * w[:, None]
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(t * k, device=x.device)
+    out = out_rows[inv].view(t, k, d).sum(dim=1)
+
+    if cfg.num_shared_experts > 0:
+        out = out + _shared(x2d, p["shared"], cfg)
+    return out.reshape(b, s, d), aux
+
+
+def _shared(x2d, shared, cfg: ModelConfig):
+    act = _act(cfg)
+    h = dense(x2d, shared["wi"])
+    h = act(dense(x2d, shared["wg"])) * h
+    return dense(h, shared["wo"])
+
+
+def moe_block(x, p, cfg: ModelConfig, *, gmm_impl: str = "auto"):
+    """The MoE FFN: the reference's ``moe_block`` without a mesh."""
+    return moe_gspmd(x, p, cfg, gmm_impl=gmm_impl)

@@ -24,9 +24,18 @@ admission churn).
 
 Construct the engine with ``kv_cache=executor.kv`` — the allocator must
 be shared or the gather map and the bookkeeping drift apart.
+
+MoE configs decode with ``capacity_factor`` raised to ``num_experts``
+(drop-free routing, :func:`decode_config`): at fixed width W a garbage
+inactive row must never evict an active token from an expert buffer, and
+a capacity that admits every assignment makes each row's expert output
+independent of its batch neighbours — the token identity with the
+reference the tests pin.  Prefill keeps the config's own factor, as the
+reference's does.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Callable, Dict, List, Sequence, Set, Tuple
 
@@ -39,19 +48,31 @@ from repro_torch.models.init import init_params
 from repro_torch.serve.kv_cache import FLASH_ATTENTION_BLOCK_K, PagedKVCache
 
 
+def decode_config(cfg):
+    """The config the batched decode runs: for MoE, ``capacity_factor``
+    raised to ``num_experts`` so every assignment has a slot."""
+    if cfg.num_experts > 0:
+        return dataclasses.replace(
+            cfg, capacity_factor=max(cfg.capacity_factor,
+                                     float(cfg.num_experts)))
+    return cfg
+
+
 class TorchBatchedExecutor:
     """Fixed-width batched paged decode for the continuous engine.
 
-    ``params=None`` draws random params from a ``torch.Generator`` seeded
-    with 0; otherwise the given tree (e.g. ``params_from_numpy``
-    of the reference's) is used as it is.  ``attn_impl`` selects the
-    attention of both phases ("auto" = the kernels on CUDA, the plain
+    ``params=None`` draws random params from a ``torch.Generator`` on the
+    executor's device seeded with 0; otherwise the given tree (e.g.
+    ``params_from_numpy`` of the reference's) is used as it is.
+    ``attn_impl`` selects the attention of both phases and ``gmm_impl``
+    the experts' grouped matmul ("auto" = the kernels on CUDA, the plain
     versions on the CPU).
     """
 
     def __init__(self, cfg, max_len: int, n_slots: int,
                  clock: Callable[[], float] = time.monotonic,
-                 attn_impl: str = "auto", device=None, params=None):
+                 attn_impl: str = "auto", device=None, params=None,
+                 gmm_impl: str = "auto"):
         if not model.supports_paged_decode(cfg, max_len):
             raise ValueError(
                 f"family {cfg.family!r} (window={cfg.attention_window}) "
@@ -73,12 +94,15 @@ class TorchBatchedExecutor:
                                device=self.device)
         self._vp = torch.zeros_like(self._kp)
         if params is None:
-            params = init_params(cfg, torch.Generator().manual_seed(0),
-                                 self.device)
+            params = init_params(
+                cfg, torch.Generator(self.device).manual_seed(0), self.device)
         self.params = params
         self._prefill = model.prefill_fn(cfg, max_len=max_len,
-                                         attn_impl=attn_impl)
-        self._step = model.paged_decode_fn(cfg, attn_impl=attn_impl)
+                                         attn_impl=attn_impl,
+                                         gmm_impl=gmm_impl)
+        self._step = model.paged_decode_fn(decode_config(cfg),
+                                           attn_impl=attn_impl,
+                                           gmm_impl=gmm_impl)
 
         # host-side row state (fixed width W)
         self.rows: Dict[int, int] = {}              # rid -> row
@@ -172,7 +196,8 @@ class TorchBatchedExecutor:
 
 def make_executor(cfg, max_len: int, n_slots: int,
                   clock: Callable[[], float] = time.monotonic,
-                  attn_impl: str = "auto", device=None, params=None):
+                  attn_impl: str = "auto", device=None, params=None,
+                  gmm_impl: str = "auto"):
     """The batched paged executor and its allocator (pass the allocator
     to the engine).  Families without paged decode raise: the per-slot
     executor they need is not ported yet (a later slice, ROADMAP.md), and
@@ -184,5 +209,5 @@ def make_executor(cfg, max_len: int, n_slots: int,
             f"(ROADMAP.md); only batched paged decode is ported")
     ex = TorchBatchedExecutor(cfg, max_len, n_slots, clock=clock,
                               attn_impl=attn_impl, device=device,
-                              params=params)
+                              params=params, gmm_impl=gmm_impl)
     return ex, ex.kv

@@ -35,7 +35,9 @@ def test_port_has_modules_and_smoke_script():
     assert {"repro_torch/serve/batched_executor.py",
             "repro_torch/launch/serve.py",
             "repro_torch/kernels/paged_attention/paged_attention.py",
-            "repro_torch/kernels/flash_attention/flash_attention.py"} <= names
+            "repro_torch/kernels/flash_attention/flash_attention.py",
+            "repro_torch/kernels/moe_gmm/moe_gmm.py",
+            "repro_torch/models/moe.py"} <= names
     assert PORT_FILES[-1].exists()
 
 

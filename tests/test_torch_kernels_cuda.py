@@ -1,4 +1,6 @@
-"""Card-only: each CUDA kernel against its plain version on the card, and
+"""Card-only: each CUDA kernel against its plain version on the card
+(attention also at deepseek-moe-16b's head shape, d 128 with one query
+head per kv head; the grouped matmul at ragged and deepseek shapes), and
 the batched executor on the card against the same executor on the host.
 
 The kernels have no CPU mode, so every test here carries the ``cuda``
@@ -21,6 +23,8 @@ from repro_torch.kernels.flash_attention import \
 from repro_torch.kernels.flash_attention.ops import \
     flash_attention_bshd  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.moe_gmm import moe_gmm as gmod  # noqa: E402
+from repro_torch.kernels.moe_gmm.ref import moe_gmm_ref  # noqa: E402
 from repro_torch.kernels.paged_attention import \
     paged_attention as pmod  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import \
@@ -56,7 +60,8 @@ def _close(out, ref, dtype):
 @pytest.mark.parametrize("b,hq,hkv,sq,d,window", [
     (1, 9, 3, 1, 64, 0), (1, 9, 3, 127, 64, 0), (1, 9, 3, 129, 64, 0),
     (1, 9, 3, 300, 64, 0), (1, 9, 3, 300, 64, 100), (2, 3, 1, 77, 16, 0),
-    (2, 4, 2, 150, 32, 40), (1, 10, 2, 200, 128, 0)])
+    (2, 4, 2, 150, 32, 40), (1, 10, 2, 200, 128, 0),
+    (1, 16, 16, 129, 128, 0), (1, 16, 16, 300, 128, 0)])
 def test_flash_kernel_matches_plain(card, dtype, b, hq, hkv, sq, d, window):
     g = torch.Generator(device=card).manual_seed(sq + d)
     q, k, v = (torch.randn((b, s, h, d), generator=g, device=card).to(dtype)
@@ -93,6 +98,7 @@ def _paged_inputs(dev, dtype, b, hq, hkv, d, bt, nb, lengths, seed):
     (8, 9, 3, 64, 128, 3, 100, [0, 1, 127, 128, 129, 200, 300, 384]),
     (4, 3, 1, 16, 16, 3, 0, [48, 0, 17, 1]),
     (3, 10, 2, 128, 64, 4, 70, [256, 3, 130]),
+    (8, 16, 16, 128, 128, 3, 0, [0, 1, 127, 128, 129, 200, 300, 364]),
 ])
 def test_paged_kernel_matches_plain(card, dtype, b, hq, hkv, d, bt, nb,
                                     window, lengths):
@@ -107,16 +113,35 @@ def test_paged_kernel_matches_plain(card, dtype, b, hq, hkv, d, bt, nb,
     assert torch.all(out[zero] == 0)
 
 
-def test_executor_on_card_matches_host(card):
-    """SMOKE smollm-135m (fp32) served on the card through both kernels
-    gives the host's tokens on the same weights and requests."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("e,c,k,f", [
+    (4, 24, 64, 44), (3, 5, 37, 19), (2, 130, 100, 70),
+    (64, 24, 2048, 1408), (64, 48, 2048, 1408), (64, 48, 1408, 2048)])
+def test_moe_gmm_kernel_matches_plain(card, dtype, e, c, k, f):
+    g = torch.Generator(device=card).manual_seed(e + c + k + f)
+    x = torch.randn((e, c, k), generator=g, device=card).to(dtype)
+    w = (torch.randn((e, k, f), generator=g, device=card)
+         * k ** -0.5).to(dtype)
+    n0 = gmod.LAUNCHES
+    out = gmod.moe_gmm(x, w)
+    assert gmod.LAUNCHES == n0 + 1
+    assert out.dtype == dtype and tuple(out.shape) == (e, c, f)
+    _close(out, moe_gmm_ref(x, w), dtype)
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "deepseek-moe-16b"])
+def test_executor_on_card_matches_host(card, arch):
+    """SMOKE config (fp32) served on the card through the kernels gives
+    the host's tokens on the same weights and requests."""
     from repro_torch.configs import get_smoke
     from repro_torch.models.init import init_params
     from repro_torch.serve.batched_executor import TorchBatchedExecutor
     from repro_torch.serve.engine import (NO_SLO, ContinuousServeEngine,
                                           ServeRequest)
 
-    cfg = get_smoke("smollm-135m")
+    cfg = get_smoke(arch)
+    n_moe = (cfg.num_layers - cfg.first_k_dense) if cfg.num_experts else 0
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     toks = {}
     def to(tree, dev):
@@ -133,10 +158,12 @@ def test_executor_on_card_matches_host(card):
                              .astype(np.int32))
                 for i, (n, m) in enumerate([(5, 9), (130, 20), (60, 4),
                                             (17, 12), (99, 30), (3, 2)])]
-        n_f, n_p = fmod.LAUNCHES, pmod.LAUNCHES
+        n_f, n_p, n_g = fmod.LAUNCHES, pmod.LAUNCHES, gmod.LAUNCHES
         ContinuousServeEngine(4, ex, slo=NO_SLO, kv_cache=ex.kv).run(reqs)
         if dev == "cuda":
             assert fmod.LAUNCHES - n_f == cfg.num_layers * ex.prefills
             assert pmod.LAUNCHES - n_p == cfg.num_layers * ex.decode_steps
+            assert gmod.LAUNCHES - n_g == 3 * n_moe * (ex.prefills
+                                                       + ex.decode_steps)
         toks[dev] = [r.out_tokens for r in reqs]
     assert toks["cuda"] == toks["cpu"]

@@ -1,6 +1,7 @@
 """The port's model against the reference on the same weights (the JAX
 params through ``params_from_numpy``), fp32 SMOKE on the CPU, for
-smollm-135m and qwen2.5-14b (QKV bias):
+smollm-135m, qwen2.5-14b (QKV bias) and deepseek-moe-16b (a dense first
+layer, then MoE blocks with shared experts):
 
 * ``prefill`` logits and the decode cache match ``transformer.prefill``;
 * ``scatter_prefill_pages`` then 8 steps of ``paged_decode_step`` match
@@ -24,7 +25,7 @@ from repro_torch.configs import get_smoke as tsmoke  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
 from repro_torch.models.init import params_from_numpy  # noqa: E402
 
-ARCHS = ["smollm-135m", "qwen2.5-14b"]
+ARCHS = ["smollm-135m", "qwen2.5-14b", "deepseek-moe-16b"]
 LOGIT_TOL = dict(atol=1e-4, rtol=1e-4)
 
 
@@ -55,11 +56,15 @@ def test_prefill_logits_and_cache_match_reference(arch, seq):
                          max_len=24)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGIT_TOL)
     assert tc["pos"].tolist() == np.asarray(jc["pos"]).tolist()
-    for name in ("k", "v"):
-        assert tuple(tc["blocks"][name].shape) == jc["blocks"][name].shape
-        np.testing.assert_allclose(tc["blocks"][name].numpy(),
-                                   np.asarray(jc["blocks"][name]),
-                                   atol=1e-5, rtol=1e-5)
+    assert tc.keys() == jc.keys()
+    layers = [(tc["blocks"], jc["blocks"])] + [
+        (tc["dense_layers"][i], jc["dense_layers"][i])
+        for i in jc.get("dense_layers", {})]
+    for t, j in layers:
+        for name in ("k", "v"):
+            assert tuple(t[name].shape) == j[name].shape
+            np.testing.assert_allclose(t[name].numpy(), np.asarray(j[name]),
+                                       atol=1e-5, rtol=1e-5)
 
 
 def test_ring_place_matches_reference():

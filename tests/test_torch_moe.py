@@ -1,0 +1,121 @@
+"""MoE FFN of the port (``repro_torch.models.moe``) against the
+reference's (``repro.models.moe``) for deepseek-moe-16b and mixtral-8x7b
+SMOKE, fp32 on the CPU, on the reference's params (one MoE block,
+through ``params_from_numpy``) and the same numpy inputs: the router
+(gates, expert ids, aux loss), the capacity, the sort-based dispatch,
+the expert FFN, and the whole block both with token drops (the config's
+capacity factor 1.25 and inputs that crowd a few experts) and with the
+batched decode's raised capacity (no drops).
+
+Tolerances: expert ids, capacity and dispatch exact; gates and aux
+atol/rtol 1e-6; block and FFN outputs atol/rtol 1e-5 — fp32 sums in
+another order, the port summing each token's k rows in top-k order
+where the reference scatter-adds in expert order.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_smoke as jsmoke  # noqa: E402
+from repro.models import init as jinit  # noqa: E402
+from repro.models import moe as jmoe  # noqa: E402
+from repro_torch.configs import get_smoke as tsmoke  # noqa: E402
+from repro_torch.models import moe as tmoe  # noqa: E402
+from repro_torch.models.init import params_from_numpy  # noqa: E402
+from repro_torch.serve.batched_executor import decode_config  # noqa: E402
+
+ARCHS = ["deepseek-moe-16b", "mixtral-8x7b"]
+OUT_TOL = dict(atol=1e-5, rtol=1e-5)
+GATE_TOL = dict(atol=1e-6, rtol=1e-6)
+
+
+def _block(arch):
+    """The reference's first MoE block params, both sides."""
+    jcfg, tcfg = jsmoke(arch), tsmoke(arch)
+    jp = jinit.init_params(jcfg, jax.random.key(3))
+    moe = jax.tree.map(lambda a: np.asarray(a[0]), jp["blocks"]["moe"])
+    return jcfg, tcfg, jax.tree.map(jnp.asarray, moe), \
+        params_from_numpy(moe, "cpu")
+
+
+def _x(cfg, b, s, seed, crowd=0.0):
+    """Normal inputs; ``crowd`` adds one shared direction to every token,
+    so the router sends most tokens to the same few experts."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, s, cfg.d_model)).astype(np.float32)
+    return x + crowd * rng.standard_normal(cfg.d_model).astype(np.float32)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_router_topk_matches_reference(arch):
+    jcfg, tcfg, jp, tp = _block(arch)
+    x = _x(tcfg, 1, 40, seed=1)[0]
+    jg, ji, ja = jmoe.router_topk(jnp.asarray(x), jp["router"], jcfg)
+    tg, ti, ta = tmoe.router_topk(torch.from_numpy(x), tp["router"], tcfg)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(tg.numpy(), np.asarray(jg), **GATE_TOL)
+    np.testing.assert_allclose(ta.item(), float(ja), **GATE_TOL)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_capacity_matches_reference(arch):
+    jcfg, tcfg = jsmoke(arch), tsmoke(arch)
+    for cf in (1.0, 1.25, 2.0, float(tcfg.num_experts)):
+        jc = dataclasses.replace(jcfg, capacity_factor=cf)
+        tc = dataclasses.replace(tcfg, capacity_factor=cf)
+        for n in (1, 3, 8, 40, 77, 300):
+            assert tmoe.capacity(n, tc) == jmoe.capacity(n, jc)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_build_dispatch_matches_reference(arch):
+    jcfg, tcfg = jsmoke(arch), tsmoke(arch)
+    n, k = 50, tcfg.experts_per_token
+    rng = np.random.default_rng(5)
+    # skewed expert choice, distinct within a token, so some overflow
+    idx = np.stack([rng.choice(tcfg.num_experts, k, replace=False,
+                               p=np.linspace(3, 1, tcfg.num_experts) /
+                               np.linspace(3, 1, tcfg.num_experts).sum())
+                    for _ in range(n)]).astype(np.int32)
+    cap = tmoe.capacity(n, tcfg)
+    ref = jmoe.build_dispatch(jnp.asarray(idx), n, cap, jcfg)
+    got = tmoe.build_dispatch(torch.from_numpy(idx).long(), n, cap, tcfg)
+    for r, g in zip(ref, got):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    assert not bool(got[3].all())                     # tokens were dropped
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_expert_ffn_matches_reference(arch):
+    jcfg, tcfg, jp, tp = _block(arch)
+    xe = _x(tcfg, tcfg.num_experts, 8, seed=6)
+    ref = jmoe.expert_ffn(jnp.asarray(xe), jp["experts"], jcfg)
+    got = tmoe.expert_ffn(torch.from_numpy(xe), tp["experts"], tcfg)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **OUT_TOL)
+
+
+@pytest.mark.parametrize("drops", [True, False], ids=["drops", "decode_cf"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_moe_block_matches_reference(arch, drops):
+    jcfg, tcfg, jp, tp = _block(arch)
+    if not drops:
+        jcfg = dataclasses.replace(
+            jcfg, capacity_factor=float(jcfg.num_experts))
+        tcfg = decode_config(tcfg)
+        assert tcfg.capacity_factor == jcfg.capacity_factor
+    x = _x(tcfg, 2, 24, seed=7, crowd=3.0 if drops else 0.0)
+    t = 2 * 24
+    _, idx, _ = tmoe.router_topk(torch.from_numpy(x).reshape(t, -1),
+                                 tp["router"], tcfg)
+    keep = tmoe.build_dispatch(idx, t, tmoe.capacity(t, tcfg), tcfg)[3]
+    assert bool(keep.all()) != drops                  # the case it claims
+    ref, raux = jmoe.moe_block(jnp.asarray(x), jp, jcfg)
+    got, gaux = tmoe.moe_block(torch.from_numpy(x), tp, tcfg)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **OUT_TOL)
+    np.testing.assert_allclose(gaux.item(), float(raux), **GATE_TOL)

@@ -17,7 +17,7 @@ from repro.models import init as jinit  # noqa: E402
 from repro_torch import configs as tcfgs  # noqa: E402
 from repro_torch.models import init as tinit  # noqa: E402
 
-ARCHS = ["smollm-135m", "qwen2.5-14b"]
+ARCHS = ["smollm-135m", "qwen2.5-14b", "deepseek-moe-16b", "mixtral-8x7b"]
 
 
 def _flat(tree, prefix=""):
@@ -63,10 +63,37 @@ def test_config_fields_match_reference(arch, size):
 
 
 def test_unported_family_raises():
-    cfg = dataclasses.replace(tcfgs.get_smoke("smollm-135m"), family="moe",
-                              num_experts=4)
+    cfg = dataclasses.replace(tcfgs.get_smoke("smollm-135m"), family="ssm")
     with pytest.raises(NotImplementedError, match="not ported"):
         tinit.spec_tree(cfg)
+
+
+def test_moe_init_rules_and_layout():
+    """deepseek-moe-16b's tree at reduced depth: one unrolled dense layer
+    of width d_ff_dense, stacked MoE blocks with (E, d, f) experts and
+    fan-in scaled draws, bf16 matrices under param_dtype=bf16."""
+    cfg = dataclasses.replace(tcfgs.get_config("deepseek-moe-16b"),
+                              num_layers=3, num_experts=4, vocab_size=512,
+                              param_dtype=torch.bfloat16)
+    p = tinit.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    q = tinit.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    for a, b in zip(_flat(p).values(), _flat(q).values()):
+        assert torch.equal(a, b)
+    assert p["dense_layers"]["0"]["mlp"]["wi"].shape == (2048, 11264)
+    moe = p["blocks"]["moe"]
+    assert moe["experts"]["wi"].shape == (2, 4, 2048, 1408)
+    assert moe["experts"]["wo"].shape == (2, 4, 1408, 2048)
+    assert moe["shared"]["wg"].shape == (2, 2048, 2 * 1408)
+    assert moe["router"].shape == (2, 2048, 4)
+    assert moe["experts"]["wi"].dtype == torch.bfloat16
+    assert p["final_norm"].dtype == torch.float32
+    wi = moe["experts"]["wi"].float()
+    assert abs(wi.std().item() - 2048 ** -0.5) < 1e-3
+    assert abs(moe["experts"]["wo"].float().std().item()
+               - 1408 ** -0.5) < 1e-3
+    # each layer and expert slice is its own draw
+    assert not torch.equal(wi[0, 0], wi[0, 1])
+    assert not torch.equal(wi[0], wi[1])
 
 
 def test_init_rules_and_seeding():

@@ -4,14 +4,15 @@
   reference's weights through ``params_from_numpy``) against the
   reference's ``ContinuousServeEngine`` over ``JaxBatchedExecutor``
   (attn_impl="ref"), both under ``TickClock(dt=1.0)``, on the
-  ``batched_tiny`` request stream of BENCH_serve.json: every request's
-  tokens are identical and ``ServeReport.as_dict()`` is equal field by
-  field.
+  ``batched_tiny`` request stream of BENCH_serve.json, for smollm-135m
+  and deepseek-moe-16b (MoE decode at the raised capacity): every
+  request's tokens are identical and ``ServeReport.as_dict()`` is equal
+  field by field.
 * Accounting alone: the port's copied engine / allocator / ledger with
   ``SimulatedExecutor`` give the reference's report exactly, including
   SLO breaches and preemption.
 * The CLI runs with ``--smoke --device cpu`` and, under a TickClock,
-  reports what the reference's CLI reports.
+  reports what the reference's CLI reports, for both archs.
 """
 import json
 from pathlib import Path
@@ -55,9 +56,10 @@ def _stream(eng_mod, cfg, vocab):
     return reqs
 
 
-def test_batched_tiny_tokens_and_report_match_reference():
-    assert BENCH["arch"] == "smollm-135m" and BENCH["attn_impl"] == "ref"
-    jcfg, tcfg = jsmoke(BENCH["arch"]), tsmoke(BENCH["arch"])
+def _engine_parity(arch):
+    """Both engines over the same stream and weights; returns the port's
+    executor after asserting identical tokens and equal reports."""
+    jcfg, tcfg = jsmoke(arch), tsmoke(arch)
     n_slots, max_len = BENCH["n_slots"], BENCH["max_len"]
     # a tight SLO so both engines book on-time and late decode
     slo_args = dict(ttft=6.0, tpot=2.0)
@@ -86,6 +88,17 @@ def test_batched_tiny_tokens_and_report_match_reference():
     assert trep.as_dict() == jrep.as_dict()
     assert 0 < trep.tokens_within_slo < trep.tokens     # both phases seen
     assert tex.decode_shape_count() == 1
+    return tex
+
+
+def test_batched_tiny_tokens_and_report_match_reference():
+    assert BENCH["arch"] == "smollm-135m" and BENCH["attn_impl"] == "ref"
+    tex = _engine_parity(BENCH["arch"])
+    assert tex.prefills == 24 and tex.decode_steps == 57
+
+
+def test_deepseek_engine_tokens_and_report_match_reference():
+    tex = _engine_parity("deepseek-moe-16b")
     assert tex.prefills == 24 and tex.decode_steps == 57
 
 
@@ -113,12 +126,14 @@ def test_simulated_engine_report_matches_reference():
     assert trep.as_dict() == jrep.as_dict()
 
 
-def test_cli_smoke_on_cpu_matches_reference_cli(capsys):
+@pytest.mark.parametrize("arch", ["smollm-135m", "deepseek-moe-16b"])
+def test_cli_smoke_on_cpu_matches_reference_cli(capsys, arch):
     """Same flags, TickClock time: the report is a function of the request
     stream and the clock, so the two CLIs agree although their random
     weights differ."""
-    argv = ["--smoke", "--requests", "9", "--batch", "4", "--prompt-len",
-            "16", "--max-new", "6", "--tick-dt", "1", "--slo-ttft", "4"]
+    argv = ["--arch", arch, "--smoke", "--requests", "9", "--batch", "4",
+            "--prompt-len", "16", "--max-new", "6", "--tick-dt", "1",
+            "--slo-ttft", "4"]
     out = tserve_cli.main(argv + ["--device", "cpu"])
     capsys.readouterr()
     jserve_cli.main(argv)
@@ -138,6 +153,9 @@ def test_make_executor_raises_for_unported_families():
     windowed = dataclasses.replace(tsmoke("smollm-135m"), attention_window=8)
     with pytest.raises(ValueError, match="paged"):
         TorchBatchedExecutor(windowed, 32, 2, device="cpu")
+    # mixtral's SMOKE window (16) is narrower than the 32-token max_len
+    with pytest.raises(NotImplementedError, match="per-slot"):
+        make_executor(tsmoke("mixtral-8x7b"), 32, 2, device="cpu")
     ex, kv = make_executor(tsmoke("smollm-135m"), 32, 2, device="cpu")
     assert kv is ex.kv
 
