@@ -5,7 +5,7 @@
     ARCH_IDS              -> the architectures ported so far
 
 The reference registers ten architectures (``repro.configs``); the
-remaining six come over with the slices of their families (ROADMAP.md).
+remaining four come over with the slices of their families (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -16,6 +16,8 @@ ARCH_IDS = (
     "qwen2.5-14b",
     "deepseek-moe-16b",
     "mixtral-8x7b",
+    "recurrentgemma-2b",
+    "rwkv6-3b",
 )
 
 _MOD = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}

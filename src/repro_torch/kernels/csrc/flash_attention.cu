@@ -15,8 +15,13 @@
 // limit is latency: launch, one pass over the kv tiles, and a grid of a
 // few dozen blocks on 132 SMs.
 //
+// recurrentgemma-2b's 8 attention layers (hq 10, hkv 1, d 256, window
+// 2048) are the same latency-bound case at four times the head width.
+//
 // Design: one block per (b, hq, 64-row q tile); 8 warps, each owning 8
-// query rows.  A loop over 128-key kv tiles inside the block takes the
+// query rows.  A loop over kv tiles of kBK = 128 keys (64 at d 256, where
+// a 128-key tile would need 328 KB of shared memory, over the 227 KB a
+// block may opt into) inside the block takes the
 // place of the TPU's sequential kv grid dimension; it starts at the
 // window's first tile and stops at the causal diagonal, so fully masked
 // tiles are never loaded.  Each tile's K and V are staged once in shared
@@ -32,11 +37,16 @@
 namespace {
 
 constexpr int kBQ = 64;                  // query rows per block
-constexpr int kBK = 128;                 // kv tile (the Pallas block_k)
+constexpr int kBK = 128;                 // kv tile (the Pallas block_k), d <= 128
+constexpr int kBK256 = 64;               // kv tile at d 256 (shared memory)
 constexpr int kWarps = 8;
 constexpr int kRows = kBQ / kWarps;      // query rows per warp
 constexpr int kThreads = kWarps * 32;
-constexpr int kKeysPerLane = kBK / 32;
+
+template <int D>
+__host__ __device__ constexpr int kv_tile() {
+  return D <= 128 ? kBK : kBK256;
+}
 
 struct Strides {
   long long b, h, s;                     // in elements; d is contiguous
@@ -44,7 +54,7 @@ struct Strides {
 
 template <int D>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (kBQ * D + kBK * (D + 1) + kBK * D);
+  return sizeof(float) * (kBQ * D + kv_tile<D>() * (2 * D + 1));
 }
 
 template <typename T, int D>
@@ -54,12 +64,14 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           int skv, Strides qs, Strides ks, Strides vs, Strides os,
           int causal, int window, float scale) {
   using repro::kNegInf;
+  constexpr int BK = kv_tile<D>();
+  constexpr int kKeysPerLane = BK / 32;
   constexpr int kDPL = (D + 31) / 32;    // output dims per lane
   constexpr int kKS = D + 1;             // padded K row stride
   extern __shared__ float smem[];
   float* Qs = smem;                      // kBQ x D, pre-scaled
-  float* Ks = Qs + kBQ * D;              // kBK x kKS
-  float* Vs = Ks + kBK * kKS;            // kBK x D
+  float* Ks = Qs + kBQ * D;              // BK x kKS
+  float* Vs = Ks + BK * kKS;             // BK x D
 
   const int ih = blockIdx.y, ib = blockIdx.z;
   const int q0 = blockIdx.x * kBQ;
@@ -82,8 +94,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   const int q_last = min(q0 + kBQ, sq) - 1;
   const int k_end = causal ? min(skv, q_last + 1) : skv;
   const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int t_begin = k_begin / kBK;
-  const int t_end = (k_end + kBK - 1) / kBK;
+  const int t_begin = k_begin / BK;
+  const int t_end = (k_end + BK - 1) / BK;
 
   float m[kRows], l[kRows], acc[kRows][kDPL];
 #pragma unroll
@@ -95,9 +107,9 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   for (int t = t_begin; t < t_end; ++t) {
-    const int k0 = t * kBK;
+    const int k0 = t * BK;
     __syncthreads();                     // last tile consumed, Qs staged
-    for (int i = tid; i < kBK * D; i += kThreads) {
+    for (int i = tid; i < BK * D; i += kThreads) {
       const int r = i / D, c = i % D;
       const bool in = k0 + r < skv;
       Ks[r * kKS + c] = in ? repro::to_f32(kb[(long long)(k0 + r) * ks.s + c])
@@ -225,6 +237,9 @@ int dispatch_d(int d, const void* q, const void* k, const void* v, void* o,
                            causal, window, scale, stream);
     case 128:
       return launch<T, 128>(q, k, v, o, b, hq, g, sq, skv, qs, ks, vs, os,
+                            causal, window, scale, stream);
+    case 256:
+      return launch<T, 256>(q, k, v, o, b, hq, g, sq, skv, qs, ks, vs, os,
                             causal, window, scale, stream);
     default:
       return repro::kUnsupported;

@@ -12,11 +12,12 @@ import torch
 
 from repro_torch.kernels import _ctypes as C
 
-# the kernel's kv tile (kBK in the .cu) == the Pallas kernel's block_k ==
-# the serve allocator's page size (pinned by test against
-# repro_torch.serve.kv_cache.FLASH_ATTENTION_BLOCK_K and the source)
+# the kernel's kv tile for head_dim <= 128 (kBK in the .cu) == the Pallas
+# kernel's block_k == the serve allocator's page size (pinned by test
+# against repro_torch.serve.kv_cache.FLASH_ATTENTION_BLOCK_K and the
+# source); head_dim 256 runs 64-key tiles to fit shared memory
 BLOCK_K = 128
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 
 LAUNCHES = 0
 

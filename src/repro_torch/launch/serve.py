@@ -1,15 +1,15 @@
 """Serving launcher of the port: the continuous-batching engine over the
-batched paged-decode executor, with MPG + SLO accounting.
+batched paged-decode executor or the per-slot executor, with MPG + SLO
+accounting.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
         --requests 16 --batch 8 --prompt-len 200 --max-new 64
 
 runs on the GPU; add ``--device cpu`` (and ``--smoke`` for the reduced
 config) to run on the host.  The flags are the reference's
-(``repro.launch.serve``) that apply to this path; ``--engine static``,
-``--executor slot`` and ``--span/--arrival`` come with later slices.
-Prints the engine's ServeReport as JSON, with the executor's prefill and
-decode-call counts.
+(``repro.launch.serve``) that apply to this path; ``--engine static``
+and ``--span/--arrival`` come with later slices.  Prints the engine's
+ServeReport as JSON, with the executor's prefill and decode-call counts.
 """
 from __future__ import annotations
 
@@ -45,29 +45,37 @@ def run_continuous_server(cfg, reqs: List[ServeRequest], batch: int,
                           executor_kind: str = "auto", device=None) -> dict:
     """Drive the continuous engine over the real model; returns the
     ServeReport dict plus the arch and the executor's counts.
-    ``executor_kind`` "batched" or "auto" both take the batched paged
-    executor (the only one ported); a family without paged decode
-    raises."""
+    ``executor_kind``: "batched" decodes every live slot in one call over
+    the paged KV pool (raises for a family without paged decode), "slot"
+    runs the per-slot batch-1 executor, "auto" picks as the reference
+    does (:func:`make_executor`)."""
     from repro_torch.serve.batched_executor import (TorchBatchedExecutor,
                                                     make_executor)
+    from repro_torch.serve.slot_executor import (TorchSlotExecutor,
+                                                 slot_kv_cache)
 
     slo = ServeSLO(ttft=slo_ttft if slo_ttft > 0 else float("inf"),
                    tpot=slo_tpot if slo_tpot > 0 else float("inf"))
     if executor_kind == "batched":
         executor = TorchBatchedExecutor(cfg, max_len, batch, clock=clock,
                                         device=device)
+        kv = executor.kv
+    elif executor_kind == "slot":
+        executor = TorchSlotExecutor(cfg, max_len, clock=clock,
+                                     device=device)
+        kv = slot_kv_cache(max_len, batch)
     else:
-        executor, _ = make_executor(cfg, max_len, batch, clock=clock,
-                                    device=device)
-    engine = ContinuousServeEngine(batch, executor, slo=slo,
-                                   kv_cache=executor.kv,
+        executor, kv = make_executor(cfg, max_len, batch, clock=clock,
+                                     device=device)
+    engine = ContinuousServeEngine(batch, executor, slo=slo, kv_cache=kv,
                                    ledger=GoodputLedger(window=60.0),
                                    arch=cfg.name)
     out = engine.run(reqs).as_dict()
     out["arch"] = cfg.name
     out["executor"] = {"prefills": executor.prefills,
-                       "decode_steps": executor.decode_steps,
-                       "decode_shapes": executor.decode_shape_count()}
+                       "decode_steps": executor.decode_steps}
+    if isinstance(executor, TorchBatchedExecutor):
+        out["executor"]["decode_shapes"] = executor.decode_shape_count()
     return out
 
 
@@ -79,9 +87,11 @@ def main(argv=None) -> dict:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--max-new", type=int, default=16)
-    ap.add_argument("--executor", default="auto", choices=("auto", "batched"),
-                    help="continuous-engine executor (auto: batched paged "
-                         "decode where the family supports it)")
+    ap.add_argument("--executor", default="auto",
+                    choices=("auto", "batched", "slot"),
+                    help="continuous-engine executor: one batched paged "
+                         "decode vs per-slot batch-1 (auto picks batched "
+                         "where the family supports paged decode)")
     ap.add_argument("--slo-ttft", type=float, default=0.0,
                     help="time-to-first-token SLO in seconds (0 = none)")
     ap.add_argument("--slo-tpot", type=float, default=0.0,

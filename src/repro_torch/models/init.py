@@ -1,9 +1,10 @@
 """Parameter specification, initialisation and the weight bridge.
 
-The port's counterpart of ``repro.models.init`` for the dense and MoE
-families: the same nested-dict tree, the same keys, shapes, dtypes and
-init rules, so a tree of the reference's params (as numpy arrays) drops
-straight in through :func:`params_from_numpy`.
+The port's counterpart of ``repro.models.init`` for the dense, MoE,
+hybrid (RG-LRU) and ssm (RWKV-6) families: the same nested-dict tree, the
+same keys, shapes, dtypes and init rules, so a tree of the reference's
+params (as numpy arrays) drops straight in through
+:func:`params_from_numpy`.
 
 Parameter tree layout (nested dicts of tensors):
   embed.tok                 (vocab, d)
@@ -14,6 +15,12 @@ Parameter tree layout (nested dicts of tensors):
                             mlp.{wi,wg,wo}  or  moe.{router (d, E),
                             experts.{wi,wg (E, d, f), wo (E, f, d)},
                             shared.{wi,wg,wo} of width num_shared * f}
+  layers.<i>                hybrid: every layer unrolled: ln1, ln2, mlp.*
+                            and attn.* (attention layers) or rec.* (RG-LRU)
+  blocks.*                  ssm: stacked RWKV-6 blocks: ln1, ln2,
+                            tm.{mix (5, d), wr, wk, wv, wg, wo, decay_base,
+                            decay_a, decay_b, bonus (h, n), gn},
+                            cm.{mix (2, d), wk, wv, wr}
   final_norm                (d,)
   lm_head                   (d, vocab)                  [absent when tied]
 """
@@ -36,7 +43,7 @@ PyTree = Any
 class ParamSpec:
     shape: Tuple[int, ...]
     dtype: torch.dtype = torch.float32
-    init: str = "fan_in"           # fan_in | normal | zeros | ones
+    init: str = "fan_in"   # fan_in | normal | zeros | ones | lru_a | rwkv_decay
 
 
 def _attn_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
@@ -82,6 +89,68 @@ def _moe_specs(cfg: ModelConfig) -> Dict[str, Any]:
     return p
 
 
+def _rglru_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    """RecurrentGemma recurrent block: proj -> conv1d -> RG-LRU -> gated out."""
+    d, w = cfg.d_model, cfg.lru_width
+    return {
+        "w_y": ParamSpec((d, w)),                  # value branch
+        "w_gate": ParamSpec((d, w)),               # multiplicative gate
+        "conv_w": ParamSpec((cfg.conv_width, w)),
+        "conv_b": ParamSpec((w,), init="zeros"),
+        "lru_wa": ParamSpec((w, w)),               # recurrence gate
+        "lru_wx": ParamSpec((w, w)),               # input gate
+        "lru_ba": ParamSpec((w,), init="zeros"),
+        "lru_bx": ParamSpec((w,), init="zeros"),
+        "lru_a": ParamSpec((w,), init="lru_a"),    # log-decay param
+        "w_out": ParamSpec((w, d)),
+    }
+
+
+def _rwkv_block_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    """RWKV6 'Finch': data-dependent-decay time mix + squared-relu channel
+    mix."""
+    d, ff = cfg.d_model, cfg.d_ff
+    lora = 64
+    return {
+        "ln1": ParamSpec((d,), init="ones"),
+        "ln2": ParamSpec((d,), init="ones"),
+        "tm": {
+            # token-shift interpolation weights for (r, k, v, w, g)
+            "mix": ParamSpec((5, d), init="normal"),
+            "wr": ParamSpec((d, d)),
+            "wk": ParamSpec((d, d)),
+            "wv": ParamSpec((d, d)),
+            "wg": ParamSpec((d, d)),
+            "wo": ParamSpec((d, d)),
+            "decay_base": ParamSpec((d,), init="rwkv_decay"),
+            "decay_a": ParamSpec((d, lora), init="normal"),
+            "decay_b": ParamSpec((lora, d), init="zeros"),
+            "bonus": ParamSpec((cfg.rwkv_heads, cfg.rwkv_head_dim),
+                               init="normal"),
+            "gn": ParamSpec((d,), init="ones"),
+        },
+        "cm": {
+            "mix": ParamSpec((2, d), init="normal"),
+            "wk": ParamSpec((d, ff)),
+            "wv": ParamSpec((ff, d)),
+            "wr": ParamSpec((d, d)),
+        },
+    }
+
+
+def _hybrid_block_specs(cfg: ModelConfig, layer_idx: int) -> Dict[str, Any]:
+    p: Dict[str, Any] = {
+        "ln1": ParamSpec((cfg.d_model,), init="ones"),
+        "ln2": ParamSpec((cfg.d_model,), init="ones"),
+        "mlp": _mlp_specs(cfg),
+    }
+    if cfg.is_attention_layer(layer_idx):
+        p["attn"] = _attn_specs(cfg)
+    else:
+        p["rec"] = _rglru_specs(cfg)
+    return p
+
+
 def _decoder_block_specs(cfg: ModelConfig, moe: bool) -> Dict[str, Any]:
     p: Dict[str, Any] = {
         "ln1": ParamSpec((cfg.d_model,), init="ones"),
@@ -104,7 +173,13 @@ def _map_specs(fn, tree):
     return {k: _map_specs(fn, v) for k, v in tree.items()}
 
 
-PORTED_FAMILIES = ("dense", "moe")
+PORTED_FAMILIES = ("dense", "moe", "hybrid", "ssm")
+
+
+def _stack(tree, n: int):
+    """Prepend a stacked layer axis of length n to every spec in tree."""
+    return _map_specs(lambda s: ParamSpec((n,) + s.shape, s.dtype, s.init),
+                      tree)
 
 
 def check_ported(cfg: ModelConfig) -> None:
@@ -112,8 +187,8 @@ def check_ported(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet (the port "
-            f"covers dense and MoE decoders; recurrent, enc-dec and VLM "
-            f"families come in later slices, see ROADMAP.md)")
+            f"covers the dense, MoE, hybrid and ssm decoders; the enc-dec "
+            f"and VLM families come in later slices, see ROADMAP.md)")
 
 
 def spec_tree(cfg: ModelConfig) -> Dict[str, Any]:
@@ -127,6 +202,14 @@ def spec_tree(cfg: ModelConfig) -> Dict[str, Any]:
         tree["final_norm_b"] = ParamSpec((d,), init="zeros")
     if not cfg.tie_embeddings:
         tree["lm_head"] = ParamSpec((d, cfg.vocab_size))
+    if cfg.family == "hybrid":
+        # heterogeneous 1:2 attention:recurrent pattern -> unrolled layers
+        tree["layers"] = {str(i): _hybrid_block_specs(cfg, i)
+                          for i in range(cfg.num_layers)}
+        return _apply_param_dtype(tree, cfg)
+    if cfg.family == "ssm":
+        tree["blocks"] = _stack(_rwkv_block_specs(cfg), cfg.num_layers)
+        return _apply_param_dtype(tree, cfg)
     if cfg.first_k_dense > 0:
         tree["dense_layers"] = {
             str(i): {
@@ -137,16 +220,19 @@ def spec_tree(cfg: ModelConfig) -> Dict[str, Any]:
             }
             for i in range(cfg.first_k_dense)
         }
-    n = cfg.num_layers - cfg.first_k_dense
-    tree["blocks"] = _map_specs(
-        lambda s: ParamSpec((n,) + s.shape, s.dtype, s.init),
-        _decoder_block_specs(cfg, moe=cfg.num_experts > 0))
-    # matrix weights take cfg.param_dtype; vectors and norms stay fp32
-    if cfg.param_dtype != torch.float32:
-        tree = _map_specs(
-            lambda s: (ParamSpec(s.shape, cfg.param_dtype, s.init)
-                       if len(s.shape) >= 2 else s), tree)
-    return tree
+    tree["blocks"] = _stack(_decoder_block_specs(cfg, cfg.num_experts > 0),
+                            cfg.num_layers - cfg.first_k_dense)
+    return _apply_param_dtype(tree, cfg)
+
+
+def _apply_param_dtype(tree, cfg: ModelConfig):
+    """Leaves of two or more dims take cfg.param_dtype (as the reference's,
+    stacked vectors included); vectors and norms stay fp32."""
+    if cfg.param_dtype == torch.float32:
+        return tree
+    return _map_specs(
+        lambda s: (ParamSpec(s.shape, cfg.param_dtype, s.init)
+                   if len(s.shape) >= 2 else s), tree)
 
 
 def param_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
@@ -171,6 +257,17 @@ def _init_leaf(spec: ParamSpec, generator: torch.Generator,
         return torch.zeros(shape, dtype=dtype, device=device)
     if spec.init == "ones":
         return torch.ones(shape, dtype=dtype, device=device)
+    if spec.init == "lru_a":
+        # RG-LRU decay a = exp(-exp(p)) with a ~ U[0.9, 0.999]
+        u = torch.rand(shape, generator=generator, device=generator.device)
+        u = 0.9 + (0.999 - 0.9) * u
+        return torch.log(-torch.log(u)).to(dtype=dtype, device=device)
+    if spec.init == "rwkv_decay":
+        # per-channel decay ramp -6 .. -1 over the last dim, as in RWKV
+        d = shape[-1]
+        ramp = torch.arange(d, dtype=torch.float32) / max(d - 1, 1)
+        return torch.broadcast_to(-6.0 + 5.0 * ramp, shape).to(
+            dtype=dtype, device=device)
     if spec.init == "normal":
         scale = 0.02
     else:                                   # fan_in scaled

@@ -1,13 +1,17 @@
-"""Decoder-only LM of the port, dense and MoE families: prefill and
-batched paged decode (the counterparts of ``repro.models.transformer``).
+"""Decoder-only LM of the port, dense, MoE, hybrid (RG-LRU + local
+attention) and ssm (RWKV-6) families: prefill, the per-request decode
+step, and batched paged decode (the counterparts of
+``repro.models.transformer``).
 
-Layer stacks are a Python loop: the unrolled ``dense_layers`` first
-(``first_k_dense`` of them), then the stacked L dim of ``blocks``.
-Public functions keep the reference's layouts — the prefill cache's
-stacked KV is (L, b, S, hkv, hd) with the sequence on axis 2, the page
-pool is (L, hkv, n_pages, block_tokens, hd) — so the tests compare like
-with like.  Unlike JAX, the page pool is updated in place: the paged
-functions write into the tensors they are given and return them.
+Layer stacks are a Python loop: for dense and MoE the unrolled
+``dense_layers`` first (``first_k_dense`` of them), then the stacked L dim
+of ``blocks``; for hybrid the unrolled ``layers``; for ssm the stacked
+``blocks``.  Public functions keep the reference's layouts — the prefill
+cache's stacked KV is (L, b, S, hkv, hd) with the sequence on axis 2, the
+page pool is (L, hkv, n_pages, block_tokens, hd) — so the tests compare
+like with like.  Unlike JAX, caches are updated in place: the page pool
+and the decode step's cache tensors are written where they lie and
+returned.
 """
 from __future__ import annotations
 
@@ -16,11 +20,14 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.kernels.paged_attention.ops import paged_attention_decode
-from repro_torch.models.attention import (merge_heads_out, project_qkv,
+from repro_torch.models import rglru, rwkv
+from repro_torch.models.attention import (decode_self_attention,
+                                          merge_heads_out, project_qkv,
                                           self_attention)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.init import check_ported
-from repro_torch.models.layers import embed_tokens, lm_logits, mlp, norm
+from repro_torch.models.layers import (embed_tokens, lm_logits, mlp, norm,
+                                       rmsnorm)
 from repro_torch.models.moe import moe_block
 
 PyTree = Any
@@ -30,6 +37,21 @@ def _tree_slice(tree, i):
     if isinstance(tree, dict):
         return {k: _tree_slice(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _tree_stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _tree_stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _tree_copy_(dst, src):
+    """Copy ``src``'s tensors into ``dst``'s (same tree), in place."""
+    for k, v in src.items():
+        if isinstance(v, dict):
+            _tree_copy_(dst[k], v)
+        else:
+            dst[k].copy_(v)
 
 
 # ---------------------------------------------------------------------------
@@ -56,14 +78,77 @@ def decoder_block(x, bp, cfg: ModelConfig, *, moe: bool,
     return x + _ffn(x, bp, cfg, moe, gmm_impl), (kv if collect_kv else None)
 
 
+def hybrid_block(x, bp, cfg: ModelConfig, collect_state: bool = False,
+                 attn_impl: str = "auto", scan_impl: str = "auto"):
+    """RecurrentGemma block over a prompt: RG-LRU or local attention +
+    GeGLU MLP.  Returns (x, state | None); an attention layer's state is
+    its last min(window, s) keys and values.  (Decode runs the layers in
+    ``decode_step``.)"""
+    h = norm(x, bp, "ln1", cfg)
+    new_state = None
+    if "attn" in bp:
+        out, kv = self_attention(h, bp["attn"], cfg,
+                                 window=cfg.attention_window,
+                                 attn_impl=attn_impl)
+        if collect_state:
+            w = min(cfg.attention_window or x.shape[1], x.shape[1])
+            new_state = {"k": kv[0][:, -w:], "v": kv[1][:, -w:]}
+    else:
+        out, new_state = rglru.recurrent_block(h, bp["rec"], cfg,
+                                               scan_impl=scan_impl)
+        if not collect_state:
+            new_state = None
+    x = x + out
+    h = norm(x, bp, "ln2", cfg)
+    return x + mlp(h, bp["mlp"], cfg), new_state
+
+
+def rwkv_block(x, bp, cfg: ModelConfig, state=None,
+               collect_state: bool = False, scan_impl: str = "auto"):
+    """RWKV-6 block: time mix + channel mix, each after an RMSNorm."""
+    h = rmsnorm(x, bp["ln1"], cfg.norm_eps)
+    tm_out, tm_state = rwkv.time_mix(h, bp["tm"], cfg,
+                                     state["tm"] if state else None,
+                                     scan_impl=scan_impl)
+    x = x + tm_out
+    h = rmsnorm(x, bp["ln2"], cfg.norm_eps)
+    cm_out, cm_state = rwkv.channel_mix(h, bp["cm"], cfg,
+                                        state["cm"] if state else None)
+    x = x + cm_out
+    return x, ({"tm": tm_state, "cm": cm_state} if collect_state else None)
+
+
 def run_stack(x, params, cfg: ModelConfig, collect_caches: bool = False,
-              attn_impl: str = "auto", gmm_impl: str = "auto"):
-    """Run the dense layers, then the block stack.  Returns (hidden,
-    caches); with collect_caches, caches["dense_layers"] is a list of
-    (k, v) (b, s, hkv, hd) and caches["blocks"] = (k, v) stacked to
-    (L - first_k_dense, b, s, hkv, hd)."""
+              attn_impl: str = "auto", gmm_impl: str = "auto",
+              scan_impl: str = "auto"):
+    """Run the block stack.  Returns (hidden, caches).  With
+    collect_caches: dense / MoE give caches["dense_layers"], a list of
+    (k, v) (b, s, hkv, hd), and caches["blocks"] = (k, v) stacked to
+    (L - first_k_dense, b, s, hkv, hd); hybrid gives caches["layers"], a
+    list of per-layer states; ssm gives caches["blocks"], the per-layer
+    states stacked on a leading L dim."""
     check_ported(cfg)
     caches: Dict[str, Any] = {}
+    if cfg.family == "hybrid":
+        states = []
+        for i in range(cfg.num_layers):
+            x, st = hybrid_block(x, params["layers"][str(i)], cfg,
+                                 collect_state=collect_caches,
+                                 attn_impl=attn_impl, scan_impl=scan_impl)
+            states.append(st)
+        if collect_caches:
+            caches["layers"] = states
+        return x, caches
+    if cfg.family == "ssm":
+        states = []
+        for i in range(cfg.num_layers):
+            x, st = rwkv_block(x, _tree_slice(params["blocks"], i), cfg,
+                               collect_state=collect_caches,
+                               scan_impl=scan_impl)
+            states.append(st)
+        if collect_caches:
+            caches["blocks"] = _tree_stack(states)
+        return x, caches
     for i in range(cfg.first_k_dense):
         x, kv = decoder_block(x, params["dense_layers"][str(i)], cfg,
                               moe=False, collect_kv=collect_caches,
@@ -84,11 +169,19 @@ def run_stack(x, params, cfg: ModelConfig, collect_caches: bool = False,
     return x, caches
 
 
+def _embed(tokens, params, cfg: ModelConfig):
+    """Token embedding; hybrid scales it by sqrt(d_model), rounded to the
+    compute dtype first as the reference does (50.596 -> 50.5 in bf16)."""
+    x = embed_tokens(tokens, params["embed"]["tok"], cfg.compute_dtype)
+    if cfg.family == "hybrid":
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.compute_dtype)
+    return x
+
+
 def embed_inputs(params, batch, cfg: ModelConfig):
-    """Token embedding (dense and MoE families). Returns (b, s, d)."""
+    """Token embedding of a prompt batch. Returns (b, s, d)."""
     check_ported(cfg)
-    return embed_tokens(batch["tokens"], params["embed"]["tok"],
-                        cfg.compute_dtype)
+    return _embed(batch["tokens"], params, cfg)
 
 
 def ring_place(kv, seq_end: int, s_slots: int, seq_axis: int):
@@ -111,14 +204,16 @@ def ring_place(kv, seq_end: int, s_slots: int, seq_axis: int):
 
 
 def prefill(params, batch, cfg: ModelConfig, max_len: int = 0,
-            attn_impl: str = "auto", gmm_impl: str = "auto"):
+            attn_impl: str = "auto", gmm_impl: str = "auto",
+            scan_impl: str = "auto"):
     """Forward over a prompt; returns (last-token logits (b, V) fp32,
     decode cache).  ``max_len`` sizes the cache (default prompt + 64)."""
     x = embed_inputs(params, batch, cfg)
     b, seq = x.shape[:2]
     max_len = max_len or seq + 64
     x, caches = run_stack(x, params, cfg, collect_caches=True,
-                          attn_impl=attn_impl, gmm_impl=gmm_impl)
+                          attn_impl=attn_impl, gmm_impl=gmm_impl,
+                          scan_impl=scan_impl)
     x = norm(x, params, "final_norm", cfg)
     logits = lm_logits(x[:, -1:], params, cfg)[:, 0]
     return logits, _caches_to_decode_cache(caches, cfg, seq, max_len, b)
@@ -126,11 +221,28 @@ def prefill(params, batch, cfg: ModelConfig, max_len: int = 0,
 
 def _caches_to_decode_cache(caches, cfg: ModelConfig, seq: int, max_len: int,
                             batch: int):
-    """Dense / MoE branch of the reference's conversion: each dense
-    layer's (b, s, hkv, hd) KV ring-placed on the seq axis (1), the
-    stacked blocks' (L, b, s, hkv, hd) KV on axis 2."""
+    """The reference's conversion of prefill caches to the decode cache,
+    which carries a per-row position vector ``pos`` (batch,).  Dense /
+    MoE: each dense layer's (b, s, hkv, hd) KV ring-placed on the seq axis
+    (1), the stacked blocks' (L, b, s, hkv, hd) KV on axis 2.  Hybrid:
+    attention layers' KV ring-placed into min(window, max_len) slots,
+    recurrent states as they are.  ssm: the stacked states as they are."""
     window = cfg.attention_window or max_len
     s_slots = min(window, max_len)
+    dev = _tree_device(caches)
+    out: Dict[str, Any] = {
+        "pos": torch.full((batch,), seq, dtype=torch.int32, device=dev)}
+    if cfg.family == "hybrid":
+        w = min(cfg.attention_window, max_len)
+        out["layers"] = {
+            str(i): (st if "h" in st else
+                     {name: ring_place(st[name].to(cfg.compute_dtype), seq,
+                                       w, 1) for name in ("k", "v")})
+            for i, st in enumerate(caches["layers"])}
+        return out
+    if cfg.family == "ssm":
+        out["blocks"] = caches["blocks"]
+        return out
 
     def trim(kv, seq_axis):
         k, v = kv
@@ -139,15 +251,128 @@ def _caches_to_decode_cache(caches, cfg: ModelConfig, seq: int, max_len: int,
                 "v": ring_place(v.to(cfg.compute_dtype), seq, s_slots,
                                 seq_axis)}
 
-    k_st = caches["blocks"][0]
-    out: Dict[str, Any] = {
-        "pos": torch.full((batch,), seq, dtype=torch.int32,
-                          device=k_st.device)}
     if "dense_layers" in caches:
         out["dense_layers"] = {
             str(i): trim(kv, 1) for i, kv in enumerate(caches["dense_layers"])}
     out["blocks"] = trim(caches["blocks"], 2)
     return out
+
+
+def _tree_device(tree) -> torch.device:
+    """The device of the first tensor in a (nested) tree."""
+    while isinstance(tree, (dict, list, tuple)):
+        tree = next(iter(tree.values())) if isinstance(tree, dict) else tree[0]
+    return tree.device
+
+
+# ---------------------------------------------------------------------------
+# per-request decode (stacked ring cache; the per-slot executor's path)
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device=None):
+    """Zero decode cache of the reference's stacked layout for ``batch``
+    rows and ``seq_len`` positions (the reference's ``decode_unroll``
+    layout is not ported)."""
+    check_ported(cfg)
+    s_slots = min(cfg.attention_window or seq_len, seq_len)
+    hkv, hd, dt = cfg.num_kv_heads, cfg.head_dim, cfg.compute_dtype
+
+    def zeros(shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    cache: Dict[str, Any] = {"pos": zeros((batch,), torch.int32)}
+    if cfg.family == "hybrid":
+        w = min(cfg.attention_window, seq_len)
+        cache["layers"] = {
+            str(i): ({"k": zeros((batch, w, hkv, hd)),
+                      "v": zeros((batch, w, hkv, hd))}
+                     if cfg.is_attention_layer(i) else
+                     {"conv": zeros((batch, cfg.conv_width - 1,
+                                     cfg.lru_width)),
+                      "h": zeros((batch, cfg.lru_width), torch.float32)})
+            for i in range(cfg.num_layers)}
+        return cache
+    if cfg.family == "ssm":
+        h, n, L = cfg.rwkv_heads, cfg.rwkv_head_dim, cfg.num_layers
+        cache["blocks"] = {
+            "tm": {"last": zeros((L, batch, cfg.d_model)),
+                   "s": zeros((L, batch, h, n, n), torch.float32)},
+            "cm": {"last": zeros((L, batch, cfg.d_model))}}
+        return cache
+    for i in range(cfg.first_k_dense):
+        cache.setdefault("dense_layers", {})[str(i)] = {
+            "k": zeros((batch, s_slots, hkv, hd)),
+            "v": zeros((batch, s_slots, hkv, hd))}
+    n = cfg.num_layers - cfg.first_k_dense
+    cache["blocks"] = {"k": zeros((n, batch, s_slots, hkv, hd)),
+                       "v": zeros((n, batch, s_slots, hkv, hd))}
+    return cache
+
+
+def decode_step(params, token, cache, cfg: ModelConfig, *,
+                gmm_impl: str = "auto"):
+    """One decode step against a per-request cache (``prefill``'s or
+    ``init_cache``'s).  token: (b,) int.  ``cache["pos"]`` is a scalar
+    shared by the rows or a (b,) vector; each row writes its KV at slot
+    pos % S of the ring and attends over min(pos + 1, S) slots.
+
+    Returns (logits (b, V) fp32, cache with pos + 1).  The cache's tensors
+    are updated in place; a recurrent layer's new state replaces its
+    entry.  The decode step runs no kernel of the port but the MoE
+    experts' grouped matmul (``gmm_impl``): one-token attention, the
+    RG-LRU step and the WKV step are plain torch, as in the reference.
+    """
+    check_ported(cfg)
+    x = _embed(token[:, None], params, cfg)
+    pos = torch.as_tensor(cache["pos"], device=x.device)
+    new_cache: Dict[str, Any] = {"pos": pos + 1}
+
+    if cfg.family == "hybrid":
+        layers = {}
+        for i in range(cfg.num_layers):
+            bp = params["layers"][str(i)]
+            st = cache["layers"][str(i)]
+            h = norm(x, bp, "ln1", cfg)
+            if "attn" in bp:
+                out, lc = decode_self_attention(h, bp["attn"], cfg,
+                                                {**st, "pos": pos})
+                layers[str(i)] = {"k": lc["k"], "v": lc["v"]}
+            else:
+                out, layers[str(i)] = rglru.recurrent_block(h, bp["rec"], cfg,
+                                                            st)
+            x = x + out
+            x = x + mlp(norm(x, bp, "ln2", cfg), bp["mlp"], cfg)
+        new_cache["layers"] = layers
+    elif cfg.family == "ssm":
+        blocks = cache["blocks"]
+        for i in range(cfg.num_layers):
+            x, st = rwkv_block(x, _tree_slice(params["blocks"], i), cfg,
+                               state=_tree_slice(blocks, i),
+                               collect_state=True)
+            _tree_copy_(_tree_slice(blocks, i), st)
+        new_cache["blocks"] = blocks
+
+    else:
+        def layer(x, bp, lc, moe):
+            h = norm(x, bp, "ln1", cfg)
+            out, _ = decode_self_attention(h, bp["attn"], cfg,
+                                           {**lc, "pos": pos})
+            x = x + out
+            return x + _ffn(x, bp, cfg, moe, gmm_impl)
+
+        for i in range(cfg.first_k_dense):
+            lc = cache["dense_layers"][str(i)]
+            x = layer(x, params["dense_layers"][str(i)], lc, False)
+            new_cache.setdefault("dense_layers", {})[str(i)] = {
+                "k": lc["k"], "v": lc["v"]}
+        ks, vs = cache["blocks"]["k"], cache["blocks"]["v"]
+        for i in range(ks.shape[0]):
+            x = layer(x, _tree_slice(params["blocks"], i),
+                      {"k": ks[i], "v": vs[i]}, cfg.num_experts > 0)
+        new_cache["blocks"] = {"k": ks, "v": vs}
+
+    x = norm(x, params, "final_norm", cfg)
+    return lm_logits(x[:, -1], params, cfg), new_cache
 
 
 # ---------------------------------------------------------------------------

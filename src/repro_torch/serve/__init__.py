@@ -1,7 +1,8 @@
 """Serve path of the port: the continuous-batching engine and paged KV
-allocator (copies of the reference's), and the batched paged-decode
-executor over the real model (``repro_torch.serve.batched_executor``,
-imported by callers)."""
+allocator (copies of the reference's), and the two executors over the
+real model — batched paged decode (``repro_torch.serve.batched_executor``,
+whose ``make_executor`` picks between them) and per-slot batch-1 decode
+(``repro_torch.serve.slot_executor``) — imported by callers."""
 from repro_torch.serve.engine import (NO_SLO, ContinuousServeEngine,
                                       ServeReport, ServeRequest, ServeSLO,
                                       SimulatedExecutor)

@@ -46,6 +46,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import model, transformer
 from repro_torch.models.init import init_params
 from repro_torch.serve.kv_cache import FLASH_ATTENTION_BLOCK_K, PagedKVCache
+from repro_torch.serve.slot_executor import TorchSlotExecutor, slot_kv_cache
 
 
 def decode_config(cfg):
@@ -198,16 +199,16 @@ def make_executor(cfg, max_len: int, n_slots: int,
                   clock: Callable[[], float] = time.monotonic,
                   attn_impl: str = "auto", device=None, params=None,
                   gmm_impl: str = "auto"):
-    """The batched paged executor and its allocator (pass the allocator
-    to the engine).  Families without paged decode raise: the per-slot
-    executor they need is not ported yet (a later slice, ROADMAP.md), and
-    there is no silent substitute."""
-    if not model.supports_paged_decode(cfg, max_len):
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} needs the per-slot "
-            f"executor, which comes with the per-slot executor slice "
-            f"(ROADMAP.md); only batched paged decode is ported")
-    ex = TorchBatchedExecutor(cfg, max_len, n_slots, clock=clock,
-                              attn_impl=attn_impl, device=device,
-                              params=params, gmm_impl=gmm_impl)
-    return ex, ex.kv
+    """The executor the reference's ``run_continuous_server`` picks, and
+    the allocator to pass to the engine: the batched paged executor (its
+    own allocator) where ``model.supports_paged_decode`` holds, else the
+    per-slot executor with the reference's block sizing
+    (:func:`slot_kv_cache`).  Nothing else is substituted."""
+    if model.supports_paged_decode(cfg, max_len):
+        ex = TorchBatchedExecutor(cfg, max_len, n_slots, clock=clock,
+                                  attn_impl=attn_impl, device=device,
+                                  params=params, gmm_impl=gmm_impl)
+        return ex, ex.kv
+    ex = TorchSlotExecutor(cfg, max_len, clock=clock, attn_impl=attn_impl,
+                           device=device, params=params, gmm_impl=gmm_impl)
+    return ex, slot_kv_cache(max_len, n_slots)

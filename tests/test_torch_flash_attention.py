@@ -1,9 +1,10 @@
 """Flash attention of the port: its plain version against the reference's
 oracle (``attention_ref``), the reference's XLA chunked ``attention``
 (attn_chunk=8) and the Pallas kernel in interpret mode, on the same numpy
-inputs in fp32.  Covers GQA with g=3, causal, sliding windows and ragged
-sequence lengths.  The CUDA kernel itself is held against the plain
-version on the card (test_torch_kernels_cuda.py, chip_smoke.py).
+inputs in fp32.  Covers GQA with g=3 and g=10 (recurrentgemma's MQA at
+head_dim 256), causal, sliding windows and ragged sequence lengths.  The
+CUDA kernel itself is held against the plain version on the card
+(test_torch_kernels_cuda.py, chip_smoke.py).
 
 Tolerance 1e-5 (atol and rtol): the same fp32 arithmetic in another
 summation order.
@@ -41,6 +42,7 @@ CASES = [
     (1, 9, 3, 300, 16, True, 0),       # three tiles, ragged tail
     (2, 6, 3, 200, 32, True, 48),      # sliding window across tiles
     (1, 4, 4, 96, 16, False, 0),       # MHA, non-causal
+    (1, 10, 1, 40, 256, True, 16),     # recurrentgemma: d 256, MQA g=10
 ]
 
 
@@ -110,8 +112,10 @@ def test_kernel_refuses_cpu_tensors():
 
 
 def test_block_k_pinned_to_allocator_page_and_cuda_source():
-    """The kernel's kv tile is the serve allocator's page size (as the
-    reference pins the Pallas block_k), in Python and in the .cu."""
+    """The kernel's kv tile for head_dim <= 128 is the serve allocator's
+    page size (as the reference pins the Pallas block_k), in Python and in
+    the .cu; head_dim 256 runs a 64-key tile (shared memory), which no
+    page size depends on."""
     from repro.kernels.flash_attention.flash_attention import flash_attention
 
     assert kmod.BLOCK_K == FLASH_ATTENTION_BLOCK_K == 128
@@ -120,3 +124,5 @@ def test_block_k_pinned_to_allocator_page_and_cuda_source():
     src = (Path(kmod.__file__).parents[1] / "csrc"
            / "flash_attention.cu").read_text()
     assert int(re.search(r"kBK = (\d+);", src).group(1)) == kmod.BLOCK_K
+    assert int(re.search(r"kBK256 = (\d+);", src).group(1)) == 64
+    assert 256 in kmod.HEAD_DIMS

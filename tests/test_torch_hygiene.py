@@ -37,7 +37,12 @@ def test_port_has_modules_and_smoke_script():
             "repro_torch/kernels/paged_attention/paged_attention.py",
             "repro_torch/kernels/flash_attention/flash_attention.py",
             "repro_torch/kernels/moe_gmm/moe_gmm.py",
-            "repro_torch/models/moe.py"} <= names
+            "repro_torch/models/moe.py",
+            "repro_torch/serve/slot_executor.py",
+            "repro_torch/kernels/rglru_scan/rglru_scan.py",
+            "repro_torch/kernels/rwkv6_wkv/rwkv6_wkv.py",
+            "repro_torch/models/rglru.py",
+            "repro_torch/models/rwkv.py"} <= names
     assert PORT_FILES[-1].exists()
 
 
@@ -56,7 +61,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from repro_torch.configs import get_smoke
     from repro_torch.launch.serve import main
     from repro_torch.models.init import init_params
-    from repro_torch.serve.batched_executor import TorchBatchedExecutor
+    from repro_torch.serve.batched_executor import (TorchBatchedExecutor,
+                                                    make_executor)
+    from repro_torch.serve.slot_executor import TorchSlotExecutor
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_smoke("smollm-135m")
@@ -64,5 +71,12 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         main(["--smoke", "--requests", "1"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         TorchBatchedExecutor(cfg, 32, 2)
+    rg = get_smoke("recurrentgemma-2b")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TorchSlotExecutor(rg, 32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_executor(rg, 32, 2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["--smoke", "--arch", "rwkv6-3b", "--executor", "slot"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         init_params(cfg, torch.Generator().manual_seed(0))

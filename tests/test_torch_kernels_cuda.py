@@ -1,7 +1,9 @@
 """Card-only: each CUDA kernel against its plain version on the card
 (attention also at deepseek-moe-16b's head shape, d 128 with one query
-head per kv head; the grouped matmul at ragged and deepseek shapes), and
-the batched executor on the card against the same executor on the host.
+head per kv head, and recurrentgemma-2b's, d 256 with a group of 10; the
+grouped matmul at ragged and deepseek shapes; both scans at their
+models' widths, ragged lengths and a nonzero initial state), and both
+executors on the card against the same executor on the host.
 
 The kernels have no CPU mode, so every test here carries the ``cuda``
 marker and skips without a card.  On a machine with one:
@@ -11,7 +13,9 @@ marker and skips without a card.  On a machine with one:
 Tolerances: fp32 atol/rtol 1e-5 (the same fp32 arithmetic in another
 order; TF32 is off); bf16 atol 1.6e-2, rtol 1e-2 — both sides compute in
 fp32 and round once to bf16, so they differ by at most one bf16 ulp,
-2^-6 = 0.0156 for outputs below 4 in magnitude.
+2^-6 = 0.0156 for outputs below 4 in magnitude.  The RWKV-6 state sums
+hundreds of outer products (entries up to ~100), so its fp32 outputs and
+states are held to atol/rtol 1e-4 (the CPU parity bound).
 """
 import numpy as np
 import pytest
@@ -29,6 +33,10 @@ from repro_torch.kernels.paged_attention import \
     paged_attention as pmod  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import \
     paged_attention_ref  # noqa: E402
+from repro_torch.kernels.rglru_scan import rglru_scan as smod  # noqa: E402
+from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref  # noqa: E402
+from repro_torch.kernels.rwkv6_wkv import rwkv6_wkv as wmod  # noqa: E402
+from repro_torch.kernels.rwkv6_wkv.ref import rwkv6_wkv_ref  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -61,7 +69,9 @@ def _close(out, ref, dtype):
     (1, 9, 3, 1, 64, 0), (1, 9, 3, 127, 64, 0), (1, 9, 3, 129, 64, 0),
     (1, 9, 3, 300, 64, 0), (1, 9, 3, 300, 64, 100), (2, 3, 1, 77, 16, 0),
     (2, 4, 2, 150, 32, 40), (1, 10, 2, 200, 128, 0),
-    (1, 16, 16, 129, 128, 0), (1, 16, 16, 300, 128, 0)])
+    (1, 16, 16, 129, 128, 0), (1, 16, 16, 300, 128, 0),
+    (1, 10, 1, 300, 256, 0), (1, 10, 1, 300, 256, 100),
+    (2, 10, 1, 65, 256, 0)])
 def test_flash_kernel_matches_plain(card, dtype, b, hq, hkv, sq, d, window):
     g = torch.Generator(device=card).manual_seed(sq + d)
     q, k, v = (torch.randn((b, s, h, d), generator=g, device=card).to(dtype)
@@ -130,40 +140,100 @@ def test_moe_gmm_kernel_matches_plain(card, dtype, e, c, k, f):
     _close(out, moe_gmm_ref(x, w), dtype)
 
 
-@pytest.mark.parametrize("arch", ["smollm-135m", "deepseek-moe-16b"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("batch,seq,ch,with_h0", [
+    (1, 300, 2560, False), (1, 300, 2560, True), (3, 37, 200, True),
+    (2, 1, 64, False)])
+def test_rglru_scan_kernel_matches_plain(card, dtype, batch, seq, ch,
+                                         with_h0):
+    g = torch.Generator(device=card).manual_seed(seq + ch)
+    a = torch.rand((batch, seq, ch), generator=g, device=card).to(dtype)
+    b = torch.randn((batch, seq, ch), generator=g, device=card).to(dtype)
+    h0 = (torch.randn((batch, ch), generator=g, device=card)
+          if with_h0 else None)
+    n0 = smod.LAUNCHES
+    out = smod.rglru_scan(a, b, h0)
+    assert smod.LAUNCHES == n0 + 1
+    assert out.dtype == dtype and out.shape == a.shape
+    _close(out, rglru_scan_ref(a, b, h0), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,s,h,n,with_s0", [
+    (1, 300, 40, 64, False), (1, 128, 40, 64, True), (2, 40, 4, 16, True),
+    (1, 1, 2, 32, False)])
+def test_rwkv6_wkv_kernel_matches_plain(card, dtype, b, s, h, n, with_s0):
+    g = torch.Generator(device=card).manual_seed(s + h + n)
+    # the model's layout: (b, s, h*n) projections viewed as (b, s, h, n)
+    r, k, v = (torch.randn((b, s, h * n), generator=g, device=card)
+               .to(dtype).view(b, s, h, n) * 0.5 for _ in range(3))
+    logw = (-torch.exp(torch.empty((b, s, h, n), device=card)
+                       .uniform_(-6, -1, generator=g))).to(dtype)
+    u = torch.randn((h, n), generator=g, device=card) * 0.1
+    s0 = (torch.randn((b, h, n, n), generator=g, device=card)
+          if with_s0 else None)
+    n0 = wmod.LAUNCHES
+    o, st = wmod.rwkv6_wkv(r, k, v, logw, u, s0)
+    assert wmod.LAUNCHES == n0 + 1
+    o_ref, st_ref = rwkv6_wkv_ref(r, k, v, logw, u, s0)
+    tol = TOLS[dtype] if dtype == torch.bfloat16 else dict(atol=1e-4,
+                                                           rtol=1e-4)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(o.float().cpu().numpy(),
+                               o_ref.float().cpu().numpy(), **tol)
+    np.testing.assert_allclose(st.cpu().numpy(), st_ref.cpu().numpy(),
+                               atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "deepseek-moe-16b",
+                                  "recurrentgemma-2b", "rwkv6-3b"])
 def test_executor_on_card_matches_host(card, arch):
     """SMOKE config (fp32) served on the card through the kernels gives
-    the host's tokens on the same weights and requests."""
+    the host's tokens on the same weights and requests, through the
+    executor ``make_executor`` picks (batched paged for dense and MoE,
+    per-slot for the recurrent families)."""
     from repro_torch.configs import get_smoke
     from repro_torch.models.init import init_params
-    from repro_torch.serve.batched_executor import TorchBatchedExecutor
+    from repro_torch.serve.batched_executor import make_executor
     from repro_torch.serve.engine import (NO_SLO, ContinuousServeEngine,
                                           ServeRequest)
 
     cfg = get_smoke(arch)
     n_moe = (cfg.num_layers - cfg.first_k_dense) if cfg.num_experts else 0
+    n_attn = sum(cfg.is_attention_layer(i) for i in range(cfg.num_layers))
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     toks = {}
+    mods = (fmod, pmod, gmod, smod, wmod)
+
     def to(tree, dev):
         if isinstance(tree, dict):
             return {k: to(v, dev) for k, v in tree.items()}
         return tree.to(dev)
 
     for dev in ("cpu", "cuda"):
-        ex = TorchBatchedExecutor(cfg, 160, 4, device=dev,
-                                  params=to(params, dev))
+        ex, kv = make_executor(cfg, 160, 4, device=dev,
+                               params=to(params, dev))
         rng = np.random.default_rng(1)
         reqs = [ServeRequest(rid=i, prompt_len=n, max_new=m,
                              prompt=rng.integers(0, cfg.vocab_size, n)
                              .astype(np.int32))
                 for i, (n, m) in enumerate([(5, 9), (130, 20), (60, 4),
                                             (17, 12), (99, 30), (3, 2)])]
-        n_f, n_p, n_g = fmod.LAUNCHES, pmod.LAUNCHES, gmod.LAUNCHES
-        ContinuousServeEngine(4, ex, slo=NO_SLO, kv_cache=ex.kv).run(reqs)
-        if dev == "cuda":
-            assert fmod.LAUNCHES - n_f == cfg.num_layers * ex.prefills
-            assert pmod.LAUNCHES - n_p == cfg.num_layers * ex.decode_steps
-            assert gmod.LAUNCHES - n_g == 3 * n_moe * (ex.prefills
-                                                       + ex.decode_steps)
+        n0 = [m.LAUNCHES for m in mods]
+        ContinuousServeEngine(4, ex, slo=NO_SLO, kv_cache=kv).run(reqs)
+        got = [m.LAUNCHES - n for m, n in zip(mods, n0)]
+        pre, dec = ex.prefills, ex.decode_steps
+        if dev == "cpu":
+            assert got == [0] * 5
+        elif cfg.family == "hybrid":
+            assert got == [n_attn * pre, 0, 0,
+                           (cfg.num_layers - n_attn) * pre, 0]
+        elif cfg.family == "ssm":
+            assert got == [0, 0, 0, 0, cfg.num_layers * pre]
+        else:
+            assert got == [cfg.num_layers * pre, cfg.num_layers * dec,
+                           3 * n_moe * (pre + dec), 0, 0]
         toks[dev] = [r.out_tokens for r in reqs]
     assert toks["cuda"] == toks["cpu"]

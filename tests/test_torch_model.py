@@ -1,11 +1,19 @@
 """The port's model against the reference on the same weights (the JAX
 params through ``params_from_numpy``), fp32 SMOKE on the CPU, for
-smollm-135m, qwen2.5-14b (QKV bias) and deepseek-moe-16b (a dense first
-layer, then MoE blocks with shared experts):
+smollm-135m, qwen2.5-14b (QKV bias), deepseek-moe-16b (a dense first
+layer, then MoE blocks with shared experts), recurrentgemma-2b (RG-LRU +
+windowed MQA attention) and rwkv6-3b:
 
 * ``prefill`` logits and the decode cache match ``transformer.prefill``;
 * ``scatter_prefill_pages`` then 8 steps of ``paged_decode_step`` match
-  the reference's paged decode step by step, with the same greedy tokens.
+  the reference's paged decode step by step, with the same greedy tokens
+  (dense and MoE);
+* 22 greedy steps of ``decode_step`` on the prefill cache match the
+  reference's ``decode_step`` (logits, tokens, the cache after), for
+  recurrentgemma (the 16-slot attention ring wraps), rwkv6 (prompts of 40
+  and 128: the reference's per-token and chunked WKV), mixtral (a
+  16-token window, per-row ``pos``) and smollm (a scalar ``pos``);
+* ``init_cache`` gives the reference's tree, shapes and dtypes.
 
 Tolerance: logits atol/rtol 1e-4 (fp32 through a few layers in another
 summation order; the acceptance bound), cache 1e-5.
@@ -26,7 +34,30 @@ from repro_torch.models import transformer as ttf  # noqa: E402
 from repro_torch.models.init import params_from_numpy  # noqa: E402
 
 ARCHS = ["smollm-135m", "qwen2.5-14b", "deepseek-moe-16b"]
+PREFILL_ARCHS = ARCHS + ["recurrentgemma-2b", "rwkv6-3b"]
 LOGIT_TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, (list, tuple)):
+        tree = {str(i): v for i, v in enumerate(tree)}
+    out = {}
+    for k, v in tree.items():
+        name = f"{prefix}.{k}" if prefix else k
+        out.update(_flat(v, name) if isinstance(v, (dict, list, tuple))
+                   else {name: v})
+    return out
+
+
+def _assert_caches_close(tc, jc, tol):
+    t, j = _flat(tc), _flat(jc)
+    assert t.keys() == j.keys()
+    for name in j:
+        assert tuple(t[name].shape) == j[name].shape, name
+        assert str(t[name].dtype).split(".")[-1] == np.dtype(
+            j[name].dtype).name, name
+        np.testing.assert_allclose(t[name].numpy(), np.asarray(j[name]),
+                                   err_msg=name, **tol)
 
 
 def _setup(arch):
@@ -44,10 +75,12 @@ def _setup(arch):
 
 
 @pytest.mark.parametrize("seq", [13, 16])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", PREFILL_ARCHS)
 def test_prefill_logits_and_cache_match_reference(arch, seq):
     """seq 16 takes the reference's chunked attention (chunk 8), 13 its
-    unchunked path; the port runs the same plain flash version."""
+    unchunked path; the port runs the same plain flash version.  The
+    cache 1e-5, the RWKV-6 WKV states 1e-4 (hundreds of summed outer
+    products, in another order)."""
     jcfg, tcfg, jp, tp = _setup(arch)
     tok = np.random.default_rng(seq).integers(
         0, tcfg.vocab_size, (2, seq)).astype(np.int32)
@@ -56,15 +89,49 @@ def test_prefill_logits_and_cache_match_reference(arch, seq):
                          max_len=24)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGIT_TOL)
     assert tc["pos"].tolist() == np.asarray(jc["pos"]).tolist()
-    assert tc.keys() == jc.keys()
-    layers = [(tc["blocks"], jc["blocks"])] + [
-        (tc["dense_layers"][i], jc["dense_layers"][i])
-        for i in jc.get("dense_layers", {})]
-    for t, j in layers:
-        for name in ("k", "v"):
-            assert tuple(t[name].shape) == j[name].shape
-            np.testing.assert_allclose(t[name].numpy(), np.asarray(j[name]),
-                                       atol=1e-5, rtol=1e-5)
+    tol = (LOGIT_TOL if tcfg.family == "ssm" else dict(atol=1e-5, rtol=1e-5))
+    _assert_caches_close(tc, jc, tol)
+
+
+@pytest.mark.parametrize("arch,seq,scalar_pos", [
+    ("recurrentgemma-2b", 13, False), ("rwkv6-3b", 40, False),
+    ("rwkv6-3b", 128, False), ("mixtral-8x7b", 10, False),
+    ("smollm-135m", 9, True)])
+def test_decode_step_matches_reference(arch, seq, scalar_pos):
+    jcfg, tcfg, jp, tp = _setup(arch)
+    tok = np.random.default_rng(seq).integers(
+        0, tcfg.vocab_size, (1, seq)).astype(np.int32)
+    max_len = seq + 24
+    jl, jc = jtf.prefill(jp, {"tokens": jnp.asarray(tok)}, jcfg,
+                         max_len=max_len)
+    tl, tc = ttf.prefill(tp, {"tokens": torch.from_numpy(tok)}, tcfg,
+                         max_len=max_len)
+    if scalar_pos:
+        jc = {**jc, "pos": jnp.asarray(seq, jnp.int32)}
+        tc = {**tc, "pos": torch.tensor(seq, dtype=torch.int32)}
+    step = jax.jit(lambda p, t, c: jtf.decode_step(p, t, c, jcfg))
+    nxt = np.asarray(jl).argmax(-1).astype(np.int32)
+    assert nxt.tolist() == tl.argmax(-1).tolist()
+    for _ in range(22):
+        jl, jc = step(jp, jnp.asarray(nxt), jc)
+        tl, tc = ttf.decode_step(tp, torch.from_numpy(nxt).long(), tc, tcfg)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGIT_TOL)
+        nxt = np.asarray(jl).argmax(-1).astype(np.int32)
+        assert nxt.tolist() == tl.argmax(-1).tolist()
+    assert np.asarray(tc["pos"]).tolist() == np.asarray(jc["pos"]).tolist()
+    _assert_caches_close(tc, jc, LOGIT_TOL)
+
+
+@pytest.mark.parametrize("arch", PREFILL_ARCHS + ["mixtral-8x7b"])
+def test_init_cache_matches_reference(arch):
+    jcfg, tcfg = jsmoke(arch), tsmoke(arch)
+    for seq_len in (8, 40):
+        ref = {k: (a.shape, np.dtype(a.dtype).name) for k, a in
+               _flat(jtf.init_cache(jcfg, 2, seq_len, abstract=True))
+               .items()}
+        got = {k: (tuple(t.shape), str(t.dtype).split(".")[-1]) for k, t in
+               _flat(ttf.init_cache(tcfg, 2, seq_len)).items()}
+        assert got == ref
 
 
 def test_ring_place_matches_reference():

@@ -17,7 +17,8 @@ from repro.models import init as jinit  # noqa: E402
 from repro_torch import configs as tcfgs  # noqa: E402
 from repro_torch.models import init as tinit  # noqa: E402
 
-ARCHS = ["smollm-135m", "qwen2.5-14b", "deepseek-moe-16b", "mixtral-8x7b"]
+ARCHS = ["smollm-135m", "qwen2.5-14b", "deepseek-moe-16b", "mixtral-8x7b",
+         "recurrentgemma-2b", "rwkv6-3b"]
 
 
 def _flat(tree, prefix=""):
@@ -63,9 +64,36 @@ def test_config_fields_match_reference(arch, size):
 
 
 def test_unported_family_raises():
-    cfg = dataclasses.replace(tcfgs.get_smoke("smollm-135m"), family="ssm")
+    cfg = dataclasses.replace(tcfgs.get_smoke("smollm-135m"), family="encdec")
     with pytest.raises(NotImplementedError, match="not ported"):
         tinit.spec_tree(cfg)
+
+
+def test_recurrent_init_rules():
+    """recurrentgemma's RG-LRU decay parameter gives a = exp(-exp(p)) in
+    [0.9, 0.999]; rwkv6's decay_base is the -6 .. -1 ramp on every layer;
+    layouts are the reference's (unrolled layers, stacked blocks)."""
+    cfg = dataclasses.replace(tcfgs.get_config("recurrentgemma-2b"),
+                              num_layers=3, vocab_size=512)
+    p = tinit.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rec = p["layers"]["0"]["rec"]
+    a = torch.exp(-torch.exp(rec["lru_a"]))
+    assert a.shape == (2560,) and bool((a >= 0.9 - 1e-6).all())
+    assert bool((a <= 0.999 + 1e-6).all()) and a.std() > 0.02
+    assert "attn" in p["layers"]["2"] and "rec" not in p["layers"]["2"]
+    assert p["layers"]["2"]["attn"]["wk"].shape == (2560, 256)
+    assert torch.all(rec["conv_b"] == 0)
+    cfg = dataclasses.replace(tcfgs.get_config("rwkv6-3b"), num_layers=2,
+                              vocab_size=512)
+    p = tinit.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tm = p["blocks"]["tm"]
+    ramp = -6.0 + 5.0 * torch.arange(2560) / 2559
+    assert tm["decay_base"].shape == (2, 2560)
+    for layer in tm["decay_base"]:
+        np.testing.assert_allclose(layer.numpy(), ramp.numpy(), atol=1e-6)
+    assert tm["bonus"].shape == (2, 40, 64)
+    assert torch.all(tm["decay_b"] == 0)
+    assert abs(tm["mix"].std().item() - 0.02) < 2e-3
 
 
 def test_moe_init_rules_and_layout():

@@ -145,19 +145,29 @@ def test_cli_smoke_on_cpu_matches_reference_cli(capsys, arch):
 
 
 def test_make_executor_raises_for_unported_families():
+    """make_executor follows the reference's rule and substitutes nothing:
+    paged-decode families get the batched executor, the others (and
+    windows narrower than max_len) the per-slot one; the batched executor
+    itself refuses a window."""
     import dataclasses
 
+    from repro_torch.serve.slot_executor import TorchSlotExecutor
+
     cfg = dataclasses.replace(tsmoke("smollm-135m"), family="ssm")
-    with pytest.raises(NotImplementedError, match="per-slot"):
-        make_executor(cfg, 32, 2, device="cpu")
+    ex, kv = make_executor(cfg, 32, 2, device="cpu")
+    assert isinstance(ex, TorchSlotExecutor)
     windowed = dataclasses.replace(tsmoke("smollm-135m"), attention_window=8)
     with pytest.raises(ValueError, match="paged"):
         TorchBatchedExecutor(windowed, 32, 2, device="cpu")
     # mixtral's SMOKE window (16) is narrower than the 32-token max_len
-    with pytest.raises(NotImplementedError, match="per-slot"):
-        make_executor(tsmoke("mixtral-8x7b"), 32, 2, device="cpu")
+    ex, kv = make_executor(tsmoke("mixtral-8x7b"), 32, 2, device="cpu")
+    assert isinstance(ex, TorchSlotExecutor)
+    assert (kv.block_tokens, kv.n_blocks) == (32, 2)
     ex, kv = make_executor(tsmoke("smollm-135m"), 32, 2, device="cpu")
-    assert kv is ex.kv
+    assert isinstance(ex, TorchBatchedExecutor) and kv is ex.kv
+    enc = dataclasses.replace(tsmoke("smollm-135m"), family="encdec")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        make_executor(enc, 32, 2, device="cpu")
 
 
 def test_rows_recycle_and_release():
