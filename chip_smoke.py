@@ -20,7 +20,12 @@ each of which raises on failure (nothing is caught):
    from a nonzero state, output and final state), fp32 and bf16, with its
    time, the plain version's time, the time of the one PyTorch call that
    computes the same function where there is one, and its bound on the
-   H100;
+   H100.  Flash attention and the grouped matmul have two instances, the
+   tensor cores' for bf16 and the CUDA cores' for fp32: each case line
+   names the one that ran, two calls must give bit-identical output, and
+   the grouped matmul also runs deepseek's decode product as the model
+   does, with ``counts`` from a top-6 routing of 8 tokens (its line gives
+   the live experts and the bound of the bytes they need);
 3. the serving path of smollm-135m at full width (30 layers, vocab 49152,
    bf16, random weights from a seed): (a) the CLI entry point, (b) the
    engine over the batched executor with mixed prompt lengths, and (c)
@@ -45,7 +50,9 @@ first_k_dense) grouped-matmul launches (MoE only), one RG-LRU scan per
 recurrent layer (hybrid) and one WKV launch per layer (ssm), and per
 decode step num_layers paged launches and the same grouped-matmul count
 on the batched path, no launch at all on the per-slot path (its decode
-is plain torch, as the reference's).
+is plain torch, as the reference's).  Every serving path computes in
+bf16, so each of its flash and grouped-matmul launches must also be a
+tensor-core one; the fp32-compute logit checks run the CUDA-core ones.
 
 Prints one JSON line per measured case, then the kernels' summary line,
 and as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
@@ -166,6 +173,21 @@ def check_close(torch, name, out, ref, tol) -> float:
     return err.max().item()
 
 
+def run_counted(torch, mod, name, fn):
+    """One call of a kernel wrapper: its output and the instance it ran
+    ("tc" or "cuda_core", read from the module's counters), after a second
+    call has given bit-identical output."""
+    n0, tc0 = mod.LAUNCHES, mod.LAUNCHES_TC
+    out = fn()
+    again = fn()
+    torch.cuda.synchronize()
+    if mod.LAUNCHES != n0 + 2:
+        raise AssertionError(f"{name}: the kernel was not launched")
+    if not torch.equal(out, again):
+        raise AssertionError(f"{name}: two calls differ")
+    return out, "tc" if mod.LAUNCHES_TC == tc0 + 2 else "cuda_core"
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -193,11 +215,12 @@ def flash_cases(torch):
             q, k, v = (torch.randn((b, sq, h, d), generator=g, device=dev)
                        .to(dtype).transpose(1, 2)
                        for h in (hq, hkv, hkv))
-            out = fa.flash_attention(q, k, v, window=window)
+            what = f"flash d={d} hq={hq} hkv={hkv} sq={sq} w={window} {dtype}"
+            out, inst = run_counted(
+                torch, fa, what,
+                lambda: fa.flash_attention(q, k, v, window=window))
             ref = attention_ref(q, k, v, window=window)
-            err = check_close(torch, f"flash d={d} hq={hq} hkv={hkv} sq={sq} "
-                              f"w={window} {dtype}", out, ref,
-                              TOL[str(dtype)])
+            err = check_close(torch, what, out, ref, TOL[str(dtype)])
             qpos = torch.arange(sq, device=dev)[:, None]
             kpos = torch.arange(sq, device=dev)[None, :]
             mask = kpos <= qpos
@@ -213,7 +236,7 @@ def flash_cases(torch):
             rows.append({
                 "kernel": "flash_attention", "dtype": str(dtype), "b": b,
                 "hq": hq, "hkv": hkv, "d": d, "sq": sq, "window": window,
-                "max_abs_err": err, "tol": TOL[str(dtype)],
+                "instance": inst, "max_abs_err": err, "tol": TOL[str(dtype)],
                 "kernel_ms": graph_ms(torch, lambda: fa.flash_attention(
                     q, k, v, window=window)),
                 "kernel_call_ms": cuda_ms(torch, lambda: fa.flash_attention(
@@ -281,15 +304,28 @@ def paged_cases(torch):
     return rows
 
 
+def routed_counts(torch, e: int, c: int, tokens: int, top_k: int, seed: int):
+    """Rows per expert of a real top-k routing: ``tokens`` random router
+    logits (seeded), each token's top_k experts, at most ``c`` rows each;
+    an (e,) int32 CUDA tensor."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    logits = torch.randn((tokens, e), generator=g, device="cuda")
+    idx = logits.topk(top_k, dim=-1).indices.reshape(-1)
+    return torch.bincount(idx, minlength=e).clamp(max=c).int()
+
+
 def gmm_cases(torch):
     """The experts' three products of deepseek-moe-16b: decode (8 rows x
-    top-6 at the raised capacity: C = 48), prefill of a 200-token prompt
-    (C = 24), and a ragged shape no tile divides."""
+    top-6 at the raised capacity: C = 48), the decode wi product as the
+    model runs it (``counts`` from a top-6 routing of 8 tokens: only the
+    experts that hold a row read their weights), prefill of a 200-token
+    prompt (C = 24), and a ragged shape no tile divides."""
     from repro_torch.kernels.moe_gmm import moe_gmm as mg
     from repro_torch.kernels.moe_gmm.ref import moe_gmm_ref
 
     dev = torch.device("cuda")
     shapes = [("decode_wi", 64, 48, 2048, 1408),
+              ("decode_wi_routed", 64, 48, 2048, 1408),
               ("decode_wo", 64, 48, 1408, 2048),
               ("prefill_wi", 64, 24, 2048, 1408),
               ("ragged", 4, 24, 64, 44)]
@@ -300,22 +336,42 @@ def gmm_cases(torch):
             x = torch.randn((e, c, k), generator=g, device=dev).to(dtype)
             w = (torch.randn((e, k, f), generator=g, device=dev)
                  * k ** -0.5).to(dtype)
-            out = mg.moe_gmm(x, w)
-            err = check_close(torch, f"moe_gmm {what} {dtype}", out,
-                              moe_gmm_ref(x, w), TOL[str(dtype)])
+            counts = None
+            if what.endswith("_routed"):
+                counts = routed_counts(torch, e, c, 8, 6, seed=17)
+                x *= (torch.arange(c, device=dev)[None, :]
+                      < counts[:, None])[..., None]
+            name = f"moe_gmm {what} {dtype}"
+            out, inst = run_counted(torch, mg, name,
+                                    lambda: mg.moe_gmm(x, w, counts))
+            err = check_close(torch, name, out, moe_gmm_ref(x, w, counts),
+                              TOL[str(dtype)])
             es = x.element_size()
             nbytes = es * (e * c * k + e * k * f + e * c * f)
             flops = 2.0 * e * c * k * f
             bound_ms, bound_by = bound(flops, nbytes, dtype)
-            rows.append({
+            row = {
                 "kernel": "moe_gmm", "dtype": str(dtype), "case": what,
-                "e": e, "c": c, "k": k, "f": f, "max_abs_err": err,
-                "tol": TOL[str(dtype)],
-                "kernel_ms": graph_ms(torch, lambda: mg.moe_gmm(x, w)),
-                "kernel_call_ms": cuda_ms(torch, lambda: mg.moe_gmm(x, w)),
-                "plain_ms": graph_ms(torch, lambda: moe_gmm_ref(x, w)),
+                "e": e, "c": c, "k": k, "f": f, "instance": inst,
+                "max_abs_err": err, "tol": TOL[str(dtype)],
+                "kernel_ms": graph_ms(torch, lambda: mg.moe_gmm(x, w, counts)),
+                "kernel_call_ms": cuda_ms(torch,
+                                          lambda: mg.moe_gmm(x, w, counts)),
+                "plain_ms": graph_ms(torch,
+                                     lambda: moe_gmm_ref(x, w, counts)),
                 "library_ms": graph_ms(torch, lambda: torch.bmm(x, w)),
-                "bound_ms": bound_ms, "bound_by": bound_by})
+                "bound_ms": bound_ms, "bound_by": bound_by}
+            if counts is not None:
+                # what this routing needs: the filled rows of x, the
+                # weights of the experts that hold a row, all of out
+                live = int((counts > 0).sum())
+                n_rows = int(counts.sum())
+                live_bytes = (es * (n_rows * k + live * k * f + e * c * f)
+                              + 4 * e)
+                row.update(live_experts=live, filled_rows=n_rows,
+                           bound_live_ms=bound(2.0 * n_rows * k * f,
+                                               live_bytes, dtype)[0])
+            rows.append(row)
             log(rows[-1])
             del x, w, out
     return rows
@@ -429,13 +485,25 @@ def _kernel_modules():
             "rglru_scan": rs, "rwkv6_wkv": wk}
 
 
+# the kernels with a tensor-core instance, which the bf16 paths must take
+TC_KERNELS = ("flash_attention", "moe_gmm")
+
+
 def reset_counts():
-    for mod in _kernel_modules().values():
+    mods = _kernel_modules()
+    for mod in mods.values():
         mod.LAUNCHES = 0
+    for name in TC_KERNELS:
+        mods[name].LAUNCHES_TC = 0
 
 
 def read_counts():
     return {name: mod.LAUNCHES for name, mod in _kernel_modules().items()}
+
+
+def read_tc_counts():
+    mods = _kernel_modules()
+    return {name: mods[name].LAUNCHES_TC for name in TC_KERNELS}
 
 
 def per_call_launches(cfg):
@@ -455,7 +523,12 @@ def per_call_launches(cfg):
             {**none, "paged_attention": cfg.num_layers, "moe_gmm": 3 * n_moe})
 
 
-def check_launches(cfg, counts, prefills, decode_steps, what):
+def check_launches(cfg, counts, tc_counts, prefills, decode_steps, what):
+    """The launches of a serving run against ``per_call_launches``; on a
+    bf16 path every flash and grouped-matmul launch must also have been a
+    tensor-core one."""
+    import torch
+
     per_pre, per_dec = per_call_launches(cfg)
     want = {k: per_pre[k] * prefills + per_dec[k] * decode_steps
             for k in per_pre}
@@ -464,6 +537,12 @@ def check_launches(cfg, counts, prefills, decode_steps, what):
             f"{what}: kernel launches {counts}, expected {want} for "
             f"{cfg.name} ({per_pre} per prefill, {per_dec} per decode "
             f"step; {prefills} prefills, {decode_steps} decode steps)")
+    if cfg.compute_dtype == torch.bfloat16:
+        want_tc = {k: want[k] for k in TC_KERNELS}
+        if tc_counts != want_tc:
+            raise AssertionError(
+                f"{what}: tensor-core launches {tc_counts}, expected every "
+                f"bf16 launch {want_tc} for {cfg.name}")
 
 
 def serve_cli(cfg):
@@ -475,16 +554,18 @@ def serve_cli(cfg):
     t0 = time.perf_counter()
     out = serve.main(argv)
     wall = time.perf_counter() - t0
-    counts = read_counts()
+    counts, tc_counts = read_counts(), read_tc_counts()
     ex = out["executor"]
-    check_launches(cfg, counts, ex["prefills"], ex["decode_steps"], "CLI")
+    check_launches(cfg, counts, tc_counts, ex["prefills"], ex["decode_steps"],
+                   "CLI")
     if out["tokens"] != 16 * 64 or out["requests"] != 16:
         raise AssertionError(f"CLI generated {out['tokens']} tokens for "
                              f"{out['requests']} requests, expected 1024/16")
     if ex["decode_shapes"] != 1:
         raise AssertionError(f"decode input shapes changed: {ex}")
     log({"phase": "serve_cli", "argv": argv, "wall_s": wall,
-         "launches": counts, "executor": ex, "tokens": out["tokens"],
+         "launches": counts, "tc_launches": tc_counts, "executor": ex,
+         "tokens": out["tokens"],
          "mean_ttft_s": out["ttft_s"]["mean"],
          "slo_goodput": out["slo_goodput"], "RG": out["goodput"]["RG"]})
     return counts
@@ -545,8 +626,9 @@ def serve_engine(torch, cfg, n_req: int, max_new_hi: int, phase: str):
     t0 = time.perf_counter()
     rep = ContinuousServeEngine(n_slots, ex, slo=NO_SLO, kv_cache=kv).run(reqs)
     wall = time.perf_counter() - t0
-    counts = read_counts()
-    check_launches(cfg, counts, ex.prefills, ex.decode_steps, phase)
+    counts, tc_counts = read_counts(), read_tc_counts()
+    check_launches(cfg, counts, tc_counts, ex.prefills, ex.decode_steps,
+                   phase)
     want = sum(r.max_new for r in reqs)
     shapes = (ex.decode_shape_count() if hasattr(ex, "decode_shape_count")
               else 1)
@@ -572,7 +654,8 @@ def serve_engine(torch, cfg, n_req: int, max_new_hi: int, phase: str):
          "max_new": [r.max_new for r in reqs], "crossed_page": crossed,
          "admitted_mid_flight": admitted_mid,
          "detached_mid_flight": detached_mid, "init_s": init_s,
-         "wall_s": wall, "launches": counts, "prefills": ex.prefills,
+         "wall_s": wall, "launches": counts, "tc_launches": tc_counts,
+         "prefills": ex.prefills,
          "decode_steps": ex.decode_steps, "tokens": rep.tokens,
          "decode_tokens_per_s": decode["tokens"] / decode["s"],
          "mean_ttft_s": rep.ttft_s["mean"], "slo_goodput": rep.slo_goodput,
@@ -822,6 +905,7 @@ def main() -> int:
         r = [x for x in rows if pick(x)][0]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
+                "instance": r.get("instance", "cuda_core"),
                 "launches": sum(c[name] for c in runs),
                 "max_abs_err": max(x["max_abs_err"] for x in rows
                                    if x["dtype"] == r["dtype"]),

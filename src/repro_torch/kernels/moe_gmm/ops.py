@@ -11,8 +11,9 @@ from repro_torch.kernels.moe_gmm import moe_gmm as _gmm
 from repro_torch.kernels.moe_gmm.ref import moe_gmm_ref
 
 
-def moe_gmm(x, w, *, impl: str = "auto"):
-    """x: (E, C, K), w: (E, K, F) -> (E, C, F) in x.dtype, fp32 sums."""
+def moe_gmm(x, w, counts=None, *, impl: str = "auto"):
+    """x: (E, C, K), w: (E, K, F) -> (E, C, F) in x.dtype, fp32 sums;
+    ``counts`` (E,) int32: the rows each expert holds (None: all C)."""
     if resolve_impl(impl, x) == "kernel":
-        return _gmm.moe_gmm(x, w)
-    return moe_gmm_ref(x, w)
+        return _gmm.moe_gmm(x, w, counts)
+    return moe_gmm_ref(x, w, counts)

@@ -67,14 +67,30 @@ def build_dispatch(idx, n_tokens: int, cap: int, cfg: ModelConfig):
     return tok, e_sorted, slot, keep, order
 
 
-def expert_ffn(xe, experts, cfg: ModelConfig, *, gmm_impl: str = "auto"):
+def expert_ffn(xe, experts, cfg: ModelConfig, counts=None, *,
+               gmm_impl: str = "auto"):
     """xe: (E, C, d) batched through each expert's gated MLP -> (E, C, d);
-    each product is one grouped matmul (fp32 sums, xe's dtype out)."""
+    each product is one grouped matmul (fp32 sums, xe's dtype out).
+
+    ``counts`` (E,) int32, the rows each expert holds (rows past it are
+    zero), lets the products skip the empty rows and experts; rows past
+    it stay zero through the MLP, since act(0) * 0 == 0."""
     act = _act(cfg)
-    h = moe_gmm(xe, experts["wi"].to(xe.dtype), impl=gmm_impl)
-    g = moe_gmm(xe, experts["wg"].to(xe.dtype), impl=gmm_impl)
+    h = moe_gmm(xe, experts["wi"].to(xe.dtype), counts, impl=gmm_impl)
+    g = moe_gmm(xe, experts["wg"].to(xe.dtype), counts, impl=gmm_impl)
     h = act(g) * h
-    return moe_gmm(h, experts["wo"].to(xe.dtype), impl=gmm_impl)
+    return moe_gmm(h, experts["wo"].to(xe.dtype), counts, impl=gmm_impl)
+
+
+def expert_counts(idx, cap: int, cfg: ModelConfig):
+    """Rows each expert's buffer holds: its assignments, at most ``cap``;
+    an (E,) int32 tensor on idx's device.  ``index_add_`` rather than
+    ``bincount``, which reads its input's max back to the host on CUDA."""
+    flat = idx.reshape(-1)
+    ones = torch.ones_like(flat, dtype=torch.int32)
+    counts = torch.zeros(cfg.num_experts, dtype=torch.int32,
+                         device=idx.device).index_add_(0, flat, ones)
+    return counts.clamp_(max=cap)
 
 
 def moe_gspmd(x, p, cfg: ModelConfig, *, gmm_impl: str = "auto"):
@@ -95,7 +111,8 @@ def moe_gspmd(x, p, cfg: ModelConfig, *, gmm_impl: str = "auto"):
     buf = x.new_zeros((n_rows + 1, d))
     buf[dest] = x2d[tok]
     ye = expert_ffn(buf[:n_rows].view(cfg.num_experts, cap, d),
-                    p["experts"], cfg, gmm_impl=gmm_impl)
+                    p["experts"], cfg, expert_counts(idx, cap, cfg),
+                    gmm_impl=gmm_impl)
 
     # gather expert outputs back, weighted by gate prob, then sum each
     # token's k rows in top-k order

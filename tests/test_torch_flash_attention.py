@@ -126,3 +126,22 @@ def test_block_k_pinned_to_allocator_page_and_cuda_source():
     assert int(re.search(r"kBK = (\d+);", src).group(1)) == kmod.BLOCK_K
     assert int(re.search(r"kBK256 = (\d+);", src).group(1)) == 64
     assert 256 in kmod.HEAD_DIMS
+
+
+def test_instance_choice():
+    """bf16 at head_dim 64, 128 and 256 (the model's (b, s, h, d) tensors
+    viewed as (b, h, s, d), strides in multiples of 8) takes the
+    tensor-core instance; fp32, head_dim 16 / 32 and a misaligned view
+    take the CUDA-core one."""
+    def view(d, dtype=torch.bfloat16, offset=0, h=3, s=20):
+        flat = torch.zeros(s * h * d + offset, dtype=dtype)[offset:]
+        return flat.view(1, s, h, d).transpose(1, 2)
+
+    for d in (64, 128, 256):
+        assert kmod.instance(view(d), view(d), view(d)) == "tc"
+        assert kmod.instance(*(view(d, torch.float32),) * 3) == "cuda_core"
+        assert kmod.instance(view(d, offset=4), view(d), view(d)) \
+            == "cuda_core"
+    for d in (16, 32):
+        assert kmod.instance(view(d), view(d), view(d)) == "cuda_core"
+    assert kmod.TC_HEAD_DIMS == (64, 128, 256)

@@ -1,9 +1,13 @@
 """Card-only: each CUDA kernel against its plain version on the card
 (attention also at deepseek-moe-16b's head shape, d 128 with one query
 head per kv head, and recurrentgemma-2b's, d 256 with a group of 10; the
-grouped matmul at ragged and deepseek shapes; both scans at their
-models' widths, ragged lengths and a nonzero initial state), and both
-executors on the card against the same executor on the host.
+grouped matmul at ragged and deepseek shapes, also with per-expert row
+counts; both scans at their models' widths, ragged lengths and a nonzero
+initial state), which instance of flash attention and the grouped matmul
+ran (the tensor cores' for bf16 at the shapes they take, the CUDA
+cores' otherwise) and that the tensor-core instances give bit-identical
+output call after call, and both executors on the card against the same
+executor on the host.
 
 The kernels have no CPU mode, so every test here carries the ``cuda``
 marker and skips without a card.  On a machine with one:
@@ -76,15 +80,40 @@ def test_flash_kernel_matches_plain(card, dtype, b, hq, hkv, sq, d, window):
     g = torch.Generator(device=card).manual_seed(sq + d)
     q, k, v = (torch.randn((b, s, h, d), generator=g, device=card).to(dtype)
                for s, h in ((sq, hq), (sq, hkv), (sq, hkv)))
-    n0 = fmod.LAUNCHES
+    n0, tc0 = fmod.LAUNCHES, fmod.LAUNCHES_TC
     out = flash_attention_bshd(q, k, v, window=window, impl="auto")
     assert fmod.LAUNCHES == n0 + 1
+    # bf16 at head_dim 64 / 128 / 256 runs on the tensor cores
+    tc = dtype == torch.bfloat16 and d in fmod.TC_HEAD_DIMS
+    assert fmod.LAUNCHES_TC == tc0 + tc
     ref = flash_attention_bshd(q, k, v, window=window, impl="ref")
     _close(out, ref, dtype)
     # contiguous (b, h, s, d) inputs straight into the kernel
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     _close(fmod.flash_attention(qt, kt, vt, window=window),
            attention_ref(qt, kt, vt, window=window), dtype)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("sq,window", [(1, 0), (127, 0), (129, 0), (300, 0),
+                                       (300, 100)])
+def test_flash_tc_kernel_matches_plain(card, d, sq, window, causal):
+    """The tensor-core instance (bf16) at every head_dim it takes, at a
+    single token, around a tile edge, at a prompt length and with a
+    window, causal or not; two calls are bit-identical."""
+    dtype = torch.bfloat16
+    hq, hkv = {64: (9, 3), 128: (16, 16), 256: (10, 1)}[d]
+    g = torch.Generator(device=card).manual_seed(sq + d + window)
+    q, k, v = (torch.randn((1, s, h, d), generator=g, device=card).to(dtype)
+               for s, h in ((sq, hq), (sq, hkv), (sq, hkv)))
+    kw = dict(causal=causal, window=window)
+    tc0 = fmod.LAUNCHES_TC
+    out = flash_attention_bshd(q, k, v, impl="kernel", **kw)
+    again = flash_attention_bshd(q, k, v, impl="kernel", **kw)
+    assert fmod.LAUNCHES_TC == tc0 + 2
+    _close(out, flash_attention_bshd(q, k, v, impl="ref", **kw), dtype)
+    assert torch.equal(out, again)
 
 
 def _paged_inputs(dev, dtype, b, hq, hkv, d, bt, nb, lengths, seed):
@@ -133,11 +162,53 @@ def test_moe_gmm_kernel_matches_plain(card, dtype, e, c, k, f):
     x = torch.randn((e, c, k), generator=g, device=card).to(dtype)
     w = (torch.randn((e, k, f), generator=g, device=card)
          * k ** -0.5).to(dtype)
-    n0 = gmod.LAUNCHES
+    n0, tc0 = gmod.LAUNCHES, gmod.LAUNCHES_TC
     out = gmod.moe_gmm(x, w)
     assert gmod.LAUNCHES == n0 + 1
+    # bf16 with K and F multiples of 8 runs on the tensor cores
+    tc = dtype == torch.bfloat16 and k % 8 == 0 and f % 8 == 0
+    assert gmod.LAUNCHES_TC == tc0 + tc
     assert out.dtype == dtype and tuple(out.shape) == (e, c, f)
     _close(out, moe_gmm_ref(x, w), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("e,c,k,f", [
+    (4, 24, 64, 44), (5, 130, 96, 72), (64, 48, 2048, 1408),
+    (64, 48, 1408, 2048)])
+def test_moe_gmm_kernel_with_counts(card, dtype, e, c, k, f):
+    """``counts`` with an empty expert and a full one: the output equals
+    the plain version's and, bit for bit, the kernel's own without
+    counts on the same zero-padded x; two calls are bit-identical."""
+    g = torch.Generator(device=card).manual_seed(e * c + k)
+    counts = torch.randint(0, c + 1, (e,), generator=g, device=card,
+                           dtype=torch.int32)
+    counts[0], counts[-1] = 0, c
+    x = torch.randn((e, c, k), generator=g, device=card).to(dtype)
+    x *= (torch.arange(c, device=card)[None, :] < counts[:, None])[..., None]
+    w = (torch.randn((e, k, f), generator=g, device=card)
+         * k ** -0.5).to(dtype)
+    n0 = gmod.LAUNCHES
+    out = gmod.moe_gmm(x, w, counts)
+    again = gmod.moe_gmm(x, w, counts)
+    assert gmod.LAUNCHES == n0 + 2
+    _close(out, moe_gmm_ref(x, w, counts), dtype)
+    assert torch.equal(out, again)
+    assert torch.equal(out, gmod.moe_gmm(x, w))
+    assert bool((out[0] == 0).all())
+
+
+@pytest.mark.parametrize("e,c,k,f", [(64, 48, 2048, 1408), (3, 17, 88, 40)])
+def test_moe_gmm_tc_is_deterministic(card, e, c, k, f):
+    g = torch.Generator(device=card).manual_seed(c + f)
+    x = torch.randn((e, c, k), generator=g, device=card).bfloat16()
+    w = (torch.randn((e, k, f), generator=g, device=card)
+         * k ** -0.5).bfloat16()
+    tc0 = gmod.LAUNCHES_TC
+    outs = [gmod.moe_gmm(x, w) for _ in range(3)]
+    assert gmod.LAUNCHES_TC == tc0 + 3
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],

@@ -119,3 +119,51 @@ def test_moe_block_matches_reference(arch, drops):
     got, gaux = tmoe.moe_block(torch.from_numpy(x), tp, tcfg)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **OUT_TOL)
     np.testing.assert_allclose(gaux.item(), float(raux), **GATE_TOL)
+
+
+@pytest.mark.parametrize("drops", [True, False], ids=["drops", "decode_cf"])
+def test_expert_counts_are_the_kept_rows(drops):
+    """``expert_counts`` is each expert's number of kept assignments: the
+    rows its buffer holds, the rest of which are zero."""
+    tcfg = tsmoke("deepseek-moe-16b")
+    if not drops:
+        tcfg = decode_config(tcfg)
+    x = _x(tcfg, 2, 24, seed=8, crowd=3.0 if drops else 0.0)[0]
+    _, p = _block("deepseek-moe-16b")[2:]
+    _, idx, _ = tmoe.router_topk(torch.from_numpy(x), p["router"], tcfg)
+    t = x.shape[0]
+    cap = tmoe.capacity(t, tcfg)
+    _, e_sorted, _, keep, _ = tmoe.build_dispatch(idx, t, cap, tcfg)
+    want = torch.zeros(tcfg.num_experts, dtype=torch.int32)
+    want.index_add_(0, e_sorted[keep], torch.ones(int(keep.sum()),
+                                                  dtype=torch.int32))
+    counts = tmoe.expert_counts(idx, cap, tcfg)
+    assert counts.dtype == torch.int32 and torch.equal(counts, want)
+    assert bool((counts == cap).any()) == drops
+
+
+@pytest.mark.parametrize("drops", [True, False], ids=["drops", "decode_cf"])
+def test_moe_gspmd_with_counts_matches_reference(drops, monkeypatch):
+    """deepseek SMOKE: ``moe_gspmd`` hands every grouped matmul the
+    experts' row counts and still matches the reference's ``moe_block``
+    (which has none) to 1e-4."""
+    jcfg, tcfg, jp, tp = _block("deepseek-moe-16b")
+    if not drops:
+        jcfg = dataclasses.replace(
+            jcfg, capacity_factor=float(jcfg.num_experts))
+        tcfg = decode_config(tcfg)
+    seen = []
+    real = tmoe.moe_gmm
+
+    def spy(x, w, counts=None, **kw):
+        seen.append(counts)
+        return real(x, w, counts, **kw)
+
+    monkeypatch.setattr(tmoe, "moe_gmm", spy)
+    x = _x(tcfg, 2, 24, seed=9, crowd=3.0 if drops else 0.0)
+    ref, _ = jmoe.moe_block(jnp.asarray(x), jp, jcfg)
+    got, _ = tmoe.moe_gspmd(torch.from_numpy(x), tp, tcfg)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-4,
+                               rtol=1e-4)
+    assert len(seen) == 3 and all(c is not None for c in seen)
+    assert bool((seen[0] < tmoe.capacity(48, tcfg)).any())
