@@ -10,22 +10,26 @@ each of which raises on failure (nothing is caught):
 1. the card's name and power limit, the torch/CUDA versions, and the
    build of all five kernels from ``src/repro_torch/kernels/csrc``
    (nvcc, sm_90a, one process per source, all at once);
-2. each kernel against its plain PyTorch version at the serving paths'
-   shapes (attention at smollm-135m's head_dim 64 / group 3,
-   deepseek-moe-16b's head_dim 128 / group 1 and recurrentgemma-2b's
-   head_dim 256 / group 10; the grouped matmul at deepseek's prefill and
-   decode expert shapes and a ragged one; the RG-LRU scan at
+2. the launch floor (the graph-replay time of one in-place add on a
+   one-element tensor), then each kernel against its plain PyTorch
+   version at the serving paths' shapes (attention at smollm-135m's
+   head_dim 64 / group 3, deepseek-moe-16b's head_dim 128 / group 1 and
+   recurrentgemma-2b's head_dim 256 / group 10; paged attention also at
+   16 pages a row, lengths up to 2048; the grouped matmul at deepseek's
+   prefill and decode expert shapes and a ragged one; the RG-LRU scan at
    recurrentgemma's (1, 300, 2560), a ragged shape and a nonzero initial
-   state; the RWKV-6 WKV at rwkv6-3b's (1, 300, 40, 64) and at 128 tokens
-   from a nonzero state, output and final state), fp32 and bf16, with its
-   time, the plain version's time, the time of the one PyTorch call that
-   computes the same function where there is one, and its bound on the
-   H100.  Flash attention and the grouped matmul have two instances, the
-   tensor cores' for bf16 and the CUDA cores' for fp32: each case line
-   names the one that ran, two calls must give bit-identical output, and
-   the grouped matmul also runs deepseek's decode product as the model
-   does, with ``counts`` from a top-6 routing of 8 tokens (its line gives
-   the live experts and the bound of the bytes they need);
+   state; the RWKV-6 WKV at rwkv6-3b's (1, 300, 40, 64), also at the
+   model's full decay range, and at 128 tokens from a nonzero state,
+   output and final state), fp32 and bf16, with its time, the plain
+   version's time, the time of the one PyTorch call that computes the
+   same function where there is one, and its bound on the H100.  Flash
+   attention and the grouped matmul have two instances, the tensor
+   cores' for bf16 and the CUDA cores' for fp32: each case line names
+   the one that ran.  Flash, paged attention, the grouped matmul and the
+   WKV must give bit-identical output in two calls, and the grouped
+   matmul also runs deepseek's decode product as the model does, with
+   ``counts`` from a top-6 routing of 8 tokens (its line gives the live
+   experts and the bound of the bytes they need);
 3. the serving path of smollm-135m at full width (30 layers, vocab 49152,
    bf16, random weights from a seed): (a) the CLI entry point, (b) the
    engine over the batched executor with mixed prompt lengths, and (c)
@@ -134,7 +138,9 @@ def cuda_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
 
 def graph_ms(torch, fn, reps: int = 20, replays: int = 10) -> float:
     """Device time of one call of ``fn``: ``reps`` calls captured in a
-    CUDA graph and replayed, so no host time is in the span."""
+    CUDA graph and replayed, so no host time is in the span.  The capture
+    runs on the warm-up's stream, whose per-stream state (paged
+    attention's tickets) the warm-up made."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -142,7 +148,7 @@ def graph_ms(torch, fn, reps: int = 20, replays: int = 10) -> float:
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+    with torch.cuda.graph(graph, stream=side, capture_error_mode="relaxed"):
         for _ in range(reps):
             fn()
     graph.replay()
@@ -174,18 +180,31 @@ def check_close(torch, name, out, ref, tol) -> float:
 
 
 def run_counted(torch, mod, name, fn):
-    """One call of a kernel wrapper: its output and the instance it ran
-    ("tc" or "cuda_core", read from the module's counters), after a second
-    call has given bit-identical output."""
-    n0, tc0 = mod.LAUNCHES, mod.LAUNCHES_TC
+    """One call of a kernel wrapper: its output (a tensor or a tuple of
+    them) and the instance it ran ("tc" or "cuda_core", read from the
+    module's counters; kernels with one instance run on the CUDA cores),
+    after a second call has given bit-identical output."""
+    n0, tc0 = mod.LAUNCHES, getattr(mod, "LAUNCHES_TC", 0)
     out = fn()
     again = fn()
     torch.cuda.synchronize()
     if mod.LAUNCHES != n0 + 2:
         raise AssertionError(f"{name}: the kernel was not launched")
-    if not torch.equal(out, again):
+    outs, agains = ((out, again) if isinstance(out, tuple)
+                    else ((out,), (again,)))
+    if not all(torch.equal(a, b) for a, b in zip(outs, agains)):
         raise AssertionError(f"{name}: two calls differ")
-    return out, "tc" if mod.LAUNCHES_TC == tc0 + 2 else "cuda_core"
+    tc = getattr(mod, "LAUNCHES_TC", 0) == tc0 + 2
+    return out, "tc" if tc else "cuda_core"
+
+
+def launch_floor(torch):
+    """The device time of the least kernel there is, one in-place add on a
+    one-element tensor, replayed from a CUDA graph as the kernels are: the
+    floor under every kernel line's ``kernel_ms``."""
+    x = torch.zeros(1, device="cuda")
+    log({"phase": "launch_floor",
+         "launch_floor_ms": graph_ms(torch, lambda: x.add_(1.0))})
 
 
 # ---------------------------------------------------------------------------
@@ -256,13 +275,19 @@ def paged_cases(torch):
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
     dev = torch.device("cuda")
-    bt, nb = 128, 3
-    lengths = [0, 1, 100, 127, 128, 129, 250, 300]
+    bt = 128
+    serving = [0, 1, 100, 127, 128, 129, 250, 300]
+    long_ctx = [0, 1, 129, 700, 1000, 1500, 2047, 2048]
     rows = []
-    # smollm-135m's heads, then deepseek-moe-16b's (d 128, group 1)
-    cases = [((8, 9, 3, 64), w) for w in (0, 100)] + [((8, 16, 16, 128), 0)]
+    # smollm-135m's heads, then deepseek-moe-16b's (d 128, group 1), at
+    # the serving paths' 3 pages a row; then both at 16 pages a row, where
+    # a row's pages are split over blocks and merged in the launch
+    cases = ([((8, 9, 3, 64), 3, w, serving) for w in (0, 100)]
+             + [((8, 16, 16, 128), 3, 0, serving)]
+             + [(heads, 16, 0, long_ctx)
+                for heads in ((8, 9, 3, 64), (8, 16, 16, 128))])
     for dtype in (torch.float32, torch.bfloat16):
-        for (b, hq, hkv, d), window in cases:
+        for (b, hq, hkv, d), nb, window, lengths in cases:
             n_pages = b * nb + 1
             g = torch.Generator(device=dev).manual_seed(7 + window + d)
             q = torch.randn((b, hq, d), generator=g, device=dev).to(dtype)
@@ -274,11 +299,12 @@ def paged_cases(torch):
                 tables[r, -(-n // bt):] = n_pages - 1      # null-page tail
             lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
             args = (q, kp, vp, tables, lens)
-            out = pa.paged_attention(*args, window=window)
+            what = (f"paged d={d} hq={hq} hkv={hkv} nb={nb} w={window} "
+                    f"{dtype}")
+            out, _ = run_counted(torch, pa, what, lambda: pa.paged_attention(
+                *args, window=window))
             ref = paged_attention_ref(*args, window=window)
-            err = check_close(torch, f"paged d={d} hq={hq} hkv={hkv} "
-                              f"w={window} {dtype}", out, ref,
-                              TOL[str(dtype)])
+            err = check_close(torch, what, out, ref, TOL[str(dtype)])
             if not bool(torch.all(out[0] == 0)):
                 raise AssertionError("paged: a length-0 row is not zeros")
             keys = sum(min(n, window) if window else n for n in lengths)
@@ -287,11 +313,13 @@ def paged_cases(torch):
                       + 4 * (tables.numel() + lens.numel()))
             flops = 4.0 * d * (hq // hkv) * hkv * keys
             bound_ms, bound_by = bound(flops, nbytes, dtype)
+            pps = pa.plan_splits(b, hkv, nb)
             rows.append({
                 "kernel": "paged_attention", "dtype": str(dtype), "b": b,
-                "hq": hq, "hkv": hkv, "d": d, "block_tokens": bt,
-                "lengths": lengths, "window": window, "max_abs_err": err,
-                "tol": TOL[str(dtype)],
+                "hq": hq, "hkv": hkv, "d": d, "block_tokens": bt, "nb": nb,
+                "lengths": lengths, "window": window,
+                "pages_per_split": pps, "blocks": b * hkv * -(-nb // pps),
+                "max_abs_err": err, "tol": TOL[str(dtype)],
                 "kernel_ms": graph_ms(torch, lambda: pa.paged_attention(
                     *args, window=window)),
                 "kernel_call_ms": cuda_ms(torch, lambda: pa.paged_attention(
@@ -420,33 +448,41 @@ def rglru_cases(torch):
 
 def wkv_cases(torch):
     """The RWKV-6 WKV at rwkv6-3b's prefill shape (fp32 in the model), at
-    128 tokens from a nonzero state, and a small ragged one; the output
-    and the final state both against the plain version."""
+    128 tokens from a nonzero state, and a small ragged one, with decays
+    in [-exp(-1), -exp(-6)]; then the prefill shape at the model's full
+    decay range (logw = -exp(d), d in [-20, 10], the clamp of
+    ``models/rwkv.py``).  The output and the final state both against the
+    plain version; two calls bit-identical."""
     from repro_torch.kernels.rwkv6_wkv import rwkv6_wkv as wk
     from repro_torch.kernels.rwkv6_wkv.ref import rwkv6_wkv_ref
 
     dev = torch.device("cuda")
-    shapes = [(1, 300, 40, 64, False), (1, 128, 40, 64, True),
-              (2, 37, 4, 16, True)]
+    decays = {"usual": (-6.0, -1.0), "full": (-20.0, 10.0)}
+    shapes = [(1, 300, 40, 64, False, "usual"),
+              (1, 128, 40, 64, True, "usual"),
+              (2, 37, 4, 16, True, "usual"),
+              (1, 300, 40, 64, False, "full")]
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         tol = WKV_FP32_TOL if dtype == torch.float32 else TOL[str(dtype)]
-        for b, s, h, n, with_s0 in shapes:
+        for b, s, h, n, with_s0, decay in shapes:
             g = torch.Generator(device=dev).manual_seed(s + h + n)
             # the model's (b, s, h*n) projections viewed as (b, s, h, n)
             r, k, v = ((0.5 * torch.randn((b, s, h * n), generator=g,
                                           device=dev)).to(dtype)
                        .view(b, s, h, n) for _ in range(3))
-            # the model's decay range: logw = -exp(d), d in [-6, -1]
             logw = (-torch.exp(torch.empty((b, s, h, n), device=dev)
-                               .uniform_(-6, -1, generator=g))).to(dtype)
+                               .uniform_(*decays[decay], generator=g))
+                    ).to(dtype)
             u = 0.1 * torch.randn((h, n), generator=g, device=dev)
             s0 = (torch.randn((b, h, n, n), generator=g, device=dev)
                   if with_s0 else None)
             args = (r, k, v, logw, u, s0)
-            o, st = wk.rwkv6_wkv(*args)
+            what = (f"rwkv6_wkv {(b, s, h, n)} s0={with_s0} decay={decay} "
+                    f"{dtype}")
+            (o, st), _ = run_counted(torch, wk, what,
+                                     lambda: wk.rwkv6_wkv(*args))
             o_ref, st_ref = rwkv6_wkv_ref(*args)
-            what = f"rwkv6_wkv {(b, s, h, n)} s0={with_s0} {dtype}"
             err = check_close(torch, what, o, o_ref, tol)
             st_err = check_close(torch, what + " state", st, st_ref,
                                  WKV_FP32_TOL)
@@ -457,7 +493,8 @@ def wkv_cases(torch):
             bound_ms, bound_by = bound(flops, nbytes, dtype)
             rows.append({
                 "kernel": "rwkv6_wkv", "dtype": str(dtype), "b": b, "s": s,
-                "h": h, "n": n, "s0": with_s0, "max_abs_err": err,
+                "h": h, "n": n, "s0": with_s0, "decay": decay,
+                "max_abs_err": err,
                 "state_max_abs_err": st_err, "tol": tol,
                 "kernel_ms": graph_ms(torch, lambda: wk.rwkv6_wkv(*args)),
                 "kernel_call_ms": cuda_ms(torch,
@@ -844,6 +881,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    launch_floor(torch)
     flash = flash_cases(torch)
     paged = paged_cases(torch)
     gmm = gmm_cases(torch)
@@ -919,7 +957,7 @@ def main() -> int:
                 "src/repro_torch/kernels/csrc/paged_attention.cu",
                 "src/repro/kernels/paged_attention/paged_attention.py:110",
                 lambda x: x["dtype"] == bf16 and x["window"] == 0
-                and x["d"] == 64),
+                and x["d"] == 64 and x["nb"] == 3),
         summary(flash, "flash_attention",
                 "src/repro_torch/kernels/csrc/flash_attention.cu",
                 "src/repro/kernels/flash_attention/flash_attention.py:70",
@@ -936,7 +974,8 @@ def main() -> int:
         summary(wkv, "rwkv6_wkv",
                 "src/repro_torch/kernels/csrc/rwkv6_wkv.cu",
                 "src/repro/kernels/rwkv6_wkv/rwkv6_wkv.py:69",
-                lambda x: x["dtype"] == fp32 and x["s"] == 300),
+                lambda x: x["dtype"] == fp32 and x["s"] == 300
+                and x["decay"] == "usual"),
     ]})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,17 @@
 """Card-only: each CUDA kernel against its plain version on the card
 (attention also at deepseek-moe-16b's head shape, d 128 with one query
-head per kv head, and recurrentgemma-2b's, d 256 with a group of 10; the
-grouped matmul at ragged and deepseek shapes, also with per-expert row
-counts; both scans at their models' widths, ragged lengths and a nonzero
-initial state), which instance of flash attention and the grouped matmul
-ran (the tensor cores' for bf16 at the shapes they take, the CUDA
-cores' otherwise) and that the tensor-core instances give bit-identical
-output call after call, and both executors on the card against the same
-executor on the host.
+head per kv head, and recurrentgemma-2b's, d 256 with a group of 10;
+paged attention also at 16 pages a row, where a row's pages are split
+over blocks and merged in the launch, with windows across splits and a
+group of 8; the grouped matmul at ragged and deepseek shapes, also with
+per-expert row counts; both scans at their models' widths, ragged
+lengths and a nonzero initial state, the WKV also at the model's full
+decay range and on views whose rows are not 16-byte aligned), which
+instance of flash attention and the grouped matmul ran (the tensor
+cores' for bf16 at the shapes they take, the CUDA cores' otherwise),
+that the tensor-core instances, paged attention and the WKV give
+bit-identical output call after call, and both executors on the card
+against the same executor on the host.
 
 The kernels have no CPU mode, so every test here carries the ``cuda``
 marker and skips without a card.  On a machine with one:
@@ -130,6 +134,9 @@ def _paged_inputs(dev, dtype, b, hq, hkv, d, bt, nb, lengths, seed):
             torch.tensor(lengths, dtype=torch.int32, device=dev))
 
 
+LONG = [0, 1, 129, 700, 1000, 1500, 2047, 2048]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("b,hq,hkv,d,bt,nb,window,lengths", [
@@ -138,18 +145,60 @@ def _paged_inputs(dev, dtype, b, hq, hkv, d, bt, nb, lengths, seed):
     (4, 3, 1, 16, 16, 3, 0, [48, 0, 17, 1]),
     (3, 10, 2, 128, 64, 4, 70, [256, 3, 130]),
     (8, 16, 16, 128, 128, 3, 0, [0, 1, 127, 128, 129, 200, 300, 364]),
+    # many splits: 16 pages a row, one split each
+    (8, 9, 3, 64, 128, 16, 0, LONG),
+    # a window of 300 that crosses split (page) boundaries
+    (8, 9, 3, 64, 128, 16, 300, LONG),
+    # a group of 8 query heads per kv head
+    (4, 16, 2, 64, 128, 4, 0, [0, 5, 300, 512]),
+    # deepseek's heads at 16 pages: 2,048 blocks, so two pages a split
+    (8, 16, 16, 128, 128, 16, 0, LONG),
+    (8, 16, 16, 128, 128, 16, 200, LONG),
 ])
 def test_paged_kernel_matches_plain(card, dtype, b, hq, hkv, d, bt, nb,
                                     window, lengths):
+    """Every case against the plain version; inactive rows are exact
+    zeros and two calls (split merge included) are bit-identical."""
     args = _paged_inputs(card, dtype, b, hq, hkv, d, bt, nb, lengths,
                          seed=b + d + bt)
     n0 = pmod.LAUNCHES
     out = pmod.paged_attention(*args, window=window)
-    assert pmod.LAUNCHES == n0 + 1
+    again = pmod.paged_attention(*args, window=window)
+    assert pmod.LAUNCHES == n0 + 2
     ref = paged_attention_ref(*args, window=window)
     _close(out, ref, dtype)
+    assert torch.equal(out, again)
     zero = [i for i, n in enumerate(lengths) if n == 0]
     assert torch.all(out[zero] == 0)
+
+
+def test_paged_kernel_tickets_per_stream_and_in_graphs(card):
+    """The split merge's tickets: a call on a second stream and a graph
+    captured there and replayed give the eager call's output bit for
+    bit; a width past MAX_TICKETS is refused."""
+    args = _paged_inputs(card, torch.bfloat16, 8, 9, 3, 64, 128, 16, LONG,
+                         seed=7)
+    eager = pmod.paged_attention(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        on_side = pmod.paged_attention(*args)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        captured = pmod.paged_attention(*args)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
+    assert torch.equal(on_side, eager)
+    q = torch.zeros((pmod.MAX_TICKETS + 1, 1, 16), device=card)
+    pages = torch.zeros((1, 1, 16, 16), device=card)
+    with pytest.raises(ValueError, match="unsupported shapes"):
+        pmod.paged_attention(q, pages, pages,
+                             torch.zeros((len(q), 1), dtype=torch.int32,
+                                         device=card),
+                             torch.zeros(len(q), dtype=torch.int32,
+                                         device=card))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -230,25 +279,36 @@ def test_rglru_scan_kernel_matches_plain(card, dtype, batch, seq, ch,
     _close(out, rglru_scan_ref(a, b, h0), dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["fp32", "bf16"])
-@pytest.mark.parametrize("b,s,h,n,with_s0", [
-    (1, 300, 40, 64, False), (1, 128, 40, 64, True), (2, 40, 4, 16, True),
-    (1, 1, 2, 32, False)])
-def test_rwkv6_wkv_kernel_matches_plain(card, dtype, b, s, h, n, with_s0):
-    g = torch.Generator(device=card).manual_seed(s + h + n)
-    # the model's layout: (b, s, h*n) projections viewed as (b, s, h, n)
-    r, k, v = (torch.randn((b, s, h * n), generator=g, device=card)
-               .to(dtype).view(b, s, h, n) * 0.5 for _ in range(3))
-    logw = (-torch.exp(torch.empty((b, s, h, n), device=card)
-                       .uniform_(-6, -1, generator=g))).to(dtype)
-    u = torch.randn((h, n), generator=g, device=card) * 0.1
-    s0 = (torch.randn((b, h, n, n), generator=g, device=card)
+def _wkv_inputs(dev, dtype, b, s, h, n, with_s0, decay, pad=0):
+    """The model's layout: (b, s, h*n) projections viewed as (b, s, h, n);
+    ``pad`` > 0 cuts the views from rows ``pad`` elements wider at offset
+    ``pad``, so no row is 16-byte aligned.  logw = -exp(x) with x uniform
+    in ``decay``."""
+    g = torch.Generator(device=dev).manual_seed(s + h + n)
+
+    def proj(scale):
+        x = torch.randn((b, s, h * n + pad), generator=g, device=dev)
+        return (x * scale).to(dtype)[..., pad:].unflatten(-1, (h, n))
+
+    r, k, v = (proj(0.5) for _ in range(3))
+    lo, hi = decay
+    x = torch.empty((b, s, h * n + pad), device=dev).uniform_(lo, hi,
+                                                              generator=g)
+    logw = (-torch.exp(x)).to(dtype)[..., pad:].unflatten(-1, (h, n))
+    u = torch.randn((h, n), generator=g, device=dev) * 0.1
+    s0 = (torch.randn((b, h, n, n), generator=g, device=dev)
           if with_s0 else None)
+    return r, k, v, logw, u, s0
+
+
+def _wkv_check(args, dtype):
+    """Kernel vs plain version (output and final state), two calls
+    bit-identical, one launch a call."""
     n0 = wmod.LAUNCHES
-    o, st = wmod.rwkv6_wkv(r, k, v, logw, u, s0)
-    assert wmod.LAUNCHES == n0 + 1
-    o_ref, st_ref = rwkv6_wkv_ref(r, k, v, logw, u, s0)
+    o, st = wmod.rwkv6_wkv(*args)
+    o2, st2 = wmod.rwkv6_wkv(*args)
+    assert wmod.LAUNCHES == n0 + 2
+    o_ref, st_ref = rwkv6_wkv_ref(*args)
     tol = TOLS[dtype] if dtype == torch.bfloat16 else dict(atol=1e-4,
                                                            rtol=1e-4)
     torch.cuda.synchronize()
@@ -256,6 +316,37 @@ def test_rwkv6_wkv_kernel_matches_plain(card, dtype, b, s, h, n, with_s0):
                                o_ref.float().cpu().numpy(), **tol)
     np.testing.assert_allclose(st.cpu().numpy(), st_ref.cpu().numpy(),
                                atol=1e-4, rtol=1e-4)
+    assert torch.equal(o, o2) and torch.equal(st, st2)
+
+
+# the decay ranges: the card cases' usual one, and the model's full one
+# (logw = -exp(clamp(dd, -20, 10)), models/rwkv.py)
+DECAYS = {"usual": (-6.0, -1.0), "full": (-20.0, 10.0)}
+
+
+@pytest.mark.parametrize("decay", sorted(DECAYS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,s,h,n,with_s0", [
+    (1, 300, 40, 64, False), (1, 128, 40, 64, True), (2, 40, 4, 16, True),
+    (1, 1, 2, 32, False), (1, 77, 8, 64, True), (3, 33, 4, 32, False)])
+def test_rwkv6_wkv_kernel_matches_plain(card, dtype, b, s, h, n, with_s0,
+                                        decay):
+    """rwkv6-3b's widths, lengths that are no multiple of the kernel's
+    32-token chunk, and both decay ranges."""
+    _wkv_check(_wkv_inputs(card, dtype, b, s, h, n, with_s0,
+                           DECAYS[decay]), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,s,h,n", [(1, 70, 8, 64), (2, 37, 4, 16)])
+def test_rwkv6_wkv_kernel_unaligned_views(card, dtype, b, s, h, n):
+    """Views whose rows are not 16-byte aligned take the kernel's
+    element-by-element staging; same results as the plain version."""
+    args = _wkv_inputs(card, dtype, b, s, h, n, True, DECAYS["full"], pad=1)
+    assert args[0].data_ptr() % 16 and not args[0].is_contiguous()
+    _wkv_check(args, dtype)
 
 
 @pytest.mark.parametrize("arch", ["smollm-135m", "deepseek-moe-16b",

@@ -2,7 +2,8 @@
 oracle (``paged_attention_ref``) and the Pallas kernel in interpret mode,
 on the same numpy inputs in fp32.  Covers mixed lengths including 0
 (exact zeros), GQA with g=3, sliding windows, shuffled page order and
-tables whose tail names a null page.  The CUDA kernel itself is held
+tables whose tail names a null page, and rows of 16 pages; then the
+wrapper's split planner.  The CUDA kernel itself is held
 against the plain version on the card (test_torch_kernels_cuda.py,
 chip_smoke.py).
 
@@ -34,6 +35,8 @@ CASES = [
     (4, 6, 3, 32, 8, 4, 6, [0, 12, 32, 7]),         # window inside a page
     (3, 4, 1, 16, 8, 4, 20, [31, 9, 0]),            # window across pages
     (2, 3, 1, 64, 128, 3, 0, [200, 129]),           # 128-token pages, d=64
+    (3, 3, 1, 16, 16, 16, 0, [250, 0, 97]),         # 16 pages a row
+    (3, 6, 2, 32, 16, 16, 70, [250, 40, 129]),      # window over 5-6 pages
 ]
 
 
@@ -87,3 +90,29 @@ def test_kernel_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         paged_attention_decode(*arrs, impl="kernel")
     assert kmod.LAUNCHES == 0
+
+
+@pytest.mark.parametrize("b,hkv,nb,pps", [
+    (8, 3, 3, 1),        # smollm-135m's serving width: 72 blocks
+    (8, 16, 3, 1),       # deepseek-moe-16b's: 384
+    (8, 3, 16, 1),       # smollm at 16 pages: 384
+    (8, 16, 16, 2),      # deepseek at 16 pages: 2,048 -> 1,024 blocks
+    (16, 16, 64, 16),    # 16,384 one-page blocks -> 1,024
+    (1, 1, 1, 1),
+    (2000, 1, 5, 5),     # no split can hold more than the whole table
+])
+def test_plan_splits(b, hkv, nb, pps):
+    assert kmod.plan_splits(b, hkv, nb) == pps
+    n_splits = -(-nb // pps)
+    assert b * hkv * n_splits <= kmod.MAX_BLOCKS or pps == nb
+
+
+def test_workspace_only_when_a_row_can_span_splits():
+    g, d = 3, 64
+    assert kmod.workspace_floats(8, 3, g, d, 3, 3) == 0
+    assert kmod.workspace_floats(8, 3, g, d, 1, 1) == 0
+    # one (acc[g x d], max[g], sum[g]) record per split, row and kv head
+    assert kmod.workspace_floats(8, 3, g, d, 16, 1) == 8 * 3 * 16 * (
+        g * d + 2 * g)
+    assert kmod.workspace_floats(8, 16, 1, 128, 16, 2) == 8 * 16 * 8 * (
+        128 + 2)

@@ -2,7 +2,8 @@
 
 * the WKV kernel's plain version against the Pallas kernel in interpret
   mode (whole 64-token chunks, the only lengths it takes) and against the
-  reference's fp64 oracle on ragged lengths, and, with an initial state,
+  reference's fp64 oracle on ragged lengths, also at the model's full
+  decay range, and, with an initial state,
   against the reference model's ``wkv_scan`` / ``wkv_chunked`` (final
   state included);
 * ``time_mix`` (prefill at 40 tokens, the reference's per-token scan, and
@@ -62,6 +63,21 @@ def test_plain_matches_pallas_kernel_interpret(b, s, h, n):
 @pytest.mark.parametrize("s", [1, 40, 77])
 def test_plain_matches_reference_oracle_ragged(s):
     r, k, v, logw, u = _inputs(2, s, 2, 16, seed=s)
+    ref = np.asarray(wkv_ref(_bhsn(r), _bhsn(k), _bhsn(v), _bhsn(logw), u))
+    o, _ = rwkv6_wkv(*(torch.from_numpy(a) for a in (r, k, v, logw, u)))
+    np.testing.assert_allclose(o.numpy().transpose(0, 2, 1, 3), ref, **TOL)
+
+
+@pytest.mark.parametrize("s", [1, 45, 77])
+def test_plain_matches_reference_oracle_full_decay_range(s):
+    """At the decays the model allows (logw = -exp(d), d in [-20, 10]:
+    the clamp of ``time_mix``), w runs from 1 - 2e-9 to 0; the per-token
+    plain version stays within the tolerance of the fp64 oracle.  (The
+    Pallas chunked form does not at this range: it subtracts cumulative
+    log-decay sums of ~1e6 in fp32.)"""
+    r, k, v, _, u = _inputs(2, s, 2, 16, seed=100 + s)
+    d = np.random.default_rng(s).uniform(-20.0, 10.0, r.shape)
+    logw = (-np.exp(d)).astype(np.float32)
     ref = np.asarray(wkv_ref(_bhsn(r), _bhsn(k), _bhsn(v), _bhsn(logw), u))
     o, _ = rwkv6_wkv(*(torch.from_numpy(a) for a in (r, k, v, logw, u)))
     np.testing.assert_allclose(o.numpy().transpose(0, 2, 1, 3), ref, **TOL)
