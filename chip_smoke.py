@@ -17,17 +17,17 @@ each of which raises on failure (nothing is caught):
    recurrentgemma-2b's head_dim 256 / group 10; paged attention also at
    16 pages a row, lengths up to 2048; the grouped matmul at deepseek's
    prefill and decode expert shapes and a ragged one; the RG-LRU scan at
-   recurrentgemma's (1, 300, 2560), a ragged shape and a nonzero initial
-   state; the RWKV-6 WKV at rwkv6-3b's (1, 300, 40, 64), also at the
-   model's full decay range, and at 128 tokens from a nonzero state,
-   output and final state), fp32 and bf16, with its time, the plain
-   version's time, the time of the one PyTorch call that computes the
-   same function where there is one, and its bound on the H100.  Flash
-   attention and the grouped matmul have two instances, the tensor
-   cores' for bf16 and the CUDA cores' for fp32: each case line names
-   the one that ran.  Flash, paged attention, the grouped matmul and the
-   WKV must give bit-identical output in two calls, and the grouped
-   matmul also runs deepseek's decode product as the model does, with
+   recurrentgemma's (1, 300, 2560), also at 2048 and 40 steps, batch 4,
+   a ragged shape and a nonzero initial state, bit-exact in fp32; the
+   RWKV-6 WKV at rwkv6-3b's (1, 300, 40, 64), also at the model's full
+   decay range, and at 128 tokens from a nonzero state, output and final
+   state), fp32 and bf16, with its time, the plain version's time, the
+   time of the one PyTorch call that computes the same function where
+   there is one, and its bound on the H100.  Flash attention and the grouped matmul have two
+   instances, the tensor cores' for bf16 and the CUDA cores' for fp32:
+   each case line names the one that ran.  Every kernel must give
+   bit-identical output in two calls, and the grouped matmul also runs
+   deepseek's decode product as the model does, with
    ``counts`` from a top-6 routing of 8 tokens (its line gives the live
    experts and the bound of the bytes they need);
 3. the serving path of smollm-135m at full width (30 layers, vocab 49152,
@@ -47,6 +47,13 @@ each of which raises on failure (nothing is caught):
    full published width, fp32 params and bf16 compute, each (a) through
    ``make_executor``, which picks the per-slot executor, and (b) with
    kernel-vs-plain logits of the prefill and the first decode step.
+
+Every serving run goes through the executor's ``serving_params`` (the
+weights cast to the compute dtype once); the logit checks run the
+kernels' compute-dtype models on that tree and everything else on the
+raw tree, require the kernels' logits on both trees to be bit-identical,
+and time a decode step and a 200-token prefill on both
+(``full_model_timing``).
 
 The launch counters are zeroed before each serving run and must read,
 per prefill, one flash launch per attention layer, 3 x (num_layers -
@@ -203,8 +210,9 @@ def launch_floor(torch):
     one-element tensor, replayed from a CUDA graph as the kernels are: the
     floor under every kernel line's ``kernel_ms``."""
     x = torch.zeros(1, device="cuda")
-    log({"phase": "launch_floor",
-         "launch_floor_ms": graph_ms(torch, lambda: x.add_(1.0))})
+    floor_ms = graph_ms(torch, lambda: x.add_(1.0))
+    log({"phase": "launch_floor", "launch_floor_ms": floor_ms})
+    return floor_ms
 
 
 # ---------------------------------------------------------------------------
@@ -405,15 +413,18 @@ def gmm_cases(torch):
     return rows
 
 
-def rglru_cases(torch):
+def rglru_cases(torch, floor_ms):
     """The RG-LRU scan at recurrentgemma-2b's prefill shape (the gates are
-    fp32 in the model), from zeros and from a nonzero state, and a ragged
-    shape no block divides."""
+    fp32 in the model), from zeros and from a nonzero state, at 2048 and
+    40 steps, a ragged shape no block divides, and batch 4; fp32 must be
+    bit-exact against the plain version (both round the same two ops)."""
     from repro_torch.kernels.rglru_scan import rglru_scan as rs
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 
     dev = torch.device("cuda")
-    shapes = [(1, 300, 2560, False), (1, 300, 2560, True), (3, 37, 200, True)]
+    shapes = [(1, 300, 2560, False), (1, 300, 2560, True),
+              (1, 2048, 2560, False), (1, 40, 2560, False),
+              (3, 37, 200, True), (4, 300, 2560, True)]
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         for b, s, w, with_h0 in shapes:
@@ -424,24 +435,30 @@ def rglru_cases(torch):
                                    device=dev)).to(dtype)
             h0 = (torch.randn((b, w), generator=g, device=dev)
                   if with_h0 else None)
-            out = rs.rglru_scan(a, x, h0)
+            what = f"rglru_scan {(b, s, w)} h0={with_h0} {dtype}"
+            out, _ = run_counted(torch, rs, what,
+                                 lambda: rs.rglru_scan(a, x, h0))
             ref = rglru_scan_ref(a, x, h0)
-            err = check_close(torch, f"rglru_scan {(b, s, w)} h0={with_h0} "
-                              f"{dtype}", out, ref, TOL[str(dtype)])
+            err = check_close(torch, what, out, ref, TOL[str(dtype)])
+            if dtype == torch.float32 and not torch.equal(out, ref):
+                raise AssertionError(f"{what}: not bit-exact against the "
+                                     f"plain version (max abs err {err})")
             es = a.element_size()
             nbytes = es * 3 * b * s * w + (4 * b * w if with_h0 else 0)
             bound_ms, bound_by = bound(2.0 * b * s * w, nbytes, dtype)
+            kernel_ms = graph_ms(torch, lambda: rs.rglru_scan(a, x, h0))
             rows.append({
                 "kernel": "rglru_scan", "dtype": str(dtype), "b": b, "s": s,
                 "w": w, "h0": with_h0, "max_abs_err": err,
-                "tol": TOL[str(dtype)],
-                "kernel_ms": graph_ms(torch, lambda: rs.rglru_scan(a, x, h0)),
+                "tol": TOL[str(dtype)], "kernel_ms": kernel_ms,
                 "kernel_call_ms": cuda_ms(torch,
                                           lambda: rs.rglru_scan(a, x, h0)),
                 "plain_ms": graph_ms(torch, lambda: rglru_scan_ref(a, x, h0),
                                      reps=2, replays=3),
                 "library_ms": None,    # no one PyTorch call scans a recurrence
-                "bound_ms": bound_ms, "bound_by": bound_by})
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "bound_ratio": kernel_ms / bound_ms,
+                "floor_ratio": kernel_ms / floor_ms})
             log(rows[-1])
     return rows
 
@@ -610,11 +627,13 @@ def serve_cli(cfg):
 
 def serve_engine(torch, cfg, n_req: int, max_new_hi: int, phase: str):
     """The continuous engine over ``make_executor`` (params drawn on the
-    card from seed 0): ``n_req`` requests with prompts of 40-300 tokens
+    card from seed 0, only their cast tree kept; ``peak_mem_gb`` is the
+    run's peak, ``held_mem_gb`` what stays after it): ``n_req`` requests with prompts of 40-300 tokens
     and 16-``max_new_hi`` new tokens through 8 slots, so rows admit and
     detach while others decode."""
     import numpy as np
 
+    from repro_torch.models.init import init_params
     from repro_torch.serve.batched_executor import make_executor
     from repro_torch.serve.engine import (NO_SLO, ContinuousServeEngine,
                                           ServeRequest)
@@ -697,8 +716,14 @@ def serve_engine(torch, cfg, n_req: int, max_new_hi: int, phase: str):
          "decode_tokens_per_s": decode["tokens"] / decode["s"],
          "mean_ttft_s": rep.ttft_s["mean"], "slo_goodput": rep.slo_goodput,
          "RG": rep.goodput["RG"], "preemptions": rep.preemptions,
-         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    return counts, ex.params
+         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+         "held_mem_gb": torch.cuda.memory_allocated() / 1e9})
+    # the executor drew its params and kept only their cast tree: draw
+    # the raw tree again from the same seed for the logit checks (the
+    # cast-vs-raw check holds the two trees to the same logits)
+    raw = init_params(cfg, torch.Generator(ex.device).manual_seed(0),
+                      ex.device)
+    return counts, raw, ex.serving_params
 
 
 # the logits phase's page pool: 3 pages of 128 tokens per prompt row
@@ -774,11 +799,16 @@ def _compare_logits(torch, a, b, tol):
                 "logit_spread": b.std().item()}
 
 
-def logits_kernel_vs_plain(torch, cfg, params, tol):
+def logits_kernel_vs_plain(torch, cfg, params, serving, tol):
     """The full model at full width with every kernel against every plain
     version, same weights and inputs: prefill of 8 prompts and the first
     batched decode step over their pages (4 prompts, each with its own
-    first decode step, on the per-slot path), held to ``tol``.
+    first decode step, on the per-slot path), held to ``tol``.  The
+    kernels' compute-dtype runs take ``serving``, the executor's cast
+    tree, and their logits must be bit-identical to those of the kernels
+    on the raw tree ``params`` (``cast_vs_raw_*``); every plain run and
+    every fp32-compute run takes ``params``, so the plain versions are
+    held apart from ``compute_params``.
 
     ``tol=None`` (MoE and the recurrent families) runs the comparison in
     fp32 compute too, held to ``DS_FP32_LOGIT_ATOL`` (for ssm, at least
@@ -797,8 +827,14 @@ def logits_kernel_vs_plain(torch, cfg, params, tol):
                              device=dev) for n in lens]
     res = {}
     with torch.inference_mode():
-        kern = _full_model_logits(torch, cfg, params, "kernel", prompts)
+        kern = _full_model_logits(torch, cfg, serving, "kernel", prompts)
         tok = kern[2][0]
+        raw = _full_model_logits(torch, cfg, params, "kernel", prompts, tok)
+        for i, name in enumerate(("prefill", "decode")):
+            res[f"cast_vs_raw_{name}"] = {
+                "ok": torch.equal(kern[i], raw[i]),
+                "max_abs_err": (kern[i] - raw[i]).abs().max().item()}
+        del raw
         plain = _full_model_logits(torch, cfg, params, "ref", prompts, tok)
         if tol is not None:
             for i, name in enumerate(("prefill", "decode")):
@@ -825,25 +861,29 @@ def logits_kernel_vs_plain(torch, cfg, params, tol):
             del k32, p32
         # where a full-model call's time goes: its span on the device
         # timeline when issued eagerly (the serving path) against its
-        # device time alone (CUDA-graph replay)
-        if paged:
-            tok, lengths, kp, vp, tables, cfg_dec = kern[2]
-            step = lambda: transformer.paged_decode_step(      # noqa: E731
-                params, tok, lengths, kp, vp, tables, cfg_dec)
-            step_name = "decode_step_w8"
-        else:       # one slot's step (the cache is rewritten in place)
-            tok, caches = kern[2]
-            step = lambda: transformer.decode_step(            # noqa: E731
-                params, tok[:1], caches[0], cfg)
-            step_name = "decode_step_b1"
+        # device time alone (CUDA-graph replay), on the raw tree (every
+        # weight cast per call) and on the executor's cast tree
         p200 = prompts[lens.index(200)]
-        pre200 = lambda: transformer.prefill(                  # noqa: E731
-            params, {"tokens": p200}, cfg,
-            max_len=PAGE_TOKENS * PAGES_PER_ROW)
-        timing = {step_name: {"eager_ms": cuda_ms(torch, step, 20),
-                              "device_ms": graph_ms(torch, step, 5)},
-                  "prefill_s200": {"eager_ms": cuda_ms(torch, pre200, 20),
-                                   "device_ms": graph_ms(torch, pre200, 5)}}
+        step_name = "decode_step_w8" if paged else "decode_step_b1"
+        timing = {step_name: {}, "prefill_s200": {}}
+        for tree_name, tree in (("raw", params), ("cast", serving)):
+            if paged:
+                tok, lengths, kp, vp, tables, cfg_dec = kern[2]
+                step = lambda: transformer.paged_decode_step(  # noqa: E731
+                    tree, tok, lengths, kp, vp, tables, cfg_dec)
+            else:   # one slot's step (the cache is rewritten in place)
+                tok, caches = kern[2]
+                step = lambda: transformer.decode_step(        # noqa: E731
+                    tree, tok[:1], caches[0], cfg)
+            pre200 = lambda: transformer.prefill(              # noqa: E731
+                tree, {"tokens": p200}, cfg,
+                max_len=PAGE_TOKENS * PAGES_PER_ROW)
+            timing[step_name][tree_name] = {
+                "eager_ms": cuda_ms(torch, step, 20),
+                "device_ms": graph_ms(torch, step, 5)}
+            timing["prefill_s200"][tree_name] = {
+                "eager_ms": cuda_ms(torch, pre200, 20),
+                "device_ms": graph_ms(torch, pre200, 5)}
     log({"phase": "logits_kernel_vs_plain", "arch": cfg.name,
          "prompt_lens": lens, **res})
     log({"phase": "full_model_timing", "arch": cfg.name, "prompt_lens": lens,
@@ -881,20 +921,20 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    launch_floor(torch)
+    floor_ms = launch_floor(torch)
     flash = flash_cases(torch)
     paged = paged_cases(torch)
     gmm = gmm_cases(torch)
-    scan = rglru_cases(torch)
+    scan = rglru_cases(torch, floor_ms)
     wkv = wkv_cases(torch)
 
     cfg = get_config("smollm-135m")
     if cfg.compute_dtype != torch.bfloat16 or cfg.num_layers != 30:
         raise AssertionError(f"smollm-135m is not at full width: {cfg}")
     c_cli = serve_cli(cfg)
-    c_eng, params = serve_engine(torch, cfg, 24, 64, "serve_engine")
-    logits_kernel_vs_plain(torch, cfg, params, LOGIT_ATOL)
-    del params
+    c_eng, params, serving = serve_engine(torch, cfg, 24, 64, "serve_engine")
+    logits_kernel_vs_plain(torch, cfg, params, serving, LOGIT_ATOL)
+    del params, serving
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -905,9 +945,10 @@ def main() -> int:
             ds.num_shared_experts, ds.first_k_dense, ds.vocab_size) != (
             28, 2048, 64, 6, 2, 1, 102400):
         raise AssertionError(f"deepseek-moe-16b is not at full width: {ds}")
-    c_ds, params = serve_engine(torch, ds, 12, 48, "serve_engine_deepseek")
-    logits_kernel_vs_plain(torch, ds, params, None)
-    del params
+    c_ds, params, serving = serve_engine(torch, ds, 12, 48,
+                                         "serve_engine_deepseek")
+    logits_kernel_vs_plain(torch, ds, params, serving, None)
+    del params, serving
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -917,19 +958,20 @@ def main() -> int:
             rg.head_dim, rg.lru_width, rg.vocab_size, rg.compute_dtype) != (
             26, 2560, 10, 1, 256, 2560, 256000, torch.bfloat16):
         raise AssertionError(f"recurrentgemma-2b is not at full width: {rg}")
-    c_rg, params = serve_engine(torch, rg, 12, 48,
-                                "serve_engine_recurrentgemma")
-    logits_kernel_vs_plain(torch, rg, params, None)
-    del params
+    c_rg, params, serving = serve_engine(torch, rg, 12, 48,
+                                         "serve_engine_recurrentgemma")
+    logits_kernel_vs_plain(torch, rg, params, serving, None)
+    del params, serving
     gc.collect()
     torch.cuda.empty_cache()
     rw = get_config("rwkv6-3b")
     if (rw.num_layers, rw.d_model, rw.rwkv_heads, rw.d_ff, rw.vocab_size,
             rw.compute_dtype) != (32, 2560, 40, 8960, 65536, torch.bfloat16):
         raise AssertionError(f"rwkv6-3b is not at full width: {rw}")
-    c_rw, params = serve_engine(torch, rw, 12, 48, "serve_engine_rwkv6")
-    logits_kernel_vs_plain(torch, rw, params, None)
-    del params
+    c_rw, params, serving = serve_engine(torch, rw, 12, 48,
+                                         "serve_engine_rwkv6")
+    logits_kernel_vs_plain(torch, rw, params, serving, None)
+    del params, serving
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -19,8 +19,9 @@ def rglru_scan(a, b, h0=None):
     """h_t = a_t * h_{t-1} + b_t along axis 1, from ``h0`` (zeros if None).
 
     a, b: contiguous (batch, seq, ch) CUDA tensors of one dtype (fp32 or
-    bf16); h0: (batch, ch) fp32 or None.  Returns h (batch, seq, ch) in
-    a.dtype, carried in fp32; ``h[:, -1]`` is the final state.
+    bf16), any alignment; h0: (batch, ch) fp32 or None.  Returns h
+    (batch, seq, ch) in a.dtype, carried in fp32; ``h[:, -1]`` is the
+    final state.
     """
     global LAUNCHES
     C.require_cuda("rglru_scan", a, b, *([] if h0 is None else [h0]))

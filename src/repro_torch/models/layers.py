@@ -83,9 +83,14 @@ def embed_tokens(tokens, w, compute_dtype):
 def lm_logits(x, params, cfg: ModelConfig, softcap: float = 0.0):
     """fp32 logits of compute-dtype inputs: both operands are rounded to
     the compute dtype, then multiplied and summed in fp32 (the
-    reference's ``preferred_element_type=float32``)."""
-    w = params["embed"]["tok"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = torch.matmul(x.float(), w.to(x.dtype).float())
+    reference's ``preferred_element_type=float32``).  A tree from
+    ``compute_params`` carries the rounded head as ``params["head"]``."""
+    head = params.get("head")
+    if head is None:
+        w = (params["embed"]["tok"].T if cfg.tie_embeddings
+             else params["lm_head"])
+        head = w.to(x.dtype).float()
+    logits = torch.matmul(x.float(), head)
     cap = softcap or cfg.logit_softcap
     if cap > 0:
         logits = cap * torch.tanh(logits / cap)

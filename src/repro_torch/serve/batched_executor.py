@@ -44,6 +44,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import model, transformer
+from repro_torch.models.compute_params import compute_params
 from repro_torch.models.init import init_params
 from repro_torch.serve.kv_cache import FLASH_ATTENTION_BLOCK_K, PagedKVCache
 from repro_torch.serve.slot_executor import TorchSlotExecutor, slot_kv_cache
@@ -62,9 +63,13 @@ def decode_config(cfg):
 class TorchBatchedExecutor:
     """Fixed-width batched paged decode for the continuous engine.
 
+    The model runs on ``serving_params``, the weights cast to the compute
+    dtype once (:func:`~repro_torch.models.compute_params.compute_params`).
     ``params=None`` draws random params from a ``torch.Generator`` on the
-    executor's device seeded with 0; otherwise the given tree (e.g.
-    ``params_from_numpy`` of the reference's) is used as it is.
+    executor's device seeded with 0 and keeps only their cast tree
+    (``self.params`` is None), so the raw fp32 weights do not stay on the
+    card beside it; a given tree (e.g. ``params_from_numpy`` of the
+    reference's) stays ``self.params``, as it is.
     ``attn_impl`` selects the attention of both phases and ``gmm_impl``
     the experts' grouped matmul ("auto" = the kernels on CUDA, the plain
     versions on the CPU).
@@ -94,10 +99,16 @@ class TorchBatchedExecutor:
         self._kp = torch.zeros(shape, dtype=cfg.compute_dtype,
                                device=self.device)
         self._vp = torch.zeros_like(self._kp)
-        if params is None:
-            params = init_params(
-                cfg, torch.Generator(self.device).manual_seed(0), self.device)
-        self.params = params
+        # the tree the model runs on: weights cast to the compute dtype
+        # once here, not on every call (bit-identical results)
+        if params is None:      # drawn here: only the cast tree is kept
+            self.params = None
+            self.serving_params = compute_params(
+                init_params(cfg, torch.Generator(self.device).manual_seed(0),
+                            self.device), cfg, consume=True)
+        else:
+            self.params = params
+            self.serving_params = compute_params(params, cfg)
         self._prefill = model.prefill_fn(cfg, max_len=max_len,
                                          attn_impl=attn_impl,
                                          gmm_impl=gmm_impl)
@@ -144,7 +155,8 @@ class TorchBatchedExecutor:
                 self.rows[r.rid] = row
                 prompt = np.asarray(r.prompt, np.int64)
                 logits, cache = self._prefill(
-                    self.params, {"tokens": self._dev(prompt[None, :])})
+                    self.serving_params,
+                    {"tokens": self._dev(prompt[None, :])})
                 tok = torch.argmax(logits, -1)
                 table = np.asarray(self.kv.block_table(r.rid), np.int64)
                 pos = np.arange(prompt.shape[-1])
@@ -177,7 +189,7 @@ class TorchBatchedExecutor:
         self._decode_shapes.add(tuple((tuple(a.shape), a.dtype)
                                       for a in [*args, self._kp, self._vp]))
         with torch.inference_mode():
-            logits, _, _ = self._step(self.params, args[0], args[1],
+            logits, _, _ = self._step(self.serving_params, args[0], args[1],
                                       self._kp, self._vp, args[2])
             tok_np = torch.argmax(logits, -1).to(torch.int32).cpu().numpy()
         cost = max(0.0, self.clock() - t0)

@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import model
+from repro_torch.models.compute_params import compute_params
 from repro_torch.models.init import init_params
 from repro_torch.serve.kv_cache import PagedKVCache
 
@@ -43,9 +44,13 @@ def slot_kv_cache(max_len: int, n_slots: int) -> PagedKVCache:
 class TorchSlotExecutor:
     """Batch-1 prefill and decode per request over the real model.
 
+    The model runs on ``serving_params``, the weights cast to the compute
+    dtype once (:func:`~repro_torch.models.compute_params.compute_params`).
     ``params=None`` draws random params from a ``torch.Generator`` on the
-    executor's device seeded with 0; otherwise the given tree (e.g.
-    ``params_from_numpy`` of the reference's) is used as it is.
+    executor's device seeded with 0 and keeps only their cast tree
+    (``self.params`` is None), so the raw fp32 weights do not stay on the
+    card beside it; a given tree (e.g. ``params_from_numpy`` of the
+    reference's) stays ``self.params``, as it is.
     ``attn_impl`` and ``gmm_impl`` select flash attention and the experts'
     grouped matmul: "auto" = the kernels on CUDA, the plain versions on the
     CPU (the recurrence kernels always run as "auto").
@@ -59,10 +64,16 @@ class TorchSlotExecutor:
         self.max_len = max_len
         self.clock = clock
         self.device = resolve_device(device)
-        if params is None:
-            params = init_params(
-                cfg, torch.Generator(self.device).manual_seed(0), self.device)
-        self.params = params
+        # the tree the model runs on: weights cast to the compute dtype
+        # once here, not on every call (bit-identical results)
+        if params is None:      # drawn here: only the cast tree is kept
+            self.params = None
+            self.serving_params = compute_params(
+                init_params(cfg, torch.Generator(self.device).manual_seed(0),
+                            self.device), cfg, consume=True)
+        else:
+            self.params = params
+            self.serving_params = compute_params(params, cfg)
         self._prefill = model.prefill_fn(cfg, max_len=max_len,
                                          attn_impl=attn_impl,
                                          gmm_impl=gmm_impl)
@@ -96,7 +107,7 @@ class TorchSlotExecutor:
                         f"request {r.rid} carries no prompt tokens")
                 tokens = torch.from_numpy(
                     np.asarray(r.prompt, np.int64)[None, :]).to(self.device)
-                logits, cache = self._prefill(self.params,
+                logits, cache = self._prefill(self.serving_params,
                                               {"tokens": tokens})
                 tok = torch.argmax(logits, -1)
                 self._caches[r.rid] = cache
@@ -110,7 +121,8 @@ class TorchSlotExecutor:
         pend = []
         with torch.inference_mode():
             for r in reqs:
-                logits, cache = self._decode(self.params, self._tok[r.rid],
+                logits, cache = self._decode(self.serving_params,
+                                             self._tok[r.rid],
                                              self._caches[r.rid])
                 tok = torch.argmax(logits, -1)
                 self._caches[r.rid] = cache

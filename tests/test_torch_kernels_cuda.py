@@ -264,9 +264,15 @@ def test_moe_gmm_tc_is_deterministic(card, e, c, k, f):
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("batch,seq,ch,with_h0", [
     (1, 300, 2560, False), (1, 300, 2560, True), (3, 37, 200, True),
-    (2, 1, 64, False)])
+    (2, 1, 64, False), (1, 2048, 2560, False), (1, 40, 2560, True),
+    (2, 45, 100, True), (1, 33, 70, False), (4, 300, 2560, True)])
 def test_rglru_scan_kernel_matches_plain(card, dtype, batch, seq, ch,
                                          with_h0):
+    """recurrentgemma-2b's width at 300 and 2048 steps (the ring wraps
+    many times), lengths that are no multiple of the 32-step chunk,
+    widths that are no multiple of the channel group (ch 70: rows not
+    16-byte aligned, staged element by element), batch 4; fp32 is
+    bit-exact (the plain version rounds the same two ops)."""
     g = torch.Generator(device=card).manual_seed(seq + ch)
     a = torch.rand((batch, seq, ch), generator=g, device=card).to(dtype)
     b = torch.randn((batch, seq, ch), generator=g, device=card).to(dtype)
@@ -276,7 +282,53 @@ def test_rglru_scan_kernel_matches_plain(card, dtype, batch, seq, ch,
     out = smod.rglru_scan(a, b, h0)
     assert smod.LAUNCHES == n0 + 1
     assert out.dtype == dtype and out.shape == a.shape
-    _close(out, rglru_scan_ref(a, b, h0), dtype)
+    ref = rglru_scan_ref(a, b, h0)
+    _close(out, ref, dtype)
+    if dtype == torch.float32:
+        assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("batch,seq,ch", [(1, 70, 256), (2, 33, 2560)])
+def test_rglru_scan_kernel_unaligned_views(card, dtype, batch, seq, ch):
+    """Contiguous views one element past an aligned start (so no row is
+    16-byte aligned) take the element-by-element staging."""
+    g = torch.Generator(device=card).manual_seed(seq + ch + 1)
+    n = batch * seq * ch
+
+    def view(x):
+        return x.to(dtype)[1:n + 1].view(batch, seq, ch)
+
+    a = view(torch.rand(n + 1, generator=g, device=card))
+    b = view(torch.randn(n + 1, generator=g, device=card))
+    assert a.is_contiguous() and a.data_ptr() % 16
+    out = smod.rglru_scan(a, b)
+    ref = rglru_scan_ref(a, b)
+    _close(out, ref, dtype)
+    if dtype == torch.float32:
+        assert torch.equal(out, ref)
+
+
+def test_rglru_scan_graph_replay_is_bit_identical(card):
+    """A CUDA-graph replay of the scan gives the eager call's output."""
+    g = torch.Generator(device=card).manual_seed(5)
+    a = torch.rand((1, 300, 2560), generator=g, device=card)
+    b = torch.randn((1, 300, 2560), generator=g, device=card)
+    h0 = torch.randn((1, 2560), generator=g, device=card)
+    eager = smod.rglru_scan(a, b, h0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        smod.rglru_scan(a, b, h0)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = smod.rglru_scan(a, b, h0)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
 
 
 def _wkv_inputs(dev, dtype, b, s, h, n, with_s0, decay, pad=0):
