@@ -49,20 +49,33 @@ each of which raises on failure (nothing is caught):
    kernel-vs-plain logits of the prefill and the first decode step.
 
 Every serving run goes through the executor's ``serving_params`` (the
-weights cast to the compute dtype once); the logit checks run the
-kernels' compute-dtype models on that tree and everything else on the
-raw tree, require the kernels' logits on both trees to be bit-identical,
-and time a decode step and a 200-token prefill on both
-(``full_model_timing``).
+weights cast to the compute dtype once) and runs each decode step as a
+replay of a captured CUDA graph (``serve/decode_graph.py``: one graph
+for the batched executor, one per pooled batch-1 cache for the per-slot
+one); prefill stays eager.  After each model's serving run the same
+short request stream goes through ``decode_impl="graph"`` and
+``"eager"`` executors on the same weights, and their per-request tokens
+must be identical (``graph_vs_eager``).  The logit checks run the
+kernels' compute-dtype models on the cast tree and everything else on
+the raw tree, require the kernels' logits on both trees to be
+bit-identical, and time a decode step and a 200-token prefill on both
+(``full_model_timing``: the eager span, the device time, and for the
+step the wall time of one graph replay).
 
-The launch counters are zeroed before each serving run and must read,
+The launch counters are zeroed before each serving run (before its
+executor is built: the batched one captures its step then).  They count
+Python calls of a wrapper, and a replay makes none, so they must read,
 per prefill, one flash launch per attention layer, 3 x (num_layers -
 first_k_dense) grouped-matmul launches (MoE only), one RG-LRU scan per
 recurrent layer (hybrid) and one WKV launch per layer (ssm), and per
-decode step num_layers paged launches and the same grouped-matmul count
-on the batched path, no launch at all on the per-slot path (its decode
-is plain torch, as the reference's).  Every serving path computes in
-bf16, so each of its flash and grouped-matmul launches must also be a
+direct call of the decode step (the warm-up and capture calls on the
+graph path, every step on the eager one) num_layers paged launches and
+the same grouped-matmul count on the batched path, no launch at all on
+the per-slot path (its decode is plain torch, as the reference's).  The
+replays must equal the decode steps (batched) or the live requests
+summed over the steps (per-slot), and the launches a run reports add
+each replay's to the counted ones.  Every serving path computes in bf16,
+so each of its flash and grouped-matmul launches must also be a
 tensor-core one; the fp32-compute logit checks run the CUDA-core ones.
 
 Prints one JSON line per measured case, then the kernels' summary line,
@@ -168,6 +181,23 @@ def graph_ms(torch, fn, reps: int = 20, replays: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (reps * replays)
+
+
+def graph_wall_ms(torch, fn, iters: int = 20) -> float:
+    """Host wall time of one step of ``fn`` through the executors'
+    ``DecodeGraph``: a replay, then a synchronise, timed on the host
+    clock and averaged over ``iters`` steps after the capture."""
+    from repro_torch.serve.decode_graph import DecodeGraph
+
+    dev = torch.device("cuda")
+    graph = DecodeGraph(lambda bufs: fn(), {}, dev, "graph")
+    graph()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        graph()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
 
 
 def bound(flops: float, nbytes: float, dtype) -> tuple:
@@ -577,52 +607,143 @@ def per_call_launches(cfg):
             {**none, "paged_attention": cfg.num_layers, "moe_gmm": 3 * n_moe})
 
 
-def check_launches(cfg, counts, tc_counts, prefills, decode_steps, what):
-    """The launches of a serving run against ``per_call_launches``; on a
-    bf16 path every flash and grouped-matmul launch must also have been a
-    tensor-core one."""
+def instrument(ex):
+    """Wrap ``ex``'s prefill, decode and release to record a run: the
+    executor's decode seconds (its own clock), decode calls, decode
+    tokens (the live requests summed over the steps), the most requests
+    live in one step, and the rows live at each admission and detach."""
+    rec = {"decode_s": 0.0, "decode_calls": 0, "decode_tokens": 0,
+           "peak_live": 0, "events": []}
+    decode, prefill, release = ex.decode, ex.prefill, ex.release
+
+    def live():
+        # rows of the batched executor, live entries of the per-slot one
+        return len(ex.rows) if hasattr(ex, "rows") else len(ex._caches)
+
+    def timed_decode(rs):
+        toks, cost = decode(rs)
+        rec["decode_s"] += cost
+        rec["decode_calls"] += 1
+        rec["decode_tokens"] += len(toks)
+        rec["peak_live"] = max(rec["peak_live"], len(toks))
+        return toks, cost
+
+    def logged_prefill(rs):
+        rec["events"].append(("admit", ex.decode_steps, live()))
+        return prefill(rs)
+
+    def logged_release(r):
+        rec["events"].append(("detach", ex.decode_steps, live()))
+        return release(r)
+
+    ex.decode, ex.prefill, ex.release = (timed_decode, logged_prefill,
+                                         logged_release)
+    return rec
+
+
+def check_run(cfg, ex, rec, counts, tc_counts, what, mode="graph"):
+    """A serving run's launches and decode graphs, exact.
+
+    The counters count Python calls of a kernel's wrapper; a graph replay
+    makes none.  So the counted launches must equal ``per_call_launches``
+    per prefill plus per direct call of the decode step (warm-up and
+    capture calls on the graph path, every step on the eager one), and on
+    a bf16 path every flash and grouped-matmul launch must have been a
+    tensor-core one.  On the graph path the batched executor holds one
+    graph replayed once per decode step, the per-slot executor at most
+    one per request live at once, replayed once per live request per
+    step; on the eager path none.  Returns the run's figures, with the
+    launches the card made: the counted ones plus each replay's."""
     import torch
 
+    from repro_torch.serve.decode_graph import WARMUP
+
     per_pre, per_dec = per_call_launches(cfg)
-    want = {k: per_pre[k] * prefills + per_dec[k] * decode_steps
+    g = ex.decode_graph_stats()
+    want = {k: per_pre[k] * ex.prefills + per_dec[k] * g["calls"]
             for k in per_pre}
-    if counts != want or not prefills or not decode_steps:
+    if counts != want or not ex.prefills or not ex.decode_steps:
         raise AssertionError(
             f"{what}: kernel launches {counts}, expected {want} for "
-            f"{cfg.name} ({per_pre} per prefill, {per_dec} per decode "
-            f"step; {prefills} prefills, {decode_steps} decode steps)")
+            f"{cfg.name} ({per_pre} per prefill, {per_dec} per call of the "
+            f"decode step; {ex.prefills} prefills, {g['calls']} step calls)")
     if cfg.compute_dtype == torch.bfloat16:
         want_tc = {k: want[k] for k in TC_KERNELS}
         if tc_counts != want_tc:
             raise AssertionError(
                 f"{what}: tensor-core launches {tc_counts}, expected every "
                 f"bf16 launch {want_tc} for {cfg.name}")
+    batched = hasattr(ex, "rows")
+    n_graphs = ex.decode_graph_count()
+    if mode == "graph":
+        ok = (g["replays"] == (ex.decode_steps if batched
+                               else rec["decode_tokens"])
+              and (n_graphs == 1 if batched
+                   else 1 <= n_graphs <= rec["peak_live"])
+              and g["calls"] == (WARMUP + 1) * n_graphs)
+    else:
+        ok = n_graphs == 0 and g["replays"] == 0
+    if not ok or rec["decode_calls"] != ex.decode_steps:
+        raise AssertionError(
+            f"{what}: {mode} path with {n_graphs} decode graphs and {g} for "
+            f"{ex.decode_steps} decode steps, {rec['decode_tokens']} "
+            f"decode tokens, at most {rec['peak_live']} requests live")
+    return {"mode": mode, "decode_graphs": n_graphs,
+            "replays": g["replays"], "step_calls": g["calls"],
+            "capture_s": g["capture_s"],
+            "graph_mem_mb": g["capture_bytes"] / 1e6,
+            "launches": {k: counts[k] + per_dec[k] * g["replays"]
+                         for k in counts},
+            "tc_launches": {k: tc_counts[k] + per_dec[k] * g["replays"]
+                            for k in TC_KERNELS},
+            "launches_counted": counts,
+            "decode_tokens_per_s": rec["decode_tokens"] / rec["decode_s"],
+            "mean_decode_step_ms": 1e3 * rec["decode_s"]
+            / rec["decode_calls"]}
 
 
 def serve_cli(cfg):
     from repro_torch.launch import serve
+    from repro_torch.serve import batched_executor
 
     argv = ["--requests", "16", "--batch", "8", "--prompt-len", "200",
             "--max-new", "64"]
+    # the CLI builds its executor through make_executor: keep a handle on
+    # it, for its graph's counts (the CLI's report does not carry them)
+    made = []
+    make = batched_executor.make_executor
+
+    def make_and_keep(*args, **kw):
+        ex, kv = make(*args, **kw)
+        made.append((ex, instrument(ex)))
+        return ex, kv
+
+    batched_executor.make_executor = make_and_keep
     reset_counts()
     t0 = time.perf_counter()
-    out = serve.main(argv)
+    try:
+        out = serve.main(argv)
+    finally:
+        batched_executor.make_executor = make
     wall = time.perf_counter() - t0
     counts, tc_counts = read_counts(), read_tc_counts()
-    ex = out["executor"]
-    check_launches(cfg, counts, tc_counts, ex["prefills"], ex["decode_steps"],
-                   "CLI")
+    (ex, rec), = made
+    run = check_run(cfg, ex, rec, counts, tc_counts, "CLI")
+    # the wrappers refer back to the executor: free it now, not at the
+    # next collection, so the runs after this one start without it
+    del ex, rec, made
+    gc.collect()
+    summary = out["executor"]
     if out["tokens"] != 16 * 64 or out["requests"] != 16:
         raise AssertionError(f"CLI generated {out['tokens']} tokens for "
                              f"{out['requests']} requests, expected 1024/16")
-    if ex["decode_shapes"] != 1:
-        raise AssertionError(f"decode input shapes changed: {ex}")
-    log({"phase": "serve_cli", "argv": argv, "wall_s": wall,
-         "launches": counts, "tc_launches": tc_counts, "executor": ex,
-         "tokens": out["tokens"],
+    if summary["decode_shapes"] != 1:
+        raise AssertionError(f"decode input shapes changed: {summary}")
+    log({"phase": "serve_cli", "argv": argv, "wall_s": wall, **run,
+         "executor": summary, "tokens": out["tokens"],
          "mean_ttft_s": out["ttft_s"]["mean"],
          "slo_goodput": out["slo_goodput"], "RG": out["goodput"]["RG"]})
-    return counts
+    return run["launches"]
 
 
 def serve_engine(torch, cfg, n_req: int, max_new_hi: int, phase: str):
@@ -649,42 +770,19 @@ def serve_engine(torch, cfg, n_req: int, max_new_hi: int, phase: str):
             prompt=rng.integers(0, cfg.vocab_size, plen).astype(np.int32)))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    # counted from here: the batched executor captures its decode step
+    # as it is built
+    reset_counts()
     t0 = time.perf_counter()
     ex, kv = make_executor(cfg, max_len, n_slots)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    decode = {"s": 0.0, "tokens": 0}
-    # (event, decode steps so far, rows live) for each admission / detach
-    events = []
-    orig_decode, orig_prefill, orig_release = (ex.decode, ex.prefill,
-                                               ex.release)
-
-    def timed_decode(rs):
-        toks, cost = orig_decode(rs)
-        decode["s"] += cost
-        decode["tokens"] += len(toks)
-        return toks, cost
-
-    def live():
-        # rows of the batched executor, per-request caches of the slot one
-        return len(ex.rows) if hasattr(ex, "rows") else len(ex._caches)
-
-    def prefill(rs):
-        events.append(("admit", ex.decode_steps, live()))
-        return orig_prefill(rs)
-
-    def release(r):
-        events.append(("detach", ex.decode_steps, live()))
-        return orig_release(r)
-
-    ex.decode, ex.prefill, ex.release = timed_decode, prefill, release
-    reset_counts()
+    rec = instrument(ex)
     t0 = time.perf_counter()
     rep = ContinuousServeEngine(n_slots, ex, slo=NO_SLO, kv_cache=kv).run(reqs)
     wall = time.perf_counter() - t0
     counts, tc_counts = read_counts(), read_tc_counts()
-    check_launches(cfg, counts, tc_counts, ex.prefills, ex.decode_steps,
-                   phase)
+    run = check_run(cfg, ex, rec, counts, tc_counts, phase)
     want = sum(r.max_new for r in reqs)
     shapes = (ex.decode_shape_count() if hasattr(ex, "decode_shape_count")
               else 1)
@@ -696,24 +794,15 @@ def serve_engine(torch, cfg, n_req: int, max_new_hi: int, phase: str):
                   != (r.prompt_len + r.max_new - 2) // 128)
     if not crossed:
         raise AssertionError(f"{phase}: no request's decode crossed a page")
-    last = ex.decode_steps
-    admitted_mid = sum(1 for ev, step, live in events
-                       if ev == "admit" and step > 0 and live > 0)
-    detached_mid = sum(1 for ev, step, live in events
-                       if ev == "detach" and step < last and live > 1)
-    if not admitted_mid or not detached_mid:
-        raise AssertionError(f"{phase}: {admitted_mid} admissions and "
-                             f"{detached_mid} detaches mid-flight")
+    admitted_mid, detached_mid = churn(ex, rec, phase)
     log({"phase": phase, "arch": cfg.name,
          "executor": type(ex).__name__, "requests": n_req,
          "n_slots": n_slots, "prompt_lens": [r.prompt_len for r in reqs],
          "max_new": [r.max_new for r in reqs], "crossed_page": crossed,
          "admitted_mid_flight": admitted_mid,
          "detached_mid_flight": detached_mid, "init_s": init_s,
-         "wall_s": wall, "launches": counts, "tc_launches": tc_counts,
-         "prefills": ex.prefills,
+         "wall_s": wall, **run, "prefills": ex.prefills,
          "decode_steps": ex.decode_steps, "tokens": rep.tokens,
-         "decode_tokens_per_s": decode["tokens"] / decode["s"],
          "mean_ttft_s": rep.ttft_s["mean"], "slo_goodput": rep.slo_goodput,
          "RG": rep.goodput["RG"], "preemptions": rep.preemptions,
          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -723,7 +812,70 @@ def serve_engine(torch, cfg, n_req: int, max_new_hi: int, phase: str):
     # cast-vs-raw check holds the two trees to the same logits)
     raw = init_params(cfg, torch.Generator(ex.device).manual_seed(0),
                       ex.device)
-    return counts, raw, ex.serving_params
+    return run["launches"], raw, ex.serving_params
+
+
+def churn(ex, rec, phase):
+    """Admissions into a decoding batch and detaches from one with others
+    left in it, counted from ``instrument``'s events; raises if either
+    never happened."""
+    last = ex.decode_steps
+    admitted_mid = sum(1 for ev, step, live in rec["events"]
+                       if ev == "admit" and step > 0 and live > 0)
+    detached_mid = sum(1 for ev, step, live in rec["events"]
+                       if ev == "detach" and step < last and live > 1)
+    if not admitted_mid or not detached_mid:
+        raise AssertionError(f"{phase}: {admitted_mid} admissions and "
+                             f"{detached_mid} detaches mid-flight")
+    return admitted_mid, detached_mid
+
+
+def graph_vs_eager(torch, cfg, params):
+    """The same short request stream (6 requests, prompts of 40-300
+    tokens, 8-16 new tokens, 4 slots, so rows admit and detach while
+    others decode) through ``make_executor`` with ``decode_impl="graph"``,
+    then ``"eager"``, on the same weights ``params``: the per-request
+    tokens must be identical.  Each path's launches and graphs are checked
+    as a serving run's, and its decode tokens/s and mean executor step
+    time are logged."""
+    import numpy as np
+
+    from repro_torch.serve.batched_executor import make_executor
+    from repro_torch.serve.engine import (NO_SLO, ContinuousServeEngine,
+                                          ServeRequest)
+
+    rng = np.random.default_rng(5)
+    shapes = [(int(rng.integers(40, 301)), int(rng.integers(8, 17)))
+              for _ in range(6)]
+    toks, paths = {}, {}
+    for mode in ("graph", "eager"):
+        reqs = [ServeRequest(rid=i, prompt_len=n, max_new=m,
+                             prompt=np.random.default_rng(i).integers(
+                                 0, cfg.vocab_size, n).astype(np.int32))
+                for i, (n, m) in enumerate(shapes)]
+        reset_counts()
+        ex, kv = make_executor(cfg, 300 + 16, 4, params=params,
+                               decode_impl=mode)
+        rec = instrument(ex)
+        ContinuousServeEngine(4, ex, slo=NO_SLO, kv_cache=kv).run(reqs)
+        run = check_run(cfg, ex, rec, read_counts(), read_tc_counts(),
+                        f"graph_vs_eager {mode}", mode)
+        churn(ex, rec, f"graph_vs_eager {mode}")
+        paths[mode] = {k: run[k] for k in (
+            "decode_graphs", "replays", "capture_s", "graph_mem_mb",
+            "decode_tokens_per_s", "mean_decode_step_ms", "launches")}
+        paths[mode]["decode_steps"] = ex.decode_steps
+        toks[mode] = [r.out_tokens for r in reqs]
+        del ex, kv
+        gc.collect()
+        torch.cuda.empty_cache()
+    same = toks["graph"] == toks["eager"]
+    log({"phase": "graph_vs_eager", "arch": cfg.name,
+         "requests": [list(x) for x in shapes], "tokens_identical": same,
+         **paths})
+    if not same:
+        raise AssertionError(f"{cfg.name}: graph and eager executors gave "
+                             f"other tokens: {toks}")
 
 
 # the logits phase's page pool: 3 pages of 128 tokens per prompt row
@@ -860,9 +1012,11 @@ def logits_kernel_vs_plain(torch, cfg, params, serving, tol):
                     .item())
             del k32, p32
         # where a full-model call's time goes: its span on the device
-        # timeline when issued eagerly (the serving path) against its
-        # device time alone (CUDA-graph replay), on the raw tree (every
-        # weight cast per call) and on the executor's cast tree
+        # timeline when issued eagerly against its device time alone
+        # (CUDA-graph replay), on the raw tree (every weight cast per
+        # call) and on the executor's cast tree; for the decode step also
+        # the host's wall time of one replay of it as the executors
+        # capture it (DecodeGraph), to the end of its work on the card
         p200 = prompts[lens.index(200)]
         step_name = "decode_step_w8" if paged else "decode_step_b1"
         timing = {step_name: {}, "prefill_s200": {}}
@@ -880,7 +1034,8 @@ def logits_kernel_vs_plain(torch, cfg, params, serving, tol):
                 max_len=PAGE_TOKENS * PAGES_PER_ROW)
             timing[step_name][tree_name] = {
                 "eager_ms": cuda_ms(torch, step, 20),
-                "device_ms": graph_ms(torch, step, 5)}
+                "device_ms": graph_ms(torch, step, 5),
+                "graph_wall_ms": graph_wall_ms(torch, step)}
             timing["prefill_s200"][tree_name] = {
                 "eager_ms": cuda_ms(torch, pre200, 20),
                 "device_ms": graph_ms(torch, pre200, 5)}
@@ -933,6 +1088,7 @@ def main() -> int:
         raise AssertionError(f"smollm-135m is not at full width: {cfg}")
     c_cli = serve_cli(cfg)
     c_eng, params, serving = serve_engine(torch, cfg, 24, 64, "serve_engine")
+    graph_vs_eager(torch, cfg, params)
     logits_kernel_vs_plain(torch, cfg, params, serving, LOGIT_ATOL)
     del params, serving
     gc.collect()
@@ -947,6 +1103,7 @@ def main() -> int:
         raise AssertionError(f"deepseek-moe-16b is not at full width: {ds}")
     c_ds, params, serving = serve_engine(torch, ds, 12, 48,
                                          "serve_engine_deepseek")
+    graph_vs_eager(torch, ds, params)
     logits_kernel_vs_plain(torch, ds, params, serving, None)
     del params, serving
     gc.collect()
@@ -960,6 +1117,7 @@ def main() -> int:
         raise AssertionError(f"recurrentgemma-2b is not at full width: {rg}")
     c_rg, params, serving = serve_engine(torch, rg, 12, 48,
                                          "serve_engine_recurrentgemma")
+    graph_vs_eager(torch, rg, params)
     logits_kernel_vs_plain(torch, rg, params, serving, None)
     del params, serving
     gc.collect()
@@ -970,6 +1128,7 @@ def main() -> int:
         raise AssertionError(f"rwkv6-3b is not at full width: {rw}")
     c_rw, params, serving = serve_engine(torch, rw, 12, 48,
                                          "serve_engine_rwkv6")
+    graph_vs_eager(torch, rw, params)
     logits_kernel_vs_plain(torch, rw, params, serving, None)
     del params, serving
     gc.collect()

@@ -2,7 +2,8 @@
 ``repro.models.model``).
 
     prefill_fn(cfg)      -> f(params, batch)   (logits, cache)
-    decode_fn(cfg)       -> f(params, token, cache)   (logits, cache)
+    decode_inplace_fn(cfg) -> f(params, token, cache) logits, cache kept
+                                                      at its addresses
     init_cache(cfg, batch, seq_len)             zero decode cache
     paged_decode_fn(cfg) -> f(params, token, lengths, k_pages, v_pages,
                               block_tables)    (logits, k_pages, v_pages)
@@ -33,11 +34,11 @@ def prefill_fn(cfg: ModelConfig, max_len: int = 0, attn_impl: str = "auto",
                                             gmm_impl=gmm_impl)
 
 
-def decode_fn(cfg: ModelConfig, gmm_impl: str = "auto") -> Callable:
-    """f(params, token, cache) -> (logits, cache) — see
-    transformer.decode_step (the cache is updated in place)."""
-    return lambda p, t, c: transformer.decode_step(p, t, c, cfg,
-                                                   gmm_impl=gmm_impl)
+def decode_inplace_fn(cfg: ModelConfig, gmm_impl: str = "auto") -> Callable:
+    """f(params, token, cache) -> logits, every cache leaf kept at its
+    address — see transformer.decode_step_inplace."""
+    return lambda p, t, c: transformer.decode_step_inplace(
+        p, t, c, cfg, gmm_impl=gmm_impl)
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device=None):

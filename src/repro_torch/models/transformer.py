@@ -45,13 +45,23 @@ def _tree_stack(trees):
     return torch.stack(trees)
 
 
-def _tree_copy_(dst, src):
-    """Copy ``src``'s tensors into ``dst``'s (same tree), in place."""
+def copy_cache_(dst, src, path: str = "") -> None:
+    """Copy ``src``'s tensors into ``dst``'s, in place, every leaf;
+    raises ``ValueError`` where the trees' keys, or a leaf's shape or
+    dtype, differ (nothing is cast)."""
+    if dst.keys() != src.keys():
+        raise ValueError(f"cache {path or '/'}: keys {sorted(src)} where "
+                         f"the destination has {sorted(dst)}")
     for k, v in src.items():
+        d = dst[k]
         if isinstance(v, dict):
-            _tree_copy_(dst[k], v)
+            copy_cache_(d, v, f"{path}/{k}")
+        elif d.shape != v.shape or d.dtype != v.dtype:
+            raise ValueError(
+                f"cache {path}/{k}: {tuple(v.shape)} {v.dtype} where the "
+                f"destination has {tuple(d.shape)} {d.dtype}")
         else:
-            dst[k].copy_(v)
+            d.copy_(v)
 
 
 # ---------------------------------------------------------------------------
@@ -349,7 +359,7 @@ def decode_step(params, token, cache, cfg: ModelConfig, *,
             x, st = rwkv_block(x, _tree_slice(params["blocks"], i), cfg,
                                state=_tree_slice(blocks, i),
                                collect_state=True)
-            _tree_copy_(_tree_slice(blocks, i), st)
+            copy_cache_(_tree_slice(blocks, i), st)
         new_cache["blocks"] = blocks
 
     else:
@@ -373,6 +383,21 @@ def decode_step(params, token, cache, cfg: ModelConfig, *,
 
     x = norm(x, params, "final_norm", cfg)
     return lm_logits(x[:, -1], params, cfg), new_cache
+
+
+def decode_step_inplace(params, token, cache, cfg: ModelConfig, *,
+                        gmm_impl: str = "auto"):
+    """``decode_step`` that leaves every leaf of ``cache`` at its address:
+    the new ``pos`` and recurrent states are copied back into the given
+    tensors (the KV rings and the ssm states are already written where
+    they lie; copying a tensor onto itself is a no-op).  ``cache["pos"]``
+    must be a tensor.  Returns the logits (b, V) fp32; the values are
+    ``decode_step``'s, bit for bit.  A captured CUDA graph of this step
+    reads and writes the same cache on every replay."""
+    logits, new_cache = decode_step(params, token, cache, cfg,
+                                    gmm_impl=gmm_impl)
+    copy_cache_(cache, new_cache)
+    return logits
 
 
 # ---------------------------------------------------------------------------

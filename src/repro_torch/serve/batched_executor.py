@@ -18,9 +18,18 @@ The design is the reference's:
     request's pages.
 
 JAX compiles the decode once and counts compiles as its zero-recompile
-probe; PyTorch runs eagerly, so the port records the signature of the
-decode's inputs instead (:meth:`decode_shape_count` stays 1 across
-admission churn).
+probe.  The port captures the decode once as a CUDA graph
+(:class:`~repro_torch.serve.decode_graph.DecodeGraph`, ``decode_impl``)
+at construction, with every row inactive, so the warm-up's K/V writes
+land on the null page alone; every engine step then replays it.  The
+step's inputs are static device buffers — token, lengths and block
+tables at (W,) / (W,) / (W, nb_max) int32 — filled each step from
+pinned host arrays, and its output is a static (W,) int32 of argmax
+tokens, read back with one device-to-host copy.  On the CPU the same
+buffers go through a direct call.  :meth:`decode_graph_count` (1 on
+CUDA, 0 eager) is the counterpart of the reference's
+``decode_compiles()``; :meth:`decode_shape_count`, the signature of the
+decode's inputs, stays 1 across admission churn.
 
 Construct the engine with ``kv_cache=executor.kv`` — the allocator must
 be shared or the gather map and the bookkeeping drift apart.
@@ -36,6 +45,7 @@ reference's does.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Callable, Dict, List, Sequence, Set, Tuple
 
@@ -46,8 +56,19 @@ from repro_torch.device import resolve_device
 from repro_torch.models import model, transformer
 from repro_torch.models.compute_params import compute_params
 from repro_torch.models.init import init_params
+from repro_torch.serve.decode_graph import DecodeGraph, graph_stats
 from repro_torch.serve.kv_cache import FLASH_ATTENTION_BLOCK_K, PagedKVCache
 from repro_torch.serve.slot_executor import TorchSlotExecutor, slot_kv_cache
+
+
+def _paged_step(step, params, k_pages, v_pages, b) -> None:
+    """The captured step: static inputs in, argmax tokens out.  A free
+    function over what it reads, so the graph holds no reference back to
+    its executor (which would keep the executor's device memory until a
+    garbage collection)."""
+    logits, _, _ = step(params, b["tok"], b["len"], k_pages, v_pages,
+                        b["tables"])
+    b["out"].copy_(torch.argmax(logits, -1))
 
 
 def decode_config(cfg):
@@ -72,13 +93,15 @@ class TorchBatchedExecutor:
     reference's) stays ``self.params``, as it is.
     ``attn_impl`` selects the attention of both phases and ``gmm_impl``
     the experts' grouped matmul ("auto" = the kernels on CUDA, the plain
-    versions on the CPU).
+    versions on the CPU); ``decode_impl`` the decode step's graph
+    ("auto" = a CUDA graph on CUDA, a direct call on the CPU; see
+    :mod:`~repro_torch.serve.decode_graph`).
     """
 
     def __init__(self, cfg, max_len: int, n_slots: int,
                  clock: Callable[[], float] = time.monotonic,
                  attn_impl: str = "auto", device=None, params=None,
-                 gmm_impl: str = "auto"):
+                 gmm_impl: str = "auto", decode_impl: str = "auto"):
         if not model.supports_paged_decode(cfg, max_len):
             raise ValueError(
                 f"family {cfg.family!r} (window={cfg.attention_window}) "
@@ -96,9 +119,6 @@ class TorchBatchedExecutor:
         self.null_page = n_blocks          # pool holds n_blocks + 1 pages
         shape = transformer.paged_kv_shape(cfg, n_blocks + 1,
                                            self.block_tokens)
-        self._kp = torch.zeros(shape, dtype=cfg.compute_dtype,
-                               device=self.device)
-        self._vp = torch.zeros_like(self._kp)
         # the tree the model runs on: weights cast to the compute dtype
         # once here, not on every call (bit-identical results)
         if params is None:      # drawn here: only the cast tree is kept
@@ -116,24 +136,55 @@ class TorchBatchedExecutor:
                                            attn_impl=attn_impl,
                                            gmm_impl=gmm_impl)
 
-        # host-side row state (fixed width W)
+        # host-side row state (fixed width W): numpy views of (pinned,
+        # on CUDA) host tensors, the sources of the step's input copies
         self.rows: Dict[int, int] = {}              # rid -> row
         self._free_rows: List[int] = list(range(n_slots - 1, -1, -1))
-        self._tok = np.zeros((n_slots,), np.int32)
-        self._len = np.zeros((n_slots,), np.int32)
-        self._tables = np.full((n_slots, self.nb_max), self.null_page,
-                               np.int32)
+        pin = self.device.type == "cuda"
+        host = {"tok": torch.zeros((n_slots,), dtype=torch.int32,
+                                   pin_memory=pin),
+                "len": torch.zeros((n_slots,), dtype=torch.int32,
+                                   pin_memory=pin),
+                "tables": torch.full((n_slots, self.nb_max), self.null_page,
+                                     dtype=torch.int32, pin_memory=pin)}
+        self._host = host
+        self._tok, self._len, self._tables = (
+            host[k].numpy() for k in ("tok", "len", "tables"))
         # what a run did: prefilled requests, decode calls, and the
         # distinct decode input signatures (the zero-recompile analogue)
         self.prefills = 0
         self.decode_steps = 0
         self._decode_shapes: Set[Tuple] = set()
+        with torch.inference_mode():
+            self._kp = torch.zeros(shape, dtype=cfg.compute_dtype,
+                                   device=self.device)
+            self._vp = torch.zeros_like(self._kp)
+            # the step's static buffers: inputs as the host arrays are
+            # now (every row inactive: the capture's K/V writes land on
+            # the null page), and the argmax tokens out
+            bufs = {k: v.to(self.device, copy=True)
+                    for k, v in host.items()}
+            bufs["out"] = torch.zeros((n_slots,), dtype=torch.int32,
+                                      device=self.device)
+            step = functools.partial(_paged_step, self._step,
+                                     self.serving_params, self._kp,
+                                     self._vp)
+            self._graph = DecodeGraph(step, bufs, self.device, decode_impl)
 
     # ---- introspection ----------------------------------------------------
     def decode_shape_count(self) -> int:
         """Distinct (shape, dtype) signatures the decode was called with;
         1 for any run: admission and detach never change a shape."""
         return len(self._decode_shapes)
+
+    def decode_graph_count(self) -> int:
+        """Captured decode graphs: 1 on the graph path (captured at
+        construction, replayed by every step), 0 on the eager path."""
+        return self._graph.captures
+
+    def decode_graph_stats(self) -> Dict[str, float]:
+        """The decode graph's counts (:func:`graph_stats`)."""
+        return graph_stats([self._graph])
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -185,16 +236,21 @@ class TorchBatchedExecutor:
             self._len[row] = self.kv.seq_len(r.rid)
             table = self.kv.block_table(r.rid)
             self._tables[row, :len(table)] = table
-        args = [self._dev(a) for a in (self._tok, self._len, self._tables)]
-        self._decode_shapes.add(tuple((tuple(a.shape), a.dtype)
-                                      for a in [*args, self._kp, self._vp]))
+        bufs = self._graph.buffers
+        self._decode_shapes.add(tuple(
+            (tuple(t.shape), t.dtype)
+            for t in (bufs["tok"], bufs["len"], self._kp, self._vp,
+                      bufs["tables"])))
         with torch.inference_mode():
-            logits, _, _ = self._step(self.serving_params, args[0], args[1],
-                                      self._kp, self._vp, args[2])
-            tok_np = torch.argmax(logits, -1).to(torch.int32).cpu().numpy()
+            # the host arrays are not written again before the read-back
+            # below has synchronised, so the copies may be asynchronous
+            for k, v in self._host.items():
+                bufs[k].copy_(v, non_blocking=True)
+            self._graph()
+            tok_np = bufs["out"].cpu().numpy()
         cost = max(0.0, self.clock() - t0)
         self.decode_steps += 1
-        self._tok = tok_np.copy()
+        self._tok[:] = tok_np
         return [int(tok_np[self.rows[r.rid]]) for r in reqs], cost
 
     def release(self, req) -> None:
@@ -210,7 +266,7 @@ class TorchBatchedExecutor:
 def make_executor(cfg, max_len: int, n_slots: int,
                   clock: Callable[[], float] = time.monotonic,
                   attn_impl: str = "auto", device=None, params=None,
-                  gmm_impl: str = "auto"):
+                  gmm_impl: str = "auto", decode_impl: str = "auto"):
     """The executor the reference's ``run_continuous_server`` picks, and
     the allocator to pass to the engine: the batched paged executor (its
     own allocator) where ``model.supports_paged_decode`` holds, else the
@@ -219,8 +275,10 @@ def make_executor(cfg, max_len: int, n_slots: int,
     if model.supports_paged_decode(cfg, max_len):
         ex = TorchBatchedExecutor(cfg, max_len, n_slots, clock=clock,
                                   attn_impl=attn_impl, device=device,
-                                  params=params, gmm_impl=gmm_impl)
+                                  params=params, gmm_impl=gmm_impl,
+                                  decode_impl=decode_impl)
         return ex, ex.kv
     ex = TorchSlotExecutor(cfg, max_len, clock=clock, attn_impl=attn_impl,
-                           device=device, params=params, gmm_impl=gmm_impl)
+                           device=device, params=params, gmm_impl=gmm_impl,
+                           decode_impl=decode_impl)
     return ex, slot_kv_cache(max_len, n_slots)

@@ -1,22 +1,42 @@
 """Per-slot real-model executor for the continuous engine (the port's
 ``repro.serve.jax_executor.JaxSlotExecutor``).
 
-Each live request owns its own batch-1 decode cache, kept in a dict by
-rid, so admission and detach are dict inserts and removes and no row of
+Each live request owns a batch-1 decode cache of its own, so no row of
 one request's cache couples to another's.  This is the executor of the
 families whose decode state has no place in a block table — the hybrid
 (RG-LRU + local attention) and ssm (RWKV-6) families, and attention
 windows narrower than ``max_len`` — as the reference's
 ``run_continuous_server`` decides (``model.supports_paged_decode``).
 
-``prefill`` and ``decode`` issue every slot's work, then synchronise the
-device once before reading the clock, so the measured cost is the device
-time of all the slots and not N host round-trips.  The clock is read
-once at the start and once at the end of each call (``TickClock`` in the
-tests, ``time.monotonic`` for real runs), as the reference reads it.
+The reference compiles the per-slot step once (``jax.jit`` of
+``decode_fn``).  The port keeps a pool of *entries*, each a static
+batch-1 cache (``init_cache``'s layout, which is the prefill cache's),
+a static token and the step captured over them as a CUDA graph
+(:class:`~repro_torch.serve.decode_graph.DecodeGraph`; a direct call on
+the CPU or with ``decode_impl="eager"``).  The pool grows in the prefill
+that first finds no free entry — the new entry is warmed up and captured
+on its zeroed cache, and only then is the request's prefill cache copied
+in, every leaf, a leaf of another shape or dtype raising — so it holds
+as many entries as requests were ever live at once; ``release`` returns
+an entry to the free list.  A step writes the cache in place
+(``decode_step_inplace``) and its argmax into the token, the next step's
+input.  All entries capture on one side stream into one memory pool:
+their replays run one after another on the current stream, never
+together, and nothing a capture allocates is read after its replay (a
+step's inputs and outputs are the entry's static tensors), so entries
+may reuse each other's intermediates.  The pool costs about one step's
+intermediates, not one per entry.
+
+``prefill`` and ``decode`` issue every slot's work, then read all the
+slots' tokens in one device-to-host copy, which synchronises the device
+once before the clock is read, so the measured cost is the device time
+of all the slots and not N host round-trips.  The clock is read once at
+the start and once at the end of each call (``TickClock`` in the tests,
+``time.monotonic`` for real runs), as the reference reads it.
 """
 from __future__ import annotations
 
+import functools
 import time
 from typing import Callable, Dict, List, Sequence, Tuple
 
@@ -24,9 +44,11 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import model
+from repro_torch.models import model, transformer
 from repro_torch.models.compute_params import compute_params
 from repro_torch.models.init import init_params
+from repro_torch.serve.decode_graph import (DecodeGraph, graph_stats,
+                                            resolve_decode_impl)
 from repro_torch.serve.kv_cache import PagedKVCache
 
 
@@ -41,6 +63,15 @@ def slot_kv_cache(max_len: int, n_slots: int) -> PagedKVCache:
                         block_tokens=block_tokens)
 
 
+def _slot_step(decode, params, b) -> None:
+    """The captured step: the entry's token and cache in, its cache
+    updated in place and the argmax in its token.  A free function over
+    what it reads, so an entry's graph holds no reference back to its
+    executor."""
+    logits = decode(params, b["tok"], b["cache"])
+    b["tok"].copy_(torch.argmax(logits, -1))
+
+
 class TorchSlotExecutor:
     """Batch-1 prefill and decode per request over the real model.
 
@@ -53,17 +84,20 @@ class TorchSlotExecutor:
     reference's) stays ``self.params``, as it is.
     ``attn_impl`` and ``gmm_impl`` select flash attention and the experts'
     grouped matmul: "auto" = the kernels on CUDA, the plain versions on the
-    CPU (the recurrence kernels always run as "auto").
+    CPU (the recurrence kernels always run as "auto"); ``decode_impl`` the
+    entries' step: "auto" = a CUDA graph on CUDA, a direct call on the CPU
+    (:mod:`~repro_torch.serve.decode_graph`).
     """
 
     def __init__(self, cfg, max_len: int,
                  clock: Callable[[], float] = time.monotonic,
                  attn_impl: str = "auto", device=None, params=None,
-                 gmm_impl: str = "auto"):
+                 gmm_impl: str = "auto", decode_impl: str = "auto"):
         self.cfg = cfg
         self.max_len = max_len
         self.clock = clock
         self.device = resolve_device(device)
+        self._decode_mode = resolve_decode_impl(decode_impl, self.device)
         # the tree the model runs on: weights cast to the compute dtype
         # once here, not on every call (bit-identical results)
         if params is None:      # drawn here: only the cast tree is kept
@@ -77,24 +111,53 @@ class TorchSlotExecutor:
         self._prefill = model.prefill_fn(cfg, max_len=max_len,
                                          attn_impl=attn_impl,
                                          gmm_impl=gmm_impl)
-        self._decode = model.decode_fn(cfg, gmm_impl=gmm_impl)
-        self._caches: Dict[int, object] = {}
+        self._decode = model.decode_inplace_fn(cfg, gmm_impl=gmm_impl)
+        # the entries: every one made, the free ones, and each live
+        # request's entry with its static cache and token
+        self._pool: List[DecodeGraph] = []
+        self._spare: List[DecodeGraph] = []
+        self._entries: Dict[int, DecodeGraph] = {}
+        self._caches: Dict[int, dict] = {}
         self._tok: Dict[int, torch.Tensor] = {}
+        # one side stream and one memory pool for every capture
+        self._stream = self._mempool = None
+        if self._decode_mode == "graph":
+            self._stream = torch.cuda.Stream(self.device)
+            self._mempool = torch.cuda.graph_pool_handle()
         # what a run did: prefilled requests and decode calls
         self.prefills = 0
         self.decode_steps = 0
 
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+    # ---- introspection ----------------------------------------------------
+    def decode_graph_count(self) -> int:
+        """Captured decode graphs: the entries made on the graph path (at
+        most the most requests live at once), 0 on the eager path."""
+        return sum(e.captures for e in self._pool)
+
+    def decode_graph_stats(self) -> Dict[str, float]:
+        """The entries' summed counts (:func:`graph_stats`)."""
+        return graph_stats(self._pool)
+
+    # ---- entries ------------------------------------------------------------
+    def _new_entry(self) -> DecodeGraph:
+        bufs = {"cache": model.init_cache(self.cfg, 1, self.max_len,
+                                          self.device),
+                "tok": torch.zeros((1,), dtype=torch.int64,
+                                   device=self.device)}
+        step = functools.partial(_slot_step, self._decode,
+                                 self.serving_params)
+        entry = DecodeGraph(step, bufs, self.device, self._decode_mode,
+                            stream=self._stream, pool=self._mempool)
+        self._pool.append(entry)
+        return entry
 
     def _finish(self, pend: List[torch.Tensor], t0: float
                 ) -> Tuple[List[int], float]:
-        # every slot's work is issued; ONE device sync before the clock —
-        # a per-slot int() would serialise N round-trips into the cost
-        self._sync()
-        cost = max(0.0, self.clock() - t0)
-        return [int(t[0]) for t in pend], cost
+        # every slot's work is issued; ONE device-to-host copy of all the
+        # tokens (one sync) before the clock — a per-slot read would
+        # serialise N round-trips into the cost
+        toks = torch.cat(pend).tolist() if pend else []
+        return toks, max(0.0, self.clock() - t0)
 
     # ---- executor protocol ------------------------------------------------
     def prefill(self, reqs: Sequence) -> Tuple[List[int], float]:
@@ -109,28 +172,28 @@ class TorchSlotExecutor:
                     np.asarray(r.prompt, np.int64)[None, :]).to(self.device)
                 logits, cache = self._prefill(self.serving_params,
                                               {"tokens": tokens})
-                tok = torch.argmax(logits, -1)
-                self._caches[r.rid] = cache
-                self._tok[r.rid] = tok
+                entry = self._spare.pop() if self._spare else \
+                    self._new_entry()
+                transformer.copy_cache_(entry.buffers["cache"], cache)
+                entry.buffers["tok"].copy_(torch.argmax(logits, -1))
+                self._entries[r.rid] = entry
+                self._caches[r.rid] = entry.buffers["cache"]
+                self._tok[r.rid] = entry.buffers["tok"]
                 self.prefills += 1
-                pend.append(tok)
-        return self._finish(pend, t0)
+                pend.append(entry.buffers["tok"])
+            return self._finish(pend, t0)
 
     def decode(self, reqs: Sequence) -> Tuple[List[int], float]:
         t0 = self.clock()
-        pend = []
         with torch.inference_mode():
             for r in reqs:
-                logits, cache = self._decode(self.serving_params,
-                                             self._tok[r.rid],
-                                             self._caches[r.rid])
-                tok = torch.argmax(logits, -1)
-                self._caches[r.rid] = cache
-                self._tok[r.rid] = tok
-                pend.append(tok)
-        self.decode_steps += 1
-        return self._finish(pend, t0)
+                self._entries[r.rid]()
+            self.decode_steps += 1
+            return self._finish([self._tok[r.rid] for r in reqs], t0)
 
     def release(self, req) -> None:
-        self._caches.pop(req.rid, None)
-        self._tok.pop(req.rid, None)
+        entry = self._entries.pop(req.rid, None)
+        if entry is None:
+            return
+        del self._caches[req.rid], self._tok[req.rid]
+        self._spare.append(entry)

@@ -407,7 +407,9 @@ def test_executor_on_card_matches_host(card, arch):
     """SMOKE config (fp32) served on the card through the kernels gives
     the host's tokens on the same weights and requests, through the
     executor ``make_executor`` picks (batched paged for dense and MoE,
-    per-slot for the recurrent families)."""
+    per-slot for the recurrent families).  On the card the decode step is
+    a captured graph: the counters see its warm-up and capture calls
+    (``decode_graph_stats()["calls"]``), not its replays."""
     from repro_torch.configs import get_smoke
     from repro_torch.models.init import init_params
     from repro_torch.serve.batched_executor import make_executor
@@ -427,6 +429,9 @@ def test_executor_on_card_matches_host(card, arch):
         return tree.to(dev)
 
     for dev in ("cpu", "cuda"):
+        # counted from before the executor: on the card it captures its
+        # batched decode step as it is built
+        n0 = [m.LAUNCHES for m in mods]
         ex, kv = make_executor(cfg, 160, 4, device=dev,
                                params=to(params, dev))
         rng = np.random.default_rng(1)
@@ -435,10 +440,9 @@ def test_executor_on_card_matches_host(card, arch):
                              .astype(np.int32))
                 for i, (n, m) in enumerate([(5, 9), (130, 20), (60, 4),
                                             (17, 12), (99, 30), (3, 2)])]
-        n0 = [m.LAUNCHES for m in mods]
         ContinuousServeEngine(4, ex, slo=NO_SLO, kv_cache=kv).run(reqs)
         got = [m.LAUNCHES - n for m, n in zip(mods, n0)]
-        pre, dec = ex.prefills, ex.decode_steps
+        pre, dec = ex.prefills, ex.decode_graph_stats()["calls"]
         if dev == "cpu":
             assert got == [0] * 5
         elif cfg.family == "hybrid":
