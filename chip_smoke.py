@@ -8,7 +8,7 @@ checkout's ``src/``; imports nothing of JAX or of the JAX package.  Phases,
 each of which raises on failure (nothing is caught):
 
 1. the card's name and power limit, the torch/CUDA versions, and the
-   build of all five kernels from ``src/repro_torch/kernels/csrc``
+   build of all six kernels from ``src/repro_torch/kernels/csrc``
    (nvcc, sm_90a, one process per source, all at once);
 2. the launch floor (the graph-replay time of one in-place add on a
    one-element tensor), then each kernel against its plain PyTorch
@@ -46,7 +46,21 @@ each of which raises on failure (nothing is caught):
    and rwkv6-3b (32 layers, d 2560, 40 WKV heads of 64, vocab 65536) at
    full published width, fp32 params and bf16 compute, each (a) through
    ``make_executor``, which picks the per-slot executor, and (b) with
-   kernel-vs-plain logits of the prefill and the first decode step.
+   kernel-vs-plain logits of the prefill and the first decode step;
+6. training smollm-135m at full width (bf16 compute, fp32 master
+   params, batch 8 x 2048): (a) the flash backward against its plain
+   version at the training shape, d 128 with g 1, a window and a ragged
+   length, fp32 and bf16, with its time, the plain version's, SDPA's
+   backward's and its bound; (b) the full model's loss and gradients
+   with kernel and with plain attention (fp32 leaf by leaf, bf16 against
+   the plain bf16 model's own distance from fp32); (c) the train CLI, 2
+   steps; (d) an ``Orchestrator`` run of 20 steps preempted at 15, then
+   one on the same checkpoints and ``AotCache`` that resumes at step 10
+   and ends at 20: the emissions (STEP, CHECKPOINT, LOST in the
+   scheduling layer, compiler-layer INIT on the cold run only), finite
+   losses, step time, tokens/s, MFU, peak memory, checkpoint seconds,
+   compile seconds and RG; (e) 10 steps on one fixed batch, whose loss
+   must fall; (f) a profile of 2 steps for the device busy share.
 
 Every serving run goes through the executor's ``serving_params`` (the
 weights cast to the compute dtype once) and runs each decode step as a
@@ -77,6 +91,11 @@ summed over the steps (per-slot), and the launches a run reports add
 each replay's to the counted ones.  Every serving path computes in bf16,
 so each of its flash and grouped-matmul launches must also be a
 tensor-core one; the fp32-compute logit checks run the CUDA-core ones.
+
+The training runs' counters are zeroed before each run and must read,
+per step and per warm-up (one per cold ``AotCache``), one flash forward
+per layer, again in remat's recompute, all on the tensor cores, and one
+flash backward per layer.
 
 Prints one JSON line per measured case, then the kernels' summary line,
 and as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
@@ -216,16 +235,17 @@ def check_close(torch, name, out, ref, tol) -> float:
     return err.max().item()
 
 
-def run_counted(torch, mod, name, fn):
+def run_counted(torch, mod, name, fn, counter="LAUNCHES"):
     """One call of a kernel wrapper: its output (a tensor or a tuple of
     them) and the instance it ran ("tc" or "cuda_core", read from the
     module's counters; kernels with one instance run on the CUDA cores),
-    after a second call has given bit-identical output."""
-    n0, tc0 = mod.LAUNCHES, getattr(mod, "LAUNCHES_TC", 0)
+    after a second call has given bit-identical output.  ``counter`` is
+    the module's count of this wrapper's launches."""
+    n0, tc0 = getattr(mod, counter), getattr(mod, "LAUNCHES_TC", 0)
     out = fn()
     again = fn()
     torch.cuda.synchronize()
-    if mod.LAUNCHES != n0 + 2:
+    if getattr(mod, counter) != n0 + 2:
         raise AssertionError(f"{name}: the kernel was not launched")
     outs, agains = ((out, again) if isinstance(out, tuple)
                     else ((out,), (again,)))
@@ -579,6 +599,7 @@ def reset_counts():
         mod.LAUNCHES = 0
     for name in TC_KERNELS:
         mods[name].LAUNCHES_TC = 0
+    mods["flash_attention"].LAUNCHES_BWD = 0
 
 
 def read_counts():
@@ -1049,6 +1070,482 @@ def logits_kernel_vs_plain(torch, cfg, params, serving, tol):
                              f"versions' in {failed}: {res}")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: training smollm-135m at full width
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_SEQ = 8, 2048
+# the flash backward against its plain version on the same (q, k, v, o,
+# lse, dO): its dq / dk / dv sum thousands of products (dk and dv over
+# every query row of a group) in another order than the plain version's
+# einsums, so fp32 is held to 1e-4; in bf16 both round the same fp32
+# values once (TOL's one ulp)
+BWD_TOL = {"torch.float32": dict(atol=1e-4, rtol=1e-4),
+           "torch.bfloat16": TOL["torch.bfloat16"]}
+# the flash forward at the training shape with its LSE, against the
+# plain forward's: the CUDA-core instance (fp32) sums as the plain one
+# does to 1e-5; the tensor-core instance (bf16) sums the bf16-rounded P
+# into l, so its LSE moves by up to log(1 + 2^-9) ~ 2e-3 (the card
+# tests' bound)
+LSE_TOL = {"torch.float32": dict(atol=1e-5, rtol=1e-5),
+           "torch.bfloat16": dict(atol=1e-2, rtol=1e-3)}
+# full-model gradients, kernel against plain attention, on the same
+# weights and a batch of the path's shape.  fp32 compute: each gradient
+# leaf within TRAIN_FP32_GRAD_RTOL of the plain leaf's norm and the loss
+# within TRAIN_FP32_LOSS_ATOL.  The limit sits 10x above the worst leaf
+# measured on the H100 (5.1e-6: the same fp32 attention in another
+# summation order, carried through 30 layers and back) and far below
+# the control the phase logs, the plain bf16 model's smallest per-leaf
+# distance from fp32 (a backward or LSE carrying bf16 rounding lands
+# near it; a wiring fault moves a leaf by its own size).  bf16 compute:
+# each leaf's distance from the fp32 plain gradient within
+# DS_BF16_FLOOR_FACTOR times the plain bf16 model's own distance from
+# it, measured in the same run (the tensor-core forward also rounds P
+# to bf16, which the plain one does not)
+TRAIN_FP32_GRAD_RTOL = 5e-5
+TRAIN_FP32_LOSS_ATOL = 1e-4
+# 10 AdamW steps (lr 1e-3) on one fixed batch of random tokens must
+# lower the loss (~log 49152 = 10.8 at init) by this many nats: the
+# reference's "runs and learns" check
+LEARN_MARGIN = 0.5
+
+
+def _causal_mask(torch, sq: int, window: int):
+    dev = torch.device("cuda")
+    qpos = torch.arange(sq, device=dev)[:, None]
+    kpos = torch.arange(sq, device=dev)[None, :]
+    mask = kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def flash_train_fwd_cases(torch):
+    """The flash forward at the shape the train step gives it (smollm,
+    b 8 x 2048, hq 9 / hkv 3, d 64, causal) with its LSE, fp32 (the
+    CUDA-core instance) and bf16 (the tensor-core one, as on the path):
+    output and LSE against ``attention_ref(..., return_lse=True)``, two
+    calls bit-identical; times of the kernel, the plain version and
+    SDPA's forward, and the bound (bytes of q, k, v read once and o, lse
+    written once, or the forward's flops over the unmasked pairs)."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    b, hq, hkv, sq, d = TRAIN_BATCH, 9, 3, TRAIN_SEQ, 64
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.Generator(device=dev).manual_seed(sq + d + 1)
+        q, k, v = (torch.randn((b, sq, h, d), generator=g, device=dev)
+                   .to(dtype).transpose(1, 2) for h in (hq, hkv, hkv))
+        name = f"flash train-shape forward with LSE {dtype}"
+
+        def call():
+            return fa.flash_attention(q, k, v, return_lse=True)
+
+        (out, lse), inst = run_counted(torch, fa, name, call)
+        if inst != ("tc" if dtype == torch.bfloat16 else "cuda_core"):
+            raise AssertionError(f"{name}: ran on the {inst} instance")
+        ref, ref_lse = attention_ref(q, k, v, return_lse=True)
+        err = check_close(torch, name, out, ref, TOL[str(dtype)])
+        lse_err = check_close(torch, f"{name} lse", lse, ref_lse,
+                              LSE_TOL[str(dtype)])
+        del out, lse, ref, ref_lse
+        pairs = int(_causal_mask(torch, sq, 0).sum())
+        es = q.element_size()
+        nbytes = (es * d * (2 * b * hq * sq + 2 * b * hkv * sq)
+                  + 4 * b * hq * sq)
+        bound_ms, bound_by = bound(4.0 * d * b * hq * pairs, nbytes, dtype)
+        row = {"kernel": "flash_attention", "case": "smollm_train_lse",
+               "dtype": str(dtype), "b": b, "hq": hq, "hkv": hkv, "d": d,
+               "sq": sq, "window": 0, "instance": inst, "max_abs_err": err,
+               "lse_max_abs_err": lse_err, "tol": TOL[str(dtype)],
+               "lse_tol": LSE_TOL[str(dtype)],
+               "kernel_ms": graph_ms(torch, call, reps=5),
+               "plain_ms": graph_ms(torch, lambda: attention_ref(
+                   q, k, v, return_lse=True), reps=2, replays=3),
+               "library_ms": graph_ms(
+                   torch, lambda: F.scaled_dot_product_attention(
+                       q, k, v, enable_gqa=True, is_causal=True), reps=5),
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        rows.append(row)
+        log(row)
+        del q, k, v
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def flash_bwd_cases(torch):
+    """The flash backward against ``attention_bwd_ref`` on the same
+    (q, k, v, o, lse, dO) (o and lse from the plain forward): smollm's
+    training shape, d 128 with g 1 at 1024 tokens, a window, and a ragged
+    length; fp32 and bf16; two calls bit-identical.  Each line has the
+    kernel's device time, the plain version's, the SDPA backward's (the
+    library call: its autograd backward alone, timed eagerly), and the
+    bound: 2.5x the forward's matmul flops over the unmasked pairs at the
+    dtype's peak, or the bytes of q, k, v, o, dO, lse read once and dq,
+    dk, dv written once."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                         attention_ref)
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    cases = [("smollm_train", 8, 9, 3, 2048, 64, 0),
+             ("d128_g1", 2, 16, 16, 1024, 128, 0),
+             ("window", 4, 9, 3, 1024, 64, 256),
+             ("ragged", 2, 9, 3, 1000, 64, 0)]
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for what, b, hq, hkv, sq, d, window in cases:
+            g = torch.Generator(device=dev).manual_seed(sq + d + window)
+            q, k, v, do = (torch.randn((b, sq, h, d), generator=g,
+                                       device=dev).to(dtype).transpose(1, 2)
+                           for h in (hq, hkv, hkv, hq))
+            o, lse = attention_ref(q, k, v, window=window, return_lse=True)
+            args = (q, k, v, o, lse, do)
+            name = f"flash_bwd {what} {dtype}"
+            out, _ = run_counted(
+                torch, fa, name,
+                lambda: fa.flash_attention_bwd(*args, window=window),
+                counter="LAUNCHES_BWD")
+            ref = attention_bwd_ref(*args, window=window)
+            errs = {gn: check_close(torch, f"{name} {gn}", a, r,
+                                    BWD_TOL[str(dtype)])
+                    for gn, a, r in zip(("dq", "dk", "dv"), out, ref)}
+            del out, ref
+            mask = _causal_mask(torch, sq, window)
+            pairs = int(mask.sum())
+            es = q.element_size()
+            nbytes = (es * d * (3 * b * hq * sq + 2 * b * hkv * sq)
+                      + 4 * b * hq * sq
+                      + es * d * (b * hq * sq + 2 * b * hkv * sq))
+            flops = 2.5 * 4.0 * d * b * hq * pairs
+            bound_ms, bound_by = bound(flops, nbytes, dtype)
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            sdpa_kw = ({"attn_mask": mask} if window
+                       else {"is_causal": True})
+            so = F.scaled_dot_product_attention(*leaves, enable_gqa=True,
+                                                **sdpa_kw)
+            big = b * hq * sq * sq >= 2 ** 28
+            row = {
+                "kernel": "flash_attention_bwd", "case": what,
+                "dtype": str(dtype), "b": b, "hq": hq, "hkv": hkv, "d": d,
+                "sq": sq, "window": window, "instance": "cuda_core",
+                "max_abs_err": max(errs.values()), "errs": errs,
+                "tol": BWD_TOL[str(dtype)],
+                "kernel_ms": graph_ms(torch, lambda: fa.flash_attention_bwd(
+                    *args, window=window), reps=5 if big else 20),
+                "kernel_call_ms": cuda_ms(
+                    torch, lambda: fa.flash_attention_bwd(
+                        *args, window=window), 10 if big else 50),
+                "plain_ms": graph_ms(torch, lambda: attention_bwd_ref(
+                    *args, window=window), reps=2, replays=3),
+                "library_ms": cuda_ms(torch, lambda: torch.autograd.grad(
+                    so, leaves, do, retain_graph=True), 10, 2),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "pairs": pairs, "flops": flops}
+            row["tflops"] = flops / row["kernel_ms"] / 1e9
+            rows.append(row)
+            log(row)
+            del so, leaves, args, o, lse, q, k, v, do
+            gc.collect()
+            torch.cuda.empty_cache()
+    return rows
+
+
+def _rel_dist(torch, a, b) -> float:
+    """||a - b|| / ||b|| in fp32 (0 for two zero leaves)."""
+    a, b = a.float(), b.float()
+    nb = torch.linalg.vector_norm(b).item()
+    return torch.linalg.vector_norm(a - b).item() / max(nb, 1e-30)
+
+
+def train_grads_kernel_vs_plain(torch, cfg):
+    """One loss and gradient of the full-width model (random weights
+    from seed 0, one DataPipeline batch of 8 x 2048 tokens) with kernel
+    and with plain attention, through the train step's mixed-precision
+    ``value_and_grad``: fp32 compute held leaf by leaf to the plain
+    gradients, bf16 compute held to the plain bf16 model's own distance
+    from the fp32 plain gradients (the module note)."""
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.launch.strategy import value_and_grad
+    from repro_torch.models.init import init_params
+    from repro_torch.tree import flatten
+
+    dev = torch.device("cuda")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    batch = {k: torch.from_numpy(a).to(dev) for k, a in next(DataPipeline(
+        cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=5)).items()}
+    names = flatten(_leaf_names(params))[0]
+    res = {}
+    for dt in (torch.float32, torch.bfloat16):
+        c = dataclasses.replace(cfg, compute_dtype=dt)
+        for impl in ("ref", "kernel"):
+            t0 = time.perf_counter()
+            loss, _, grads = value_and_grad(c, impl)(params, batch)
+            torch.cuda.synchronize()
+            res[(dt, impl)] = (float(loss), flatten(grads)[0],
+                               time.perf_counter() - t0)
+    f32, b16 = torch.float32, torch.bfloat16
+    worst32, worst16, control = 0.0, 0.0, float("inf")
+    failed = []
+    for i, name in enumerate(names):
+        p32 = res[(f32, "ref")][1][i]
+        d32 = _rel_dist(torch, res[(f32, "kernel")][1][i], p32)
+        floor = _rel_dist(torch, res[(b16, "ref")][1][i], p32)
+        d16 = _rel_dist(torch, res[(b16, "kernel")][1][i], p32)
+        worst32 = max(worst32, d32)
+        worst16 = max(worst16, d16 / max(floor, 1e-30))
+        control = min(control, floor)
+        if d32 > TRAIN_FP32_GRAD_RTOL or d16 > DS_BF16_FLOOR_FACTOR * floor:
+            failed.append((name, d32, d16, floor))
+    loss_err = abs(res[(f32, "kernel")][0] - res[(f32, "ref")][0])
+    log({"phase": "train_grads_kernel_vs_plain", "arch": cfg.name,
+         "batch": [TRAIN_BATCH, TRAIN_SEQ], "leaves": len(names),
+         "loss": {f"{str(dt)}_{impl}": v[0] for (dt, impl), v in res.items()},
+         "seconds": {f"{str(dt)}_{impl}": v[2]
+                     for (dt, impl), v in res.items()},
+         "fp32_loss_abs_err": loss_err,
+         "fp32_worst_leaf_rel": worst32, "fp32_rtol": TRAIN_FP32_GRAD_RTOL,
+         "bf16_floor_min_leaf_rel": control,
+         "bf16_worst_leaf_ratio": worst16,
+         "bf16_factor": DS_BF16_FLOOR_FACTOR})
+    if control <= TRAIN_FP32_GRAD_RTOL:
+        raise AssertionError(f"{cfg.name}: the plain bf16 gradients lie "
+                             f"within {control} of fp32, under the fp32 "
+                             f"limit {TRAIN_FP32_GRAD_RTOL}: the limit "
+                             f"cannot tell bf16 rounding from fp32")
+    if failed or loss_err > TRAIN_FP32_LOSS_ATOL:
+        raise AssertionError(f"{cfg.name}: kernel gradients off the plain "
+                             f"ones (leaf, fp32 rel, bf16 rel, bf16 floor): "
+                             f"{failed}; fp32 loss err {loss_err}")
+
+
+def _leaf_names(tree, prefix=""):
+    """The tree with each leaf replaced by its dotted key path."""
+    return {k: _leaf_names(v, f"{prefix}{k}.") if isinstance(v, dict)
+            else prefix + k for k, v in tree.items()}
+
+
+def train_counts_expected(cfg, steps: int, warmups: int):
+    """Flash launches of a training run: per step (and per warm-up) one
+    forward per attention layer, again under remat's recompute, and one
+    backward per attention layer."""
+    n_fwd = cfg.num_layers * (1 + int(cfg.remat))
+    return {"flash_attention": n_fwd * (steps + warmups),
+            "flash_attention_bwd": cfg.num_layers * (steps + warmups)}
+
+
+def check_train_counts(cfg, what, steps, warmups):
+    """The flash launches counted since ``reset_counts``, which must be
+    ``train_counts_expected``'s, every forward on the tensor cores."""
+    fa = _kernel_modules()["flash_attention"]
+    counts = {"flash_attention": fa.LAUNCHES,
+              "flash_attention_bwd": fa.LAUNCHES_BWD}
+    tc = fa.LAUNCHES_TC
+    want = train_counts_expected(cfg, steps, warmups)
+    if counts != want or tc != counts["flash_attention"]:
+        raise AssertionError(
+            f"{what}: flash launches {counts} ({tc} on the tensor cores), "
+            f"expected {want} for {steps} steps and {warmups} warm-ups, "
+            f"every bf16 forward on the tensor cores")
+    return counts
+
+
+def _layer_chip_time(orc, phase):
+    by_layer = orc.ledger.segment_phase_chip_time("layer")
+    return {layer: v[phase.value] for layer, v in by_layer.items()
+            if phase.value in v}
+
+
+def train_runs(torch, cfg):
+    """The training path at full width (batch 8 x 2048, bf16 compute,
+    fp32 master params, random weights from seed 0): (a) the CLI entry
+    point, 2 steps; (b) an ``Orchestrator`` run of 20 steps with a
+    checkpoint every 10, preempted at step 15, then a second one on the
+    same directory and the same ``AotCache`` that resumes at step 10 and
+    ends at 20; (c) 10 steps on one fixed batch, whose loss must fall;
+    (d) the step's device busy share from a profile of 2 steps.  Checks
+    the emissions, the launches and the losses; reports step time,
+    tokens/s, MFU, peak memory, checkpoint seconds, compile seconds and
+    RG.  Returns the launches of (a) and (b)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.goodput import (Layer, Phase, compute_goodput,
+                                          rg_breakdown)
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.launch import train
+    from repro_torch.launch.strategy import init_train_state, make_train_step
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.compile_cache import AotCache
+    from repro_torch.runtime.orchestrator import Orchestrator, RunConfig
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    launches = {"flash_attention": 0, "flash_attention_bwd": 0}
+
+    def add(counts):
+        for k in launches:
+            launches[k] += counts[k]
+
+    try:
+        # (a) the CLI
+        reset_counts()
+        argv = ["--steps", "2", "--batch", str(TRAIN_BATCH), "--seq",
+                str(TRAIN_SEQ), "--checkpoint-every", "2", "--ckpt-dir",
+                str(tmp / "cli")]
+        out = train.main(argv)
+        torch.cuda.synchronize()
+        add(check_train_counts(cfg, "train CLI", 2, 1))
+        if out["steps"] != [0, 2] or not np.isfinite(out["final_loss"]):
+            raise AssertionError(f"train CLI: {out}")
+        log({"phase": "train_cli", "argv": argv, **out})
+        shutil.rmtree(tmp / "cli")
+
+        # (b) preempted run, then the resume, one AotCache
+        aot = AotCache()
+        base = dict(steps=20, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                    checkpoint_every=10, ckpt_dir=str(tmp / "orc"), keep=2,
+                    device="cuda", job_id="train-smollm-135m")
+        runs = []
+        for label, extra in (("preempted", {"preempt_at_step": 15}),
+                             ("resumed", {})):
+            reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            orc = Orchestrator(cfg, RunConfig(**base, **extra), aot=aot)
+            t0 = time.perf_counter()
+            res = orc.run()
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            n_steps = len(res["losses"])
+            add(check_train_counts(cfg, f"train {label}", n_steps,
+                                   int(label == "preempted")))
+            runs.append((label, orc, res, wall, peak))
+        (_, orc1, out1, wall1, peak1), (_, orc2, out2, wall2, peak2) = runs
+        if not (out1["preempted"] and out1["end_step"] == 15
+                and len(out1["losses"]) == 15 and out2["start_step"] == 10
+                and out2["end_step"] == 20 and not out2["preempted"]
+                and len(out2["losses"]) == 10):
+            raise AssertionError(f"train runs: preempted {out1}, resumed "
+                                 f"{out2}")
+        losses = out1["losses"] + out2["losses"]
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"train runs: losses {losses}")
+        for orc, n_step, n_ckpt in ((orc1, 15, 1), (orc2, 10, 1)):
+            ivs = orc.intervals
+            got = (sum(i.phase == Phase.STEP for i in ivs),
+                   sum(i.phase == Phase.CHECKPOINT for i in ivs))
+            if got != (n_step, n_ckpt):
+                raise AssertionError(f"train: {got} STEP / CHECKPOINT "
+                                     f"intervals, expected {(n_step, n_ckpt)}")
+        lost1 = _layer_chip_time(orc1, Phase.LOST)
+        init1 = _layer_chip_time(orc1, Phase.INIT)
+        init2 = _layer_chip_time(orc2, Phase.INIT)
+        if not (lost1.get(Layer.SCHEDULING.value, 0.0) > 0
+                and set(lost1) == {Layer.SCHEDULING.value}
+                and init1.get(Layer.COMPILER.value, 0.0) > 0
+                and Layer.COMPILER.value not in init2
+                and not _layer_chip_time(orc2, Phase.LOST)):
+            raise AssertionError(f"train emissions: LOST {lost1}, INIT "
+                                 f"cold {init1}, warm {init2}")
+        # steady steps: all but each run's first
+        steady = orc1.step_times[1:] + orc2.step_times[1:]
+        step_s = float(np.mean(steady))
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        n_params = cfg.num_params()
+        pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+        attn_flops = (12.0 * cfg.num_layers * TRAIN_BATCH * cfg.num_heads
+                      * cfg.head_dim * pairs)
+        model_flops = 6.0 * n_params * tokens + attn_flops
+        ivs = orc1.intervals + orc2.intervals
+        rep = compute_goodput(ivs, sum(i.chip_time for i in ivs))
+        ck = [o.ckpt.metrics for o in (orc1, orc2)]
+        n_saves = sum(m["n_saves"] for m in ck)
+        log({"phase": "train_orchestrator", "arch": cfg.name,
+             "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+             "steps": [[out1["start_step"], out1["end_step"]],
+                       [out2["start_step"], out2["end_step"]]],
+             "losses": losses, "wall_s": [wall1, wall2],
+             "step_ms": 1e3 * step_s,
+             "step_ms_all": [1e3 * t for t in orc1.step_times
+                             + orc2.step_times],
+             "tokens_per_s": tokens / step_s,
+             "model_flops_per_step": model_flops,
+             "mfu": model_flops / step_s / PEAK_FLOPS["torch.bfloat16"],
+             "mfu_formula": "(6 N tokens + 12 L b hq d s(s+1)/2) / "
+                            "(step_s x 989e12); remat's forward not counted",
+             "n_params": n_params, "peak_mem_gb": [peak1, peak2],
+             "ckpt_write_s_per_save": sum(m["write_s"] for m in ck)
+             / n_saves,
+             "ckpt_pause_s_per_save": sum(m["device_pause_s"] for m in ck)
+             / n_saves, "ckpt_saves": n_saves,
+             "compile_s": out1["compile_s"],
+             "compile_s_warm": out2["compile_s"],
+             "RG": rep.rg, "rg_breakdown": rg_breakdown(ivs),
+             "RG_per_run": [compute_goodput(
+                 o.intervals, sum(i.chip_time for i in o.intervals)).rg
+                 for o in (orc1, orc2)],
+             "data": out2["data"], "restore": out2["restore"]})
+
+        # (c) one fixed batch: the loss must fall
+        state = init_train_state(
+            cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        batch = {k: torch.from_numpy(a).cuda() for k, a in next(DataPipeline(
+            cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=123)).items()}
+        step = make_train_step(cfg, AdamWConfig(lr=1e-3))
+        fixed, walls = [], []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            fixed.append(float(m["loss"]))
+            walls.append(time.perf_counter() - t0)
+        log({"phase": "train_fixed_batch", "losses": fixed,
+             "drop": fixed[0] - fixed[-1], "margin": LEARN_MARGIN,
+             "step_ms": [1e3 * w for w in walls]})
+        if not (all(np.isfinite(fixed))
+                and fixed[-1] < fixed[0] - LEARN_MARGIN):
+            raise AssertionError(f"fixed batch: losses {fixed} did not "
+                                 f"fall by {LEARN_MARGIN}")
+
+        # (d) device busy share of the step: its kernel time in a profile
+        # of 2 steps over the wall time of an unprofiled step (the last 5
+        # fixed-batch steps; the profiler's own host cost stretches the
+        # profiled steps' wall, also reported)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(2):
+                state, m = step(state, batch)
+            float(m["loss"])
+            span = time.perf_counter() - t0
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        dev_us = sum(e.self_device_time_total for e in kernels)
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+        unprofiled = float(np.mean(walls[5:]))
+        log({"phase": "train_profile", "steps": 2, "wall_s": span,
+             "device_s": dev_us / 1e6, "unprofiled_step_s": unprofiled,
+             "device_busy_share": (dev_us / 2e6 / unprofiled
+                                   if dev_us else None),
+             "device_busy_share_profiled": (dev_us / 1e6 / span
+                                            if dev_us else None),
+             "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3
+                                for e in top}})
+        del state, batch, step
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1134,18 +1631,26 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # phase 6: training smollm-135m at full width
+    flash_train = flash_train_fwd_cases(torch)
+    flash_bwd = flash_bwd_cases(torch)
+    train_grads_kernel_vs_plain(torch, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    c_train = train_runs(torch, cfg)
+
     # the summary: the main paths' shapes and dtypes (bf16 flash at the
     # longest smollm prompt, bf16 paged at smollm's mixed batch, the bf16
     # grouped matmul at deepseek's decode, both fp32 scans at their
     # models' 300-token prefill) with the launches of every serving run
-    runs = (c_cli, c_eng, c_ds, c_rg, c_rw)
+    runs = (c_cli, c_eng, c_ds, c_rg, c_rw, c_train)
 
     def summary(rows, name, source, replaces, pick):
         r = [x for x in rows if pick(x)][0]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
                 "instance": r.get("instance", "cuda_core"),
-                "launches": sum(c[name] for c in runs),
+                "launches": sum(c.get(name, 0) for c in runs),
                 "max_abs_err": max(x["max_abs_err"] for x in rows
                                    if x["dtype"] == r["dtype"]),
                 "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
@@ -1159,11 +1664,22 @@ def main() -> int:
                 "src/repro/kernels/paged_attention/paged_attention.py:110",
                 lambda x: x["dtype"] == bf16 and x["window"] == 0
                 and x["d"] == 64 and x["nb"] == 3),
-        summary(flash, "flash_attention",
-                "src/repro_torch/kernels/csrc/flash_attention.cu",
-                "src/repro/kernels/flash_attention/flash_attention.py:70",
-                lambda x: x["dtype"] == bf16 and x["sq"] == 300
-                and x["window"] == 0 and x["d"] == 64),
+        dict(summary(flash + flash_train, "flash_attention",
+                     "src/repro_torch/kernels/csrc/flash_attention.cu",
+                     "src/repro/kernels/flash_attention/flash_attention.py:70",
+                     lambda x: x["dtype"] == bf16 and x["sq"] == 300
+                     and x["window"] == 0 and x["d"] == 64),
+             # the training path's forward: bf16, 8 x 2048, with LSE
+             train_shape={k: r[k] for k in (
+                 "b", "sq", "lse_max_abs_err", "kernel_ms", "plain_ms",
+                 "bound_ms", "bound_by", "library_ms")
+                 for r in flash_train if r["dtype"] == bf16}),
+        # no Pallas kernel: the reference differentiates its XLA
+        # attention; the line is the smollm training shape
+        summary(flash_bwd, "flash_attention_bwd",
+                "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                "src/repro/models/attention.py:52",
+                lambda x: x["dtype"] == bf16 and x["case"] == "smollm_train"),
         summary(gmm, "moe_gmm", "src/repro_torch/kernels/csrc/moe_gmm.cu",
                 "src/repro/kernels/moe_gmm/moe_gmm.py:39",
                 lambda x: x["dtype"] == bf16 and x["case"] == "decode_wi"),

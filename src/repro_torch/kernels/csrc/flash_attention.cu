@@ -6,7 +6,12 @@
 // function: q (b, hq, sq, d), k/v (b, hkv, skv, d), query head ih reads kv
 // head ih / g, masks k < skv, k <= q (causal) and k > q - window, softmax
 // and accumulation in fp32, output in the input dtype.  Forward only, as
-// the Pallas package has no backward either.
+// the Pallas package has no backward either; for training, either
+// instance also writes each row's log-sum-exp (`lse`, fp32 (b, hq, sq),
+// natural log of the softmax denominator in the units of the scaled
+// scores: m + log(l)) when given a non-null pointer, which the backward
+// (flash_attention_bwd.cu) reads.  A null pointer writes nothing and
+// leaves every output bit as it was.
 //
 // What bounds it on the H100: at the serving path's prefill shapes
 // (smollm-135m: hq 9, hkv 3, d 64; deepseek-moe-16b: hq 16, d 128;
@@ -83,7 +88,8 @@ constexpr size_t smem_bytes() {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, int g, int sq,
+          const T* __restrict__ v, T* __restrict__ o,
+          float* __restrict__ lse, int g, int sq,
           int skv, Strides qs, Strides ks, Strides vs, Strides os,
           int causal, int window, float scale) {
   using repro::kNegInf;
@@ -221,14 +227,18 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
         if (has_dim(dd))
           ob[(long long)qp * os.s + lane + 32 * dd] =
               repro::from_f32<T>(acc[r][dd] / den);
+      // l is the whole row's sum here (warp_sum); -inf for a row that
+      // sees no key
+      if (lse != nullptr && lane == 0)
+        lse[((long long)ib * gridDim.y + ih) * sq + qp] = m[r] + logf(l[r]);
     }
   }
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int hq, int g, int sq, int skv, Strides qs, Strides ks, Strides vs,
-           Strides os, int causal, int window, float scale,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int b, int hq, int g, int sq, int skv, Strides qs, Strides ks,
+           Strides vs, Strides os, int causal, int window, float scale,
            cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -238,32 +248,32 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   const dim3 grid((sq + kBQ - 1) / kBQ, hq, b);
   flash_fwd<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), g, sq, skv, qs, ks, vs,
-      os, causal, window, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, g, sq, skv, qs, ks,
+      vs, os, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_d(int d, const void* q, const void* k, const void* v, void* o,
-               int b, int hq, int g, int sq, int skv, Strides qs, Strides ks,
-               Strides vs, Strides os, int causal, int window, float scale,
-               cudaStream_t stream) {
+               float* lse, int b, int hq, int g, int sq, int skv, Strides qs,
+               Strides ks, Strides vs, Strides os, int causal, int window,
+               float scale, cudaStream_t stream) {
   switch (d) {
     case 16:
-      return launch<T, 16>(q, k, v, o, b, hq, g, sq, skv, qs, ks, vs, os,
-                           causal, window, scale, stream);
+      return launch<T, 16>(q, k, v, o, lse, b, hq, g, sq, skv, qs, ks, vs,
+                           os, causal, window, scale, stream);
     case 32:
-      return launch<T, 32>(q, k, v, o, b, hq, g, sq, skv, qs, ks, vs, os,
-                           causal, window, scale, stream);
+      return launch<T, 32>(q, k, v, o, lse, b, hq, g, sq, skv, qs, ks, vs,
+                           os, causal, window, scale, stream);
     case 64:
-      return launch<T, 64>(q, k, v, o, b, hq, g, sq, skv, qs, ks, vs, os,
-                           causal, window, scale, stream);
+      return launch<T, 64>(q, k, v, o, lse, b, hq, g, sq, skv, qs, ks, vs,
+                           os, causal, window, scale, stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, b, hq, g, sq, skv, qs, ks, vs, os,
-                            causal, window, scale, stream);
+      return launch<T, 128>(q, k, v, o, lse, b, hq, g, sq, skv, qs, ks, vs,
+                            os, causal, window, scale, stream);
     case 256:
-      return launch<T, 256>(q, k, v, o, b, hq, g, sq, skv, qs, ks, vs, os,
-                            causal, window, scale, stream);
+      return launch<T, 256>(q, k, v, o, lse, b, hq, g, sq, skv, qs, ks, vs,
+                            os, causal, window, scale, stream);
     default:
       return repro::kUnsupported;
   }
@@ -280,6 +290,7 @@ namespace tc {
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D>
 __host__ __device__ constexpr bool q_in_regs() {
@@ -295,7 +306,8 @@ constexpr int smem_bytes() {             // Q, then 2 stages of K and V
 template <int D>
 __global__ void __launch_bounds__(tc::kThreads)
 flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-             const bf16* __restrict__ v, bf16* __restrict__ o, int g, int sq,
+             const bf16* __restrict__ v, bf16* __restrict__ o,
+             float* __restrict__ lse, int g, int sq,
              int skv, Strides qs, Strides ks, Strides vs, Strides os,
              int causal, int window, float scale_log2) {
   using repro::kNegInf;
@@ -514,19 +526,28 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   __syncthreads();
   if (half == 1) return;
-  float c0[2], c1[2], inv[2];
+  float c0[2], c1[2], inv[2], row_lse[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const float m1 = xml[h * 32 + lane], l1 = xml[(2 + h) * 32 + lane];
     const float mm = fmaxf(m[h], m1);
     c0[h] = mm == kNegInf ? 0.f : exp2f(m[h] - mm);
     c1[h] = mm == kNegInf ? 0.f : exp2f(m1 - mm);
-    inv[h] = 1.f / fmaxf(c0[h] * l[h] + c1[h] * l1, 1e-30f);
+    const float den = c0[h] * l[h] + c1[h] * l1;
+    inv[h] = 1.f / fmaxf(den, 1e-30f);
+    // the LSE this instance makes: den sums the bf16-rounded P (what P V
+    // multiplies), so exp(S - LSE) recomputed in fp32 by the backward is
+    // the unrounded P over that sum; its rows sum to 1 within the bf16
+    // rounding of P (relative 2^-9 a term).  -inf for a row that sees no
+    // key.
+    row_lse[h] = mm * tc::kLn2 + logf(den);
   }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int qp = wr0 + gr + 8 * h;
     if (qp >= sq) continue;
+    if (lse != nullptr && tq == 0)
+      lse[((long long)ib * gridDim.y + ih) * sq + qp] = row_lse[h];
 #pragma unroll
     for (int nt = 0; nt < NO; ++nt) {
       const float o0 = c0[h] * acc[nt][2 * h] +
@@ -540,10 +561,10 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int D>
-int launch_tc(const void* q, const void* k, const void* v, void* o, int b,
-              int hq, int g, int sq, int skv, Strides qs, Strides ks,
-              Strides vs, Strides os, int causal, int window, float scale,
-              cudaStream_t stream) {
+int launch_tc(const void* q, const void* k, const void* v, void* o,
+              float* lse, int b, int hq, int g, int sq, int skv, Strides qs,
+              Strides ks, Strides vs, Strides os, int causal, int window,
+              float scale, cudaStream_t stream) {
   constexpr int smem = tc::smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -551,8 +572,8 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int b,
   const dim3 grid((sq + kBQ - 1) / kBQ, hq, b);
   flash_fwd_tc<D><<<grid, tc::kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), g, sq, skv, qs, ks,
-      vs, os, causal, window, scale * tc::kLog2e);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, g, sq, skv,
+      qs, ks, vs, os, causal, window, scale * tc::kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -563,11 +584,12 @@ bool aligned16(const void* p, Strides s) {
 
 }  // namespace
 
-// C entry point (ctypes).  Returns 0 on success, the cudaError_t of a
+// C entry point (ctypes).  `lse` is null, or (b, hq, sq) contiguous fp32
+// for each row's log-sum-exp.  Returns 0 on success, the cudaError_t of a
 // refused launch, or -1 for a head_dim / dtype no instance takes.
 extern "C" int repro_flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int b, int hq,
-    int hkv, int sq, int skv, int d, long long q_sb, long long q_sh,
+    const void* q, const void* k, const void* v, void* o, float* lse, int b,
+    int hq, int hkv, int sq, int skv, int d, long long q_sb, long long q_sh,
     long long q_ss, long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss, long long o_sb,
     long long o_sh, long long o_ss, int causal, int window, float scale,
@@ -577,11 +599,11 @@ extern "C" int repro_flash_attention_fwd(
   const int g = hq / hkv;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == repro::kF32)
-    return dispatch_d<float>(d, q, k, v, o, b, hq, g, sq, skv, qs, ks, vs, os,
-                             causal, window, scale, st);
+    return dispatch_d<float>(d, q, k, v, o, lse, b, hq, g, sq, skv, qs, ks, vs,
+                             os, causal, window, scale, st);
   if (dtype == repro::kBF16)
-    return dispatch_d<__nv_bfloat16>(d, q, k, v, o, b, hq, g, sq, skv, qs, ks,
-                                     vs, os, causal, window, scale, st);
+    return dispatch_d<__nv_bfloat16>(d, q, k, v, o, lse, b, hq, g, sq, skv, qs,
+                                     ks, vs, os, causal, window, scale, st);
   return repro::kUnsupported;
 }
 
@@ -590,8 +612,8 @@ extern "C" int repro_flash_attention_fwd(
 // copied in 16-byte chunks).  Same arguments and returns as above, less
 // the dtype.
 extern "C" int repro_flash_attention_fwd_tc(
-    const void* q, const void* k, const void* v, void* o, int b, int hq,
-    int hkv, int sq, int skv, int d, long long q_sb, long long q_sh,
+    const void* q, const void* k, const void* v, void* o, float* lse, int b,
+    int hq, int hkv, int sq, int skv, int d, long long q_sb, long long q_sh,
     long long q_ss, long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss, long long o_sb,
     long long o_sh, long long o_ss, int causal, int window, float scale,
@@ -605,14 +627,14 @@ extern "C" int repro_flash_attention_fwd_tc(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 64:
-      return launch_tc<64>(q, k, v, o, b, hq, g, sq, skv, qs, ks, vs, os,
-                           causal, window, scale, st);
+      return launch_tc<64>(q, k, v, o, lse, b, hq, g, sq, skv, qs, ks, vs,
+                           os, causal, window, scale, st);
     case 128:
-      return launch_tc<128>(q, k, v, o, b, hq, g, sq, skv, qs, ks, vs, os,
-                            causal, window, scale, st);
+      return launch_tc<128>(q, k, v, o, lse, b, hq, g, sq, skv, qs, ks, vs,
+                            os, causal, window, scale, st);
     case 256:
-      return launch_tc<256>(q, k, v, o, b, hq, g, sq, skv, qs, ks, vs, os,
-                            causal, window, scale, st);
+      return launch_tc<256>(q, k, v, o, lse, b, hq, g, sq, skv, qs, ks, vs,
+                            os, causal, window, scale, st);
     default:
       return repro::kUnsupported;
   }

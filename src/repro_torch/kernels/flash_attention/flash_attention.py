@@ -1,6 +1,8 @@
-"""ctypes wrapper of the CUDA flash-attention forward
+"""ctypes wrappers of the CUDA flash attention: the forward
 (``kernels/csrc/flash_attention.cu``; the source's note says which TPU
-kernel it replaces and how it is built).
+kernel it replaces and how it is built) and its backward
+(``kernels/csrc/flash_attention_bwd.cu``, dQ, dK and dV from the
+forward's output and row log-sum-exp).
 
 The source has two instances, and :func:`instance` picks one from the
 inputs' dtype, head_dim and layout: ``"tc"`` (bf16 at head_dim 64, 128
@@ -8,10 +10,11 @@ or 256 on the tensor cores, every tensor 16-byte aligned with strides in
 multiples of 8) or ``"cuda_core"`` (fp32 FMAs; fp32, and bf16 otherwise).
 This is dispatch by shape, not a fallback: nothing is caught or retried.
 
-``LAUNCHES`` counts the kernel's launches (either instance) and
-``LAUNCHES_TC`` those of the tensor-core instance: the wrapper adds one
-where it launches and nowhere else, so a run can show that it went
-through the kernel.
+``LAUNCHES`` counts the forward's launches (either instance),
+``LAUNCHES_TC`` those of the tensor-core instance and ``LAUNCHES_BWD``
+the backward's (one per call, which runs its two kernels): each wrapper
+adds one where it launches and nowhere else, so a run can show that it
+went through the kernels.
 """
 from __future__ import annotations
 
@@ -26,12 +29,17 @@ from repro_torch.kernels import _ctypes as C
 BLOCK_K = 128
 HEAD_DIMS = (16, 32, 64, 128, 256)
 TC_HEAD_DIMS = (64, 128, 256)
+# the backward takes smollm-135m's head_dim and the dense configs' 128;
+# 256 (recurrentgemma-2b) comes with hybrid training
+BWD_HEAD_DIMS = (64, 128)
 
 LAUNCHES = 0
 LAUNCHES_TC = 0
+LAUNCHES_BWD = 0
 
-_ARGS = [C.P] * 4 + [C.I] * 6 + [C.LL] * 12 + [C.I, C.I, C.F, C.I, C.P]
-_ARGS_TC = [C.P] * 4 + [C.I] * 6 + [C.LL] * 12 + [C.I, C.I, C.F, C.P]
+_ARGS = [C.P] * 5 + [C.I] * 6 + [C.LL] * 12 + [C.I, C.I, C.F, C.I, C.P]
+_ARGS_TC = [C.P] * 5 + [C.I] * 6 + [C.LL] * 12 + [C.I, C.I, C.F, C.P]
+_ARGS_BWD = [C.P] * 10 + [C.I] * 6 + [C.LL] * 24 + [C.I, C.I, C.F, C.I, C.P]
 
 
 def _rows_aligned(t) -> bool:
@@ -48,7 +56,28 @@ def instance(q, k, v, out=None) -> str:
     return "cuda_core"
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+def check_inputs(q, k, v, head_dims=HEAD_DIMS) -> None:
+    """Raise ``ValueError`` for inputs the kernels do not take: q (b, hq,
+    sq, d), k and v (b, hkv, skv, d) with hq % hkv == 0, d in
+    ``head_dims``, one dtype of fp32 and bf16, head dim contiguous.  The
+    autograd function runs the same check on every device, so the CPU
+    path refuses what the card's would."""
+    b, hq, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    if (k.shape != v.shape or k.shape[0] != b or k.shape[3] != d
+            or hq % hkv or d not in head_dims):
+        raise ValueError(f"flash_attention: unsupported shapes q "
+                         f"{tuple(q.shape)} k {tuple(k.shape)} v "
+                         f"{tuple(v.shape)} (head_dim in {head_dims})")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in C.DTYPE_CODES:
+        raise ValueError(f"flash_attention: dtypes {q.dtype}/{k.dtype}/"
+                         f"{v.dtype}; takes one of {list(C.DTYPE_CODES)}")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("flash_attention: head_dim must be contiguous")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    return_lse: bool = False):
     """q: (b, hq, sq, d); k, v: (b, hkv, skv, d), CUDA, fp32 or bf16,
     last dim contiguous (any other strides, e.g. transposed views of the
     model's (b, s, h, d) tensors).  hq % hkv == 0 (GQA), d in HEAD_DIMS.
@@ -56,27 +85,23 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     Returns (b, hq, sq, d) in q.dtype with q's memory layout; softmax and
     accumulation in fp32 (the tensor-core instance rounds the
     probabilities to bf16 before the P V product, as the model's bf16
-    attention does).
+    attention does).  With ``return_lse`` also each row's log-sum-exp,
+    fp32 (b, hq, sq), for the backward; the output is the same bit for
+    bit either way.
     """
     global LAUNCHES, LAUNCHES_TC
     C.require_cuda("flash_attention", q, k, v)
+    check_inputs(q, k, v)
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
-    if (k.shape != v.shape or k.shape[0] != b or k.shape[3] != d
-            or hq % hkv or d not in HEAD_DIMS):
-        raise ValueError(f"flash_attention: unsupported shapes q "
-                         f"{tuple(q.shape)} k {tuple(k.shape)} v "
-                         f"{tuple(v.shape)} (head_dim in {HEAD_DIMS})")
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in C.DTYPE_CODES:
-        raise ValueError(f"flash_attention: dtypes {q.dtype}/{k.dtype}/"
-                         f"{v.dtype}; takes one of {list(C.DTYPE_CODES)}")
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
-        raise ValueError("flash_attention: head_dim must be contiguous")
     out = torch.empty_like(q)
+    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if sq == 0:
-        return out
+        return (out, lse) if return_lse else out
     tc = instance(q, k, v, out) == "tc"
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             b, hq, hkv, sq, skv, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *out.stride()[:3], int(causal), int(window), d ** -0.5)
@@ -92,4 +117,50 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     C.check("flash_attention", rc)
     LAUNCHES += 1
     LAUNCHES_TC += tc
-    return out
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        window: int = 0):
+    """Gradients (dq, dk, dv) of :func:`flash_attention` on the CUDA
+    kernel: q, o, do (b, hq, sq, d), k, v (b, hkv, skv, d) as the forward
+    takes them (any strides, head dim contiguous; a ``do`` whose head dim
+    is strided, e.g. an expanded gradient, is copied contiguous first),
+    ``lse`` the forward's (b, hq, sq) fp32.  d in BWD_HEAD_DIMS.
+
+    Returns dq, dk, dv in the inputs' dtype, each with its input's memory
+    layout; fp32 accumulation, dk and dv summed over each kv head's
+    group, no atomics (the same bits on every call).
+    """
+    global LAUNCHES_BWD
+    check_inputs(q, k, v, BWD_HEAD_DIMS)
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    C.require_cuda("flash_attention_bwd", q, k, v, o, lse, do)
+    b, hq, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    if (o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype
+            or do.dtype != q.dtype or o.stride(-1) != 1
+            or lse.shape != (b, hq, sq) or lse.dtype != torch.float32):
+        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} "
+                         f"{o.dtype}, do {tuple(do.shape)} {do.dtype}, lse "
+                         f"{tuple(lse.shape)} {lse.dtype} do not match q "
+                         f"{tuple(q.shape)} {q.dtype}")
+    lse = lse.contiguous()
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if sq == 0 or skv == 0:
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    fn = C.entry("flash_attention_bwd", "repro_flash_attention_bwd",
+                 _ARGS_BWD)
+    with torch.cuda.device(q.device):
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), delta.data_ptr(), b, hq, hkv, sq, skv, d,
+                *(s for t in (q, k, v, o, do, dq, dk, dv)
+                  for s in t.stride()[:3]),
+                int(causal), int(window), d ** -0.5, C.DTYPE_CODES[q.dtype],
+                C.stream_of(q))
+    C.check("flash_attention_bwd", rc)
+    LAUNCHES_BWD += 1
+    return dq, dk, dv

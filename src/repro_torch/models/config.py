@@ -2,10 +2,12 @@
 
 The fields and derived properties are the reference's, so a config file
 reads the same on both sides; only the two dtypes are ``torch`` dtypes.
-The port implements the dense and MoE families so far
-(``repro_torch.models.transformer``); the other families' fields are kept
-so that their config files can be copied over unchanged when their
-slices land.
+The port serves the dense, MoE, hybrid and ssm families
+(``repro_torch.models.transformer``) and trains the dense one; the other
+families' fields are kept so that their config files can be copied over
+unchanged when their slices land.  ``ShapeConfig`` is the reference's
+input-shape cell (its ``SHAPES`` table and ``shape_applicable`` come with
+the compile-time analysis, ROADMAP.md Queue 1).
 """
 from __future__ import annotations
 
@@ -75,7 +77,7 @@ class ModelConfig:
     compute_dtype: torch.dtype = torch.bfloat16
 
     # Performance knobs of the reference (kept so config files match;
-    # the port reads none of them yet)
+    # the port reads remat, loss_chunk and microbatches, in training)
     attn_chunk: int = 1024
     remat: bool = True
     scan_layers: bool = True
@@ -127,3 +129,17 @@ class ModelConfig:
         from repro_torch.models.init import param_specs
 
         return sum(math.prod(s.shape) for s in param_specs(self).values())
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One (input-shape) cell: the reference's ``ShapeConfig``."""
+
+    name: str            # train_4k | prefill_32k | decode_32k | long_500k
+    kind: str            # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch

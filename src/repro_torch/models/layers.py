@@ -95,3 +95,12 @@ def lm_logits(x, params, cfg: ModelConfig, softcap: float = 0.0):
     if cap > 0:
         logits = cap * torch.tanh(logits / cap)
     return logits
+
+
+def softmax_xent(logits, labels):
+    """Mean token cross-entropy in fp32 (``repro.models.layers.
+    softmax_xent``): logsumexp of each row less its gold logit."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.mean(lse - gold)

@@ -1,7 +1,8 @@
 """Decoder-only LM of the port, dense, MoE, hybrid (RG-LRU + local
 attention) and ssm (RWKV-6) families: prefill, the per-request decode
 step, and batched paged decode (the counterparts of
-``repro.models.transformer``).
+``repro.models.transformer``), and the training loss of the dense
+family (``loss_fn``).
 
 Layer stacks are a Python loop: for dense and MoE the unrolled
 ``dense_layers`` first (``first_k_dense`` of them), then the stacked L dim
@@ -18,6 +19,7 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.paged_attention.ops import paged_attention_decode
 from repro_torch.models import rglru, rwkv
@@ -27,7 +29,7 @@ from repro_torch.models.attention import (decode_self_attention,
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.init import check_ported
 from repro_torch.models.layers import (embed_tokens, lm_logits, mlp, norm,
-                                       rmsnorm)
+                                       rmsnorm, softmax_xent)
 from repro_torch.models.moe import moe_block
 
 PyTree = Any
@@ -128,6 +130,18 @@ def rwkv_block(x, bp, cfg: ModelConfig, state=None,
     return x, ({"tm": tm_state, "cm": cm_state} if collect_state else None)
 
 
+def _remat(block, cfg: ModelConfig, collect: bool):
+    """``block`` (x, bp) -> (x, kv) as it runs in the stack: under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``) when
+    cfg.remat is set, autograd records and no cache is collected, so the
+    backward recomputes the block's forward instead of keeping its
+    activations; otherwise as it is.  The serving paths run with grad
+    disabled or collect caches, so they never take the checkpoint."""
+    if not (cfg.remat and torch.is_grad_enabled()) or collect:
+        return block
+    return lambda x, bp: checkpoint(block, x, bp, use_reentrant=False)
+
+
 def run_stack(x, params, cfg: ModelConfig, collect_caches: bool = False,
               attn_impl: str = "auto", gmm_impl: str = "auto",
               scan_impl: str = "auto"):
@@ -136,7 +150,8 @@ def run_stack(x, params, cfg: ModelConfig, collect_caches: bool = False,
     (k, v) (b, s, hkv, hd), and caches["blocks"] = (k, v) stacked to
     (L - first_k_dense, b, s, hkv, hd); hybrid gives caches["layers"], a
     list of per-layer states; ssm gives caches["blocks"], the per-layer
-    states stacked on a leading L dim."""
+    states stacked on a leading L dim.  Each block is rematerialised in
+    the backward where :func:`_remat` says so."""
     check_ported(cfg)
     caches: Dict[str, Any] = {}
     if cfg.family == "hybrid":
@@ -159,18 +174,24 @@ def run_stack(x, params, cfg: ModelConfig, collect_caches: bool = False,
         if collect_caches:
             caches["blocks"] = _tree_stack(states)
         return x, caches
+
+    def block(moe):
+        return _remat(
+            lambda h, bp: decoder_block(h, bp, cfg, moe=moe,
+                                        collect_kv=collect_caches,
+                                        attn_impl=attn_impl,
+                                        gmm_impl=gmm_impl),
+            cfg, collect_caches)
+
+    dense_block = block(False)
     for i in range(cfg.first_k_dense):
-        x, kv = decoder_block(x, params["dense_layers"][str(i)], cfg,
-                              moe=False, collect_kv=collect_caches,
-                              attn_impl=attn_impl)
+        x, kv = dense_block(x, params["dense_layers"][str(i)])
         if collect_caches:
             caches.setdefault("dense_layers", []).append(kv)
-    is_moe = cfg.num_experts > 0
+    stacked_block = block(cfg.num_experts > 0)
     ks, vs = [], []
     for i in range(cfg.num_layers - cfg.first_k_dense):
-        x, kv = decoder_block(x, _tree_slice(params["blocks"], i), cfg,
-                              moe=is_moe, collect_kv=collect_caches,
-                              attn_impl=attn_impl, gmm_impl=gmm_impl)
+        x, kv = stacked_block(x, _tree_slice(params["blocks"], i))
         if collect_caches:
             ks.append(kv[0])
             vs.append(kv[1])
@@ -227,6 +248,68 @@ def prefill(params, batch, cfg: ModelConfig, max_len: int = 0,
     x = norm(x, params, "final_norm", cfg)
     logits = lm_logits(x[:, -1:], params, cfg)[:, 0]
     return logits, _caches_to_decode_cache(caches, cfg, seq, max_len, b)
+
+
+# ---------------------------------------------------------------------------
+# training loss
+# ---------------------------------------------------------------------------
+
+# the families this slice trains, and where the others wait (ROADMAP.md,
+# Queue 1: "Training path" and the items after it)
+_TRAIN_TODO = {
+    "moe": "MoE training (moe_gmm's dX/dW products and the aux loss)",
+    "hybrid": "hybrid training (a reverse rglru_scan, flash backward at "
+              "head_dim 256)",
+    "ssm": "ssm training (a WKV backward)",
+    "encdec": "enc-dec and VLM",
+    "vlm": "enc-dec and VLM",
+}
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a family the port cannot train
+    yet, naming the ROADMAP item that adds it: only the dense family
+    trains so far (a MoE loss without its aux term would be silently
+    wrong, so it is refused too)."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: training family {cfg.family!r} is not ported yet; "
+            f"ROADMAP.md Queue 1: "
+            f"{_TRAIN_TODO.get(cfg.family, 'training path')}")
+
+
+def loss_fn(params, batch, cfg: ModelConfig, attn_impl: str = "auto"):
+    """Causal LM loss of the dense family (``repro.models.transformer.
+    loss_fn``): predict ``tokens[:, 1:]`` from positions ``[:-1]``, mean
+    token cross-entropy in fp32; over sequence chunks when
+    ``cfg.loss_chunk`` divides the predicted length and is shorter.
+    Returns (loss, {"xent", "aux"}); aux is a zero tensor (no MoE).
+    ``model.loss_fn`` refuses the other families (``check_trainable``)."""
+    x = embed_inputs(params, batch, cfg)
+    x, _ = run_stack(x, params, cfg, attn_impl=attn_impl)
+    x = norm(x, params, "final_norm", cfg)
+    h = x[:, :-1]
+    labels = batch["tokens"][:, 1:]
+    if cfg.loss_chunk and h.shape[1] % cfg.loss_chunk == 0 \
+            and h.shape[1] > cfg.loss_chunk:
+        loss = _chunked_xent(h, labels, params, cfg)
+    else:
+        loss = softmax_xent(lm_logits(h, params, cfg), labels)
+    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+    return loss, {"xent": loss, "aux": aux}
+
+
+def _chunked_xent(h, labels, params, cfg: ModelConfig):
+    """Cross-entropy over sequence chunks of ``cfg.loss_chunk`` positions,
+    one (b, chunk, vocab) logits tensor each: the mean of the chunks'
+    means (the reference's scan over chunks)."""
+    c = cfg.loss_chunk
+    nc = h.shape[1] // c
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(nc):
+        logits = lm_logits(h[:, i * c:(i + 1) * c], params, cfg)
+        total = total + softmax_xent(logits, labels[:, i * c:(i + 1) * c])
+    return total / nc
 
 
 def _caches_to_decode_cache(caches, cfg: ModelConfig, seq: int, max_len: int,

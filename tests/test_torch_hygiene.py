@@ -42,7 +42,18 @@ def test_port_has_modules_and_smoke_script():
             "repro_torch/kernels/rglru_scan/rglru_scan.py",
             "repro_torch/kernels/rwkv6_wkv/rwkv6_wkv.py",
             "repro_torch/models/rglru.py",
-            "repro_torch/models/rwkv.py"} <= names
+            "repro_torch/models/rwkv.py",
+            "repro_torch/tree.py",
+            "repro_torch/optim/adamw.py",
+            "repro_torch/optim/schedules.py",
+            "repro_torch/data/pipeline.py",
+            "repro_torch/launch/strategy.py",
+            "repro_torch/launch/train.py",
+            "repro_torch/runtime/compile_cache.py",
+            "repro_torch/runtime/checkpoint.py",
+            "repro_torch/runtime/orchestrator.py"} <= names
+    csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+    assert (csrc / "flash_attention_bwd.cu").exists()
     assert PORT_FILES[-1].exists()
 
 
@@ -60,6 +71,8 @@ def test_resolve_device_raises_without_cuda(monkeypatch):
 def test_entry_points_raise_without_cuda(monkeypatch):
     from repro_torch.configs import get_smoke
     from repro_torch.launch.serve import main
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.runtime.orchestrator import Orchestrator, RunConfig
     from repro_torch.models.init import init_params
     from repro_torch.serve.batched_executor import (TorchBatchedExecutor,
                                                     make_executor)
@@ -80,3 +93,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         main(["--smoke", "--arch", "rwkv6-3b", "--executor", "slot"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_main(["--smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Orchestrator(cfg, RunConfig(steps=1))

@@ -34,7 +34,8 @@ from repro_torch.kernels.flash_attention import \
     flash_attention as fmod  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import \
     flash_attention_bshd  # noqa: E402
-from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    attention_bwd_ref, attention_ref)
 from repro_torch.kernels.moe_gmm import moe_gmm as gmod  # noqa: E402
 from repro_torch.kernels.moe_gmm.ref import moe_gmm_ref  # noqa: E402
 from repro_torch.kernels.paged_attention import \
@@ -118,6 +119,124 @@ def test_flash_tc_kernel_matches_plain(card, d, sq, window, causal):
     assert fmod.LAUNCHES_TC == tc0 + 2
     _close(out, flash_attention_bshd(q, k, v, impl="ref", **kw), dtype)
     assert torch.equal(out, again)
+
+
+# the backward's dq / dk sum thousands of products (dk and dv over every
+# query row of a group) in another order than the plain version's
+# einsums: fp32 is held to 1e-4; bf16 outputs are the same fp32 values
+# rounded once, one ulp apart at most
+BWD_TOLS = {torch.float32: dict(atol=1e-4, rtol=1e-4),
+            torch.bfloat16: TOLS[torch.bfloat16]}
+
+
+def _bwd_inputs(dev, dtype, b, hq, hkv, sq, d, seed):
+    """The model's (b, s, h, d) q, k, v and an output gradient, viewed as
+    (b, h, s, d), with the plain forward's output and LSE."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn((b, sq, h, d), generator=g, device=dev)
+                   .to(dtype).transpose(1, 2)
+                   for h in (hq, hkv, hkv, hq))
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,hq,hkv,sq,d,causal,window", [
+    (2, 9, 3, 300, 64, True, 0),       # smollm-135m's heads, ragged
+    (1, 9, 3, 129, 64, True, 0),       # one past a tile
+    (1, 9, 3, 1, 64, True, 0),
+    (2, 4, 2, 200, 64, True, 48),      # sliding window across tiles
+    (1, 6, 2, 77, 64, False, 30),      # window without the causal mask
+    (1, 8, 8, 256, 128, True, 0),      # d 128, g 1
+    (1, 4, 4, 150, 128, False, 0),     # d 128, no mask
+    # chip_smoke.py's cases: smollm's training shape, d 128 with g 1 at
+    # 1024 tokens, a window, a length no tile divides
+    (8, 9, 3, 2048, 64, True, 0), (2, 16, 16, 1024, 128, True, 0),
+    (4, 9, 3, 1024, 64, True, 256), (2, 9, 3, 1000, 64, True, 0),
+])
+def test_flash_bwd_kernel_matches_plain(card, dtype, b, hq, hkv, sq, d,
+                                        causal, window):
+    """dq, dk, dv of the backward kernel against ``attention_bwd_ref`` on
+    the same (q, k, v, o, lse, do); two calls bit-identical (no
+    atomics); one count per call."""
+    q, k, v, do = _bwd_inputs(card, dtype, b, hq, hkv, sq, d,
+                              seed=sq + d + window)
+    kw = dict(causal=causal, window=window)
+    o, lse = attention_ref(q, k, v, return_lse=True, **kw)
+    n0 = fmod.LAUNCHES_BWD
+    out = fmod.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = fmod.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    assert fmod.LAUNCHES_BWD == n0 + 2
+    torch.cuda.synchronize()
+    for a, r, name in zip(out, attention_bwd_ref(q, k, v, o, lse, do, **kw),
+                          ("dq", "dk", "dv")):
+        assert a.dtype == dtype and a.stride() == {
+            "dq": q, "dk": k, "dv": v}[name].stride(), name
+        np.testing.assert_allclose(a.float().cpu().numpy(),
+                                   r.float().cpu().numpy(), err_msg=name,
+                                   **BWD_TOLS[dtype])
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_flash_autograd_on_card_matches_plain(card, dtype):
+    """The autograd Function on CUDA tensors (forward kernel with LSE,
+    backward kernel) against the same Function on the plain versions
+    (impl="ref"), through ``flash_attention_bshd``."""
+    q, k, v, do = (t.transpose(1, 2) for t in _bwd_inputs(
+        card, dtype, 2, 9, 3, 200, 64, seed=3))
+    grads = {}
+    for impl in ("kernel", "ref"):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        o = flash_attention_bshd(*leaves, window=64, impl=impl)
+        grads[impl] = torch.autograd.grad(o, leaves, do)
+    # the tensor-core forward rounds P to bf16 and sums the rounded P
+    # into its LSE: the gradients land within bf16 resolution of the
+    # plain ones
+    tol = BWD_TOLS[dtype] if dtype == torch.float32 else dict(atol=5e-2,
+                                                              rtol=5e-2)
+    for a, r in zip(grads["kernel"], grads["ref"]):
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(a.float().cpu().numpy(),
+                                   r.float().cpu().numpy(), **tol)
+
+
+@pytest.mark.parametrize("d", [32, 256])
+def test_flash_bwd_kernel_refuses_other_head_dims(card, d):
+    q, k, v, do = _bwd_inputs(card, torch.bfloat16, 1, 4, 2, 64, d, seed=1)
+    o, lse = attention_ref(q, k, v, return_lse=True)
+    with pytest.raises(ValueError, match="head_dim"):
+        fmod.flash_attention_bwd(q, k, v, o, lse, do)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention_bshd(*(t.transpose(1, 2).requires_grad_()
+                               for t in (q, k, v)), impl="kernel")
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 64),
+                                     (torch.bfloat16, 64),
+                                     (torch.bfloat16, 128),
+                                     (torch.bfloat16, 256),
+                                     (torch.bfloat16, 32)],
+                         ids=["fp32-d64", "tc-d64", "tc-d128", "tc-d256",
+                              "bf16-cuda-core-d32"])
+@pytest.mark.parametrize("window", [0, 50])
+def test_flash_lse_and_output_unchanged_by_lse(card, dtype, d, window):
+    """Both forward instances: the LSE against the plain LSE (fp32 1e-5;
+    the tensor-core instance sums bf16-rounded probabilities, 1e-2), and
+    the output is the same bit for bit with the LSE pointer null or
+    set."""
+    q, k, v, _ = _bwd_inputs(card, dtype, 2, 8, 2, 300, d, seed=d + window)
+    plain_o, plain_lse = attention_ref(q, k, v, window=window,
+                                       return_lse=True)
+    out0 = fmod.flash_attention(q, k, v, window=window)
+    out1, lse = fmod.flash_attention(q, k, v, window=window, return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out0, out1)
+    tol = (dict(atol=1e-5, rtol=1e-5) if fmod.instance(q, k, v) != "tc"
+           else dict(atol=1e-2, rtol=1e-3))
+    np.testing.assert_allclose(lse.cpu().numpy(), plain_lse.cpu().numpy(),
+                               **tol)
 
 
 def _paged_inputs(dev, dtype, b, hq, hkv, d, bt, nb, lengths, seed):

@@ -1,0 +1,326 @@
+"""The port's training path against the reference's on the CPU, on the
+same weights (the JAX params through ``params_from_numpy``) and the same
+batches (the reference's ``DataPipeline``), SMOKE smollm-135m:
+
+* ``softmax_xent``, ``loss_fn`` and its gradients against the reference's
+  and ``jax.grad``, fp32 (tolerance 1e-5: the same fp32 arithmetic in
+  another order; gradients 1e-5 absolute and relative);
+* ``adamw_apply`` with and without a schedule against the reference's on
+  random trees (1e-6: elementwise fp32 arithmetic, only ``pow`` and the
+  global norm's sum may differ in the last bit), and the schedules;
+* 5 steps of ``make_train_step`` against the reference's jitted
+  ``make_train_step``: losses within 1e-5; final params within 1e-5
+  (absolute and relative) for 99.9% of each leaf's elements and within
+  1e-4 for all.  AdamW moves each element by about lr x m / sqrt(v),
+  whatever the gradient's size, so an element whose gradient is tiny
+  (near 0 after the 2-norm clip) carries that gradient's fp32 rounding
+  as a relative error of its whole step: up to 5 x lr = 5e-3 over 5
+  steps, of which the CPU's thread-dependent summation order leaves a
+  few elements 1e-5..2e-5 apart;
+* the ``loss_chunk`` / ``microbatches`` equivalences of the reference's
+  ``tests/test_system.py`` (1e-4, its bound), each also against the
+  reference step with the same setting;
+* a bf16-compute SMOKE variant: loss within 2e-2 and every gradient leaf,
+  embedding and tied head included, within 5% of the reference leaf's
+  norm (bf16 keeps ~3 significant digits and the two frameworks round
+  the activations and the embedding's scatter-add sums at other places:
+  the leaves land 1.7-2.5% apart);
+* ``input_specs`` / ``synthetic_batch`` / ``abstract_train_state`` shapes
+  and dtypes, and the families the slice does not train are refused.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_smoke as jsmoke  # noqa: E402
+from repro.data.pipeline import DataPipeline as JaxPipeline  # noqa: E402
+from repro.launch import strategy as jstrategy  # noqa: E402
+from repro.models import layers as jlayers  # noqa: E402
+from repro.models import model as jmodel  # noqa: E402
+from repro.models.config import ShapeConfig as JShape  # noqa: E402
+from repro.optim import adamw as jadamw  # noqa: E402
+from repro.optim import schedules as jsched  # noqa: E402
+from repro_torch.configs import get_smoke as tsmoke  # noqa: E402
+from repro_torch.launch import strategy as tstrategy  # noqa: E402
+from repro_torch.models import layers as tlayers  # noqa: E402
+from repro_torch.models import model as tmodel  # noqa: E402
+from repro_torch.models.config import ShapeConfig  # noqa: E402
+from repro_torch.models.init import params_from_numpy  # noqa: E402
+from repro_torch.optim import adamw as tadamw  # noqa: E402
+from repro_torch.optim import schedules as tsched  # noqa: E402
+from repro_torch.tree import flatten  # noqa: E402
+
+ARCH = "smollm-135m"
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def _np_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _leaves(tree):
+    """Leaves of a nested dict in sorted-key order (both packages)."""
+    return flatten(tree)[0]
+
+
+def _assert_trees_close(t_tree, j_tree, **tol):
+    t, j = _leaves(t_tree), jax.tree.leaves(j_tree)
+    assert len(t) == len(j)
+    for i, (a, b) in enumerate(zip(t, j)):
+        np.testing.assert_allclose(a.detach().float().numpy(),
+                                   np.asarray(b, dtype=np.float32),
+                                   err_msg=f"leaf {i}", **tol)
+
+
+# trained params against the reference's (the module note): all within
+# PARAM_ATOL, and 99.9% of each leaf's elements within TOL
+PARAM_ATOL = 1e-4
+
+
+def _assert_params_close(t_tree, j_tree):
+    _assert_trees_close(t_tree, j_tree, atol=PARAM_ATOL, rtol=TOL["rtol"])
+    for i, (a, b) in enumerate(zip(_leaves(t_tree),
+                                   jax.tree.leaves(j_tree))):
+        a = a.detach().float().numpy()
+        b = np.asarray(b, dtype=np.float32)
+        outside = np.abs(a - b) > TOL["atol"] + TOL["rtol"] * np.abs(b)
+        assert outside.mean() <= 1e-3, (i, int(outside.sum()), a.size)
+
+
+def _batches(cfg, n, batch=4, seq=32, seed=0):
+    pipe = JaxPipeline(cfg.vocab_size, batch, seq, seed=seed)
+    return [next(pipe) for _ in range(n)]
+
+
+@pytest.fixture(scope="module")
+def setup():
+    jcfg, tcfg = jsmoke(ARCH), tsmoke(ARCH)
+    jparams = jmodel.init_params(jcfg, jax.random.key(0))
+    tparams = params_from_numpy(_np_tree(jparams), device="cpu")
+    return jcfg, tcfg, jparams, tparams
+
+
+def _tbatch(b):
+    return {k: torch.from_numpy(v) for k, v in b.items()}
+
+
+def test_softmax_xent_matches_reference():
+    rng = np.random.default_rng(0)
+    logits = rng.standard_normal((3, 7, 50)).astype(np.float32) * 4
+    labels = rng.integers(0, 50, (3, 7)).astype(np.int32)
+    want = float(jlayers.softmax_xent(jnp.asarray(logits),
+                                      jnp.asarray(labels)))
+    got = float(tlayers.softmax_xent(torch.from_numpy(logits),
+                                     torch.from_numpy(labels)))
+    assert got == pytest.approx(want, rel=1e-6, abs=1e-6)
+
+
+def test_loss_fn_and_grads_match_reference(setup):
+    jcfg, tcfg, jparams, tparams = setup
+    batch = _batches(jcfg, 1)[0]
+    jlfn = jmodel.loss_fn(jcfg)
+    (jloss, jmet), jgrads = jax.value_and_grad(jlfn, has_aux=True)(
+        jparams, jax.tree.map(jnp.asarray, batch))
+    tloss, tmet, tgrads = tstrategy.value_and_grad(tcfg)(tparams,
+                                                         _tbatch(batch))
+    assert float(tloss) == pytest.approx(float(jloss), **{"rel": 1e-5})
+    assert set(tmet) == set(jmet) == {"xent", "aux"}
+    assert float(tmet["aux"]) == 0.0
+    _assert_trees_close(tgrads, jgrads, **TOL)
+
+
+def _random_tree(rng, scale=1.0):
+    return {"a": {"w": rng.standard_normal((6, 5)).astype(np.float32)
+                  * scale,
+                  "b": rng.standard_normal((5,)).astype(np.float32) * scale},
+            "emb": rng.standard_normal((9, 4)).astype(np.float32) * scale}
+
+
+@pytest.mark.parametrize("schedule", ["none", "wsd", "cosine"])
+@pytest.mark.parametrize("clip", [1.0, 0.0])
+def test_adamw_apply_matches_reference(schedule, clip):
+    rng = np.random.default_rng(1)
+    params = _random_tree(rng)
+    scheds = {"none": (None, None),
+              "wsd": (jsched.wsd_schedule(1e-3, 2, 1, 3, 1e-4),
+                      tsched.wsd_schedule(1e-3, 2, 1, 3, 1e-4)),
+              "cosine": (jsched.cosine_schedule(1e-3, 2, 6, 1e-5),
+                         tsched.cosine_schedule(1e-3, 2, 6, 1e-5))}
+    jsc, tsc = scheds[schedule]
+    jcfg = jadamw.AdamWConfig(lr=2e-3, grad_clip=clip, schedule=jsc)
+    tcfg = tadamw.AdamWConfig(lr=2e-3, grad_clip=clip, schedule=tsc)
+    jp = jax.tree.map(jnp.asarray, params)
+    tp = jax.tree.map(torch.from_numpy, params)
+    jo, to = jadamw.adamw_init(jp), tadamw.adamw_init(tp)
+    for _ in range(6):
+        grads = _random_tree(rng, scale=3.0)
+        jp, jo, jm = jadamw.adamw_apply(jax.tree.map(jnp.asarray, grads), jo,
+                                        jp, jcfg)
+        tp, to, tm = tadamw.adamw_apply(jax.tree.map(torch.from_numpy,
+                                                     grads), to, tp, tcfg)
+        for key in ("grad_norm", "lr"):
+            assert float(tm[key]) == pytest.approx(float(jm[key]), rel=1e-6)
+    _assert_trees_close(tp, jp, atol=1e-6, rtol=1e-6)
+    _assert_trees_close(to["m"], jo["m"], atol=1e-6, rtol=1e-6)
+    _assert_trees_close(to["v"], jo["v"], atol=1e-6, rtol=1e-6)
+    assert to["step"].dtype == torch.int32 and int(to["step"]) == 6
+
+
+@pytest.mark.parametrize("name", ["wsd", "cosine"])
+def test_schedules_match_reference(name):
+    steps = np.arange(0, 30, dtype=np.int32)
+    if name == "wsd":
+        j, t = (m.wsd_schedule(3e-4, 5, 10, 8, 1e-5)
+                for m in (jsched, tsched))
+    else:
+        j, t = (m.cosine_schedule(3e-4, 5, 25, 1e-5)
+                for m in (jsched, tsched))
+    np.testing.assert_allclose(t(torch.from_numpy(steps)).numpy(),
+                               np.asarray(j(jnp.asarray(steps))),
+                               rtol=1e-6, atol=1e-12)
+
+
+def _run_steps(jcfg, tcfg, jparams, tparams, batches):
+    """Both train steps (AdamW at lr 1e-3) over ``batches`` from the same
+    params: (jax losses, jax state, port losses, port state)."""
+    jstep = jax.jit(jstrategy.make_train_step(jcfg,
+                                              jadamw.AdamWConfig(lr=1e-3)))
+    tstep = tstrategy.make_train_step(tcfg, tadamw.AdamWConfig(lr=1e-3))
+    js = {"params": jparams, "opt": jadamw.adamw_init(jparams)}
+    ts = {"params": tparams, "opt": tadamw.adamw_init(tparams)}
+    jl, tl = [], []
+    for b in batches:
+        js, jm = jstep(js, jax.tree.map(jnp.asarray, b))
+        ts, tm = tstep(ts, _tbatch(b))
+        jl.append(float(jm["loss"]))
+        tl.append(float(tm["loss"]))
+    return jl, js, tl, ts
+
+
+@pytest.fixture(scope="module")
+def five_steps(setup):
+    jcfg, tcfg, jparams, tparams = setup
+    return _run_steps(jcfg, tcfg, jparams, tparams, _batches(jcfg, 5))
+
+
+def test_five_train_steps_match_reference(five_steps):
+    jl, js, tl, ts = five_steps
+    np.testing.assert_allclose(tl, jl, **TOL)
+    _assert_params_close(ts["params"], js["params"])
+    assert int(ts["opt"]["step"]) == 5
+
+
+def test_train_step_casts_like_the_reference():
+    """bf16 compute: the gradients the optimizer gets are bf16 for every
+    parameter with more than one dim (and fp32 for the norms), the master
+    params stay fp32."""
+    cfg = dataclasses.replace(tsmoke(ARCH), compute_dtype=torch.bfloat16)
+    state = tstrategy.init_train_state(cfg, torch.Generator().manual_seed(0),
+                                       device="cpu")
+    batch = _tbatch(_batches(cfg, 1)[0])
+    _, _, grads = tstrategy.value_and_grad(cfg)(state["params"], batch)
+    for p, g in zip(_leaves(state["params"]), _leaves(grads)):
+        assert p.dtype == torch.float32
+        assert g.dtype == (torch.bfloat16 if p.dim() > 1 else torch.float32)
+    new, metrics = tstrategy.make_train_step(cfg, tadamw.AdamWConfig())(
+        state, batch)
+    assert all(p.dtype == torch.float32 for p in _leaves(new["params"]))
+    assert set(metrics) == {"loss", "xent", "aux", "grad_norm", "lr"}
+
+
+@pytest.mark.parametrize("kw", [dict(loss_chunk=16), dict(microbatches=4),
+                                dict(loss_chunk=16, microbatches=2)],
+                         ids=["chunk16", "mb4", "chunk16-mb2"])
+def test_loss_chunk_and_microbatch_equivalence(setup, kw):
+    """The reference's lever equivalences (``tests/test_system.py``) on
+    the port: one step with each lever against the port's plain step
+    within 1e-4, and against the reference's step with the same lever:
+    loss within 1e-5, params as ``_assert_params_close``."""
+    jcfg0, tcfg0, jparams, tparams = setup
+    toks = np.random.default_rng(1).integers(
+        0, jcfg0.vocab_size, (8, 64)).astype(np.int32)
+    batches = [{"tokens": toks}]
+    _, _, base_l, base_s = _run_steps(jcfg0, tcfg0, jparams, tparams,
+                                      batches)
+    jl, js, tl, ts = _run_steps(dataclasses.replace(jcfg0, **kw),
+                                dataclasses.replace(tcfg0, **kw), jparams,
+                                tparams, batches)
+    assert abs(tl[0] - base_l[0]) < 1e-4
+    dp = max(float((a - b).abs().max()) for a, b in
+             zip(_leaves(ts["params"]), _leaves(base_s["params"])))
+    assert dp < 1e-4
+    np.testing.assert_allclose(tl, jl, **TOL)
+    _assert_params_close(ts["params"], js["params"])
+
+
+def test_bf16_compute_loss_and_grads_near_reference(setup):
+    """The reference's mixed precision (bf16 copies of the 2-D params)
+    on both sides: the embedding gradient (an indexed gather's
+    scatter-add) and the tied head's (through ``lm_logits``) included."""
+    jcfg, tcfg, jparams, tparams = setup
+    jcfg = dataclasses.replace(jcfg, compute_dtype=jnp.bfloat16)
+    tcfg = dataclasses.replace(tcfg, compute_dtype=torch.bfloat16)
+    batch = _batches(jcfg, 1, seed=3)[0]
+
+    def cast(p):
+        return p.astype(jnp.bfloat16) if p.ndim > 1 else p
+
+    jlfn = jmodel.loss_fn(jcfg)
+    (jloss, _), jgrads = jax.value_and_grad(jlfn, has_aux=True)(
+        jax.tree.map(cast, jparams), jax.tree.map(jnp.asarray, batch))
+    tloss, _, tgrads = tstrategy.value_and_grad(tcfg)(tparams,
+                                                      _tbatch(batch))
+    assert abs(float(tloss) - float(jloss)) < 2e-2
+    t, j = _leaves(tgrads), jax.tree.leaves(jgrads)
+    for i, (a, b) in enumerate(zip(t, j)):
+        assert a.dtype == (torch.bfloat16 if b.ndim > 1 else torch.float32)
+        a = a.float().numpy()
+        b = np.asarray(b, dtype=np.float32)
+        rel = np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-12)
+        assert rel < 0.05, (i, a.shape, rel)
+    emb_t = tgrads["embed"]["tok"].float().numpy()
+    emb_j = np.asarray(jgrads["embed"]["tok"], dtype=np.float32)
+    assert np.linalg.norm(emb_t - emb_j) < 0.05 * np.linalg.norm(emb_j)
+
+
+def test_input_specs_and_synthetic_batch(setup):
+    jcfg, tcfg, _, _ = setup
+    for kind, seq, b in (("train", 64, 4), ("prefill", 32, 2),
+                         ("decode", 48, 3)):
+        jspec = jmodel.input_specs(jcfg, JShape("x", kind, seq, b))
+        tspec = tmodel.input_specs(tcfg, ShapeConfig("x", kind, seq, b))
+        jl = jax.tree.leaves(jspec)
+        tl = _leaves(tspec)
+        assert [tuple(x.shape) for x in tl] == [x.shape for x in jl]
+        assert [str(x.dtype).split(".")[-1] for x in tl] == \
+            [np.dtype(x.dtype).name for x in jl]
+        assert all(x.device.type == "meta" for x in tl)
+        batch = tmodel.synthetic_batch(tcfg, ShapeConfig("x", kind, seq, b),
+                                       torch.Generator().manual_seed(1))
+        for x in _leaves(batch):
+            assert x.device.type == "cpu"
+            if not x.dtype.is_floating_point:
+                assert int(x.min()) >= 0 and int(x.max()) < tcfg.vocab_size
+    assert ShapeConfig("t", "train", 64, 4).tokens == 256
+
+
+def test_abstract_train_state_matches_reference(setup):
+    jcfg, tcfg, _, _ = setup
+    j = jax.tree.leaves(jstrategy.abstract_train_state(jcfg))
+    t = _leaves(tstrategy.abstract_train_state(tcfg))
+    assert [tuple(x.shape) for x in t] == [x.shape for x in j]
+    assert [str(x.dtype).split(".")[-1] for x in t] == \
+        [np.dtype(x.dtype).name for x in j]
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "recurrentgemma-2b",
+                                  "rwkv6-3b"])
+def test_untrained_families_are_refused(arch):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tmodel.loss_fn(tsmoke(arch))
