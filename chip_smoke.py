@@ -48,10 +48,13 @@ each of which raises on failure (nothing is caught):
    ``make_executor``, which picks the per-slot executor, and (b) with
    kernel-vs-plain logits of the prefill and the first decode step;
 6. training smollm-135m at full width (bf16 compute, fp32 master
-   params, batch 8 x 2048): (a) the flash backward against its plain
-   version at the training shape, d 128 with g 1, a window and a ragged
-   length, fp32 and bf16, with its time, the plain version's, SDPA's
-   backward's and its bound; (b) the full model's loss and gradients
+   params, batch 8 x 2048): (a) the flash forward with its LSE at the
+   training shape, and the flash backward against its plain version at
+   the training shape, d 128 with g 1, a window and a ragged length, fp32
+   on the CUDA cores and bf16 on the tensor cores (held to the plain
+   version with P and dS rounded as the kernel rounds them, and by its
+   distance from the fp32 backward), with its time, the plain version's,
+   SDPA's backward's and its bound; (b) the full model's loss and gradients
    with kernel and with plain attention (fp32 leaf by leaf, bf16 against
    the plain bf16 model's own distance from fp32); (c) the train CLI, 2
    steps; (d) an ``Orchestrator`` run of 20 steps preempted at 15, then
@@ -94,8 +97,8 @@ tensor-core one; the fp32-compute logit checks run the CUDA-core ones.
 
 The training runs' counters are zeroed before each run and must read,
 per step and per warm-up (one per cold ``AotCache``), one flash forward
-per layer, again in remat's recompute, all on the tensor cores, and one
-flash backward per layer.
+per layer, again in remat's recompute, and one flash backward per layer,
+all on the tensor cores.
 
 Prints one JSON line per measured case, then the kernels' summary line,
 and as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
@@ -235,13 +238,15 @@ def check_close(torch, name, out, ref, tol) -> float:
     return err.max().item()
 
 
-def run_counted(torch, mod, name, fn, counter="LAUNCHES"):
+def run_counted(torch, mod, name, fn, counter="LAUNCHES",
+                tc_counter="LAUNCHES_TC"):
     """One call of a kernel wrapper: its output (a tensor or a tuple of
     them) and the instance it ran ("tc" or "cuda_core", read from the
     module's counters; kernels with one instance run on the CUDA cores),
     after a second call has given bit-identical output.  ``counter`` is
-    the module's count of this wrapper's launches."""
-    n0, tc0 = getattr(mod, counter), getattr(mod, "LAUNCHES_TC", 0)
+    the module's count of this wrapper's launches, ``tc_counter`` that of
+    its tensor-core instance's."""
+    n0, tc0 = getattr(mod, counter), getattr(mod, tc_counter, 0)
     out = fn()
     again = fn()
     torch.cuda.synchronize()
@@ -251,7 +256,7 @@ def run_counted(torch, mod, name, fn, counter="LAUNCHES"):
                     else ((out,), (again,)))
     if not all(torch.equal(a, b) for a, b in zip(outs, agains)):
         raise AssertionError(f"{name}: two calls differ")
-    tc = getattr(mod, "LAUNCHES_TC", 0) == tc0 + 2
+    tc = getattr(mod, tc_counter, 0) == tc0 + 2
     return out, "tc" if tc else "cuda_core"
 
 
@@ -600,6 +605,7 @@ def reset_counts():
     for name in TC_KERNELS:
         mods[name].LAUNCHES_TC = 0
     mods["flash_attention"].LAUNCHES_BWD = 0
+    mods["flash_attention"].LAUNCHES_BWD_TC = 0
 
 
 def read_counts():
@@ -1078,8 +1084,13 @@ TRAIN_BATCH, TRAIN_SEQ = 8, 2048
 # the flash backward against its plain version on the same (q, k, v, o,
 # lse, dO): its dq / dk / dv sum thousands of products (dk and dv over
 # every query row of a group) in another order than the plain version's
-# einsums, so fp32 is held to 1e-4; in bf16 both round the same fp32
-# values once (TOL's one ulp)
+# einsums, so fp32 (the CUDA-core instance) is held to 1e-4.  The bf16
+# (tensor-core) instance rounds P and dS to bf16 as operands, as SDPA's
+# backward does: it is held to the plain version with the same rounding
+# (``operand_dtype=torch.bfloat16``), both sides' fp32 sums rounded once
+# to bf16 (TOL's one ulp), and its relative distance from the fp32 plain
+# backward on the same (upcast) inputs to DS_BF16_FLOOR_FACTOR times the
+# rounding model's own
 BWD_TOL = {"torch.float32": dict(atol=1e-4, rtol=1e-4),
            "torch.bfloat16": TOL["torch.bfloat16"]}
 # the flash forward at the training shape with its LSE, against the
@@ -1100,8 +1111,9 @@ LSE_TOL = {"torch.float32": dict(atol=1e-5, rtol=1e-5),
 # near it; a wiring fault moves a leaf by its own size).  bf16 compute:
 # each leaf's distance from the fp32 plain gradient within
 # DS_BF16_FLOOR_FACTOR times the plain bf16 model's own distance from
-# it, measured in the same run (the tensor-core forward also rounds P
-# to bf16, which the plain one does not)
+# it, measured in the same run (the tensor-core forward rounds P to
+# bf16, and the tensor-core backward P and dS, which the plain ones do
+# not)
 TRAIN_FP32_GRAD_RTOL = 5e-5
 TRAIN_FP32_LOSS_ATOL = 1e-4
 # 10 AdamW steps (lr 1e-3) on one fixed batch of random tokens must
@@ -1181,12 +1193,16 @@ def flash_bwd_cases(torch):
     """The flash backward against ``attention_bwd_ref`` on the same
     (q, k, v, o, lse, dO) (o and lse from the plain forward): smollm's
     training shape, d 128 with g 1 at 1024 tokens, a window, and a ragged
-    length; fp32 and bf16; two calls bit-identical.  Each line has the
-    kernel's device time, the plain version's, the SDPA backward's (the
-    library call: its autograd backward alone, timed eagerly), and the
-    bound: 2.5x the forward's matmul flops over the unmasked pairs at the
-    dtype's peak, or the bytes of q, k, v, o, dO, lse read once and dq,
-    dk, dv written once."""
+    length; fp32 on the CUDA cores, bf16 on the tensor cores (the
+    instance read from the counters); two calls bit-identical.  bf16 is
+    held to the rounding model and to DS_BF16_FLOOR_FACTOR times its
+    distance from the fp32 plain backward (both distances logged).  Each
+    line has the kernel's device time (bf16 lines also the same case's
+    fp32 CUDA-core time, which the tensor-core one must beat), the plain
+    version's, the SDPA backward's (the library call: its autograd
+    backward alone, timed eagerly), and the bound: 2.5x the forward's
+    matmul flops over the unmasked pairs at the dtype's peak, or the
+    bytes of q, k, v, o, dO, lse read once and dq, dk, dv written once."""
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                          attention_ref)
@@ -1197,8 +1213,9 @@ def flash_bwd_cases(torch):
              ("d128_g1", 2, 16, 16, 1024, 128, 0),
              ("window", 4, 9, 3, 1024, 64, 256),
              ("ragged", 2, 9, 3, 1000, 64, 0)]
-    rows = []
+    rows, fp32_ms = [], {}
     for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
         for what, b, hq, hkv, sq, d, window in cases:
             g = torch.Generator(device=dev).manual_seed(sq + d + window)
             q, k, v, do = (torch.randn((b, sq, h, d), generator=g,
@@ -1207,14 +1224,32 @@ def flash_bwd_cases(torch):
             o, lse = attention_ref(q, k, v, window=window, return_lse=True)
             args = (q, k, v, o, lse, do)
             name = f"flash_bwd {what} {dtype}"
-            out, _ = run_counted(
+            out, inst = run_counted(
                 torch, fa, name,
                 lambda: fa.flash_attention_bwd(*args, window=window),
-                counter="LAUNCHES_BWD")
-            ref = attention_bwd_ref(*args, window=window)
+                counter="LAUNCHES_BWD", tc_counter="LAUNCHES_BWD_TC")
+            if inst != ("tc" if bf16 else "cuda_core"):
+                raise AssertionError(f"{name}: ran on the {inst} instance")
+            ref = attention_bwd_ref(*args, window=window, operand_dtype=(
+                torch.bfloat16 if bf16 else None))
             errs = {gn: check_close(torch, f"{name} {gn}", a, r,
                                     BWD_TOL[str(dtype)])
                     for gn, a, r in zip(("dq", "dk", "dv"), out, ref)}
+            dists = {}
+            if bf16:
+                # distances from the fp32 plain backward on the same inputs
+                exact = attention_bwd_ref(*(t.float() for t in args),
+                                          window=window)
+                for gn, a, r, x in zip(("dq", "dk", "dv"), out, ref, exact):
+                    dists[gn] = {"kernel": _rel_dist(torch, a, x),
+                                 "model": _rel_dist(torch, r, x)}
+                    if dists[gn]["kernel"] > (DS_BF16_FLOOR_FACTOR
+                                              * dists[gn]["model"]):
+                        raise AssertionError(
+                            f"{name} {gn}: {dists[gn]['kernel']} from the "
+                            f"fp32 backward, over {DS_BF16_FLOOR_FACTOR}x "
+                            f"the rounding model's {dists[gn]['model']}")
+                del exact
             del out, ref
             mask = _causal_mask(torch, sq, window)
             pairs = int(mask.sum())
@@ -1233,7 +1268,7 @@ def flash_bwd_cases(torch):
             row = {
                 "kernel": "flash_attention_bwd", "case": what,
                 "dtype": str(dtype), "b": b, "hq": hq, "hkv": hkv, "d": d,
-                "sq": sq, "window": window, "instance": "cuda_core",
+                "sq": sq, "window": window, "instance": inst,
                 "max_abs_err": max(errs.values()), "errs": errs,
                 "tol": BWD_TOL[str(dtype)],
                 "kernel_ms": graph_ms(torch, lambda: fa.flash_attention_bwd(
@@ -1248,6 +1283,16 @@ def flash_bwd_cases(torch):
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "pairs": pairs, "flops": flops}
             row["tflops"] = flops / row["kernel_ms"] / 1e9
+            if bf16:
+                row["rel_dist_fp32"] = dists
+                row["fp32_cuda_core_ms"] = fp32_ms[what]
+                if row["kernel_ms"] >= fp32_ms[what]:
+                    raise AssertionError(
+                        f"{name}: the tensor-core instance takes "
+                        f"{row['kernel_ms']} ms, the CUDA-core one "
+                        f"{fp32_ms[what]} in fp32")
+            else:
+                fp32_ms[what] = row["kernel_ms"]
             rows.append(row)
             log(row)
             del so, leaves, args, o, lse, q, k, v, do
@@ -1342,17 +1387,20 @@ def train_counts_expected(cfg, steps: int, warmups: int):
 
 def check_train_counts(cfg, what, steps, warmups):
     """The flash launches counted since ``reset_counts``, which must be
-    ``train_counts_expected``'s, every forward on the tensor cores."""
+    ``train_counts_expected``'s, every forward and every backward on the
+    tensor cores (the runs compute in bf16)."""
     fa = _kernel_modules()["flash_attention"]
     counts = {"flash_attention": fa.LAUNCHES,
               "flash_attention_bwd": fa.LAUNCHES_BWD}
-    tc = fa.LAUNCHES_TC
+    tc, tc_bwd = fa.LAUNCHES_TC, fa.LAUNCHES_BWD_TC
     want = train_counts_expected(cfg, steps, warmups)
-    if counts != want or tc != counts["flash_attention"]:
+    if (counts != want or tc != counts["flash_attention"]
+            or tc_bwd != counts["flash_attention_bwd"]):
         raise AssertionError(
-            f"{what}: flash launches {counts} ({tc} on the tensor cores), "
-            f"expected {want} for {steps} steps and {warmups} warm-ups, "
-            f"every bf16 forward on the tensor cores")
+            f"{what}: flash launches {counts} ({tc} forward, {tc_bwd} "
+            f"backward on the tensor cores), expected {want} for {steps} "
+            f"steps and {warmups} warm-ups, every bf16 launch on the "
+            f"tensor cores")
     return counts
 
 
@@ -1539,7 +1587,11 @@ def train_runs(torch, cfg):
              "device_busy_share_profiled": (dev_us / 1e6 / span
                                             if dev_us else None),
              "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3
-                                for e in top}})
+                                for e in top},
+             # the backward's two kernels, ms a step each
+             "flash_bwd_ms_per_step": {
+                 e.key[:60]: e.self_device_time_total / 2e3
+                 for e in kernels if "flash_bwd" in e.key}})
         del state, batch, step
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

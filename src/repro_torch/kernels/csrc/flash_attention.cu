@@ -479,12 +479,8 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // two n8 accumulator tiles are the A fragment of one k16 step
     uint32_t pf[KB][4];
 #pragma unroll
-    for (int kk = 0; kk < KB; ++kk) {
-      pf[kk][0] = repro::pack_bf16x2(s[2 * kk][0], s[2 * kk][1]);
-      pf[kk][1] = repro::pack_bf16x2(s[2 * kk][2], s[2 * kk][3]);
-      pf[kk][2] = repro::pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pf[kk][3] = repro::pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-    }
+    for (int kk = 0; kk < KB; ++kk)
+      repro::acc_to_a(pf[kk], s[2 * kk], s[2 * kk + 1]);
 
     // O += P V
     const unsigned char* vt = v_stage(stage) + half * HK * DC * 16;

@@ -10,7 +10,8 @@
 //   B (16 x 8, "col")       b0 (k 2t..2t+1, n g)  b1 (k 2t+8.., n g)
 //   C/D (16 x 8, fp32)      c0 c1 (g, 2t..2t+1)   c2 c3 (g+8, 2t..2t+1)
 // Two adjacent n8 accumulator tiles, packed to bf16 pairs, are exactly the
-// A fragment of one k16 step (flash attention's P reused for P.V).
+// A fragment of one k16 step (`acc_to_a`: flash attention's P reused for
+// P V, and the backward's P and dS for dV, dK and dQ).
 #pragma once
 
 #include <cstdint>
@@ -35,6 +36,15 @@ __device__ __forceinline__ void cp_async_16(void* dst, const void* src,
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// 4-byte async copy (one fp32), device -> shared memory; zero-filled
+// when `src_bytes` is 0
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes));
 }
 
 // wait until at most N committed groups of this thread are still in flight
@@ -78,6 +88,18 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The A fragment of one k16 step from two adjacent n8 accumulator tiles
+// (columns 0-7 in `lo`, 8-15 in `hi`) of an m16n8 product, each value
+// rounded to bf16: the C layout of the pair is the A layout of the step
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
+                                         const float (&lo)[4],
+                                         const float (&hi)[4]) {
+  a[0] = pack_bf16x2(lo[0], lo[1]);
+  a[1] = pack_bf16x2(lo[2], lo[3]);
+  a[2] = pack_bf16x2(hi[0], hi[1]);
+  a[3] = pack_bf16x2(hi[2], hi[3]);
 }
 
 // Byte offset of 16-byte chunk `chunk` of row `row` in a shared-memory

@@ -4,17 +4,19 @@ kernel it replaces and how it is built) and its backward
 (``kernels/csrc/flash_attention_bwd.cu``, dQ, dK and dV from the
 forward's output and row log-sum-exp).
 
-The source has two instances, and :func:`instance` picks one from the
-inputs' dtype, head_dim and layout: ``"tc"`` (bf16 at head_dim 64, 128
-or 256 on the tensor cores, every tensor 16-byte aligned with strides in
-multiples of 8) or ``"cuda_core"`` (fp32 FMAs; fp32, and bf16 otherwise).
-This is dispatch by shape, not a fallback: nothing is caught or retried.
+Each source has two instances, and :func:`instance` picks one from the
+tensors' dtype, head_dim and layout: ``"tc"`` on the tensor cores (bf16
+at head_dim 64, 128 or 256 for the forward, 64 or 128 for the backward,
+every tensor 16-byte aligned with strides in multiples of 8) or
+``"cuda_core"`` (fp32 FMAs; fp32, and bf16 otherwise).  This is dispatch
+by shape, not a fallback: nothing is caught or retried.
 
 ``LAUNCHES`` counts the forward's launches (either instance),
-``LAUNCHES_TC`` those of the tensor-core instance and ``LAUNCHES_BWD``
-the backward's (one per call, which runs its two kernels): each wrapper
-adds one where it launches and nowhere else, so a run can show that it
-went through the kernels.
+``LAUNCHES_TC`` those of its tensor-core instance, ``LAUNCHES_BWD`` the
+backward's (one per call, which runs its two kernels) and
+``LAUNCHES_BWD_TC`` those of the backward's tensor-core instance: each
+wrapper adds one where it launches and nowhere else, so a run can show
+that it went through the kernels.
 """
 from __future__ import annotations
 
@@ -36,24 +38,40 @@ BWD_HEAD_DIMS = (64, 128)
 LAUNCHES = 0
 LAUNCHES_TC = 0
 LAUNCHES_BWD = 0
+LAUNCHES_BWD_TC = 0
 
 _ARGS = [C.P] * 5 + [C.I] * 6 + [C.LL] * 12 + [C.I, C.I, C.F, C.I, C.P]
 _ARGS_TC = [C.P] * 5 + [C.I] * 6 + [C.LL] * 12 + [C.I, C.I, C.F, C.P]
 _ARGS_BWD = [C.P] * 10 + [C.I] * 6 + [C.LL] * 24 + [C.I, C.I, C.F, C.I, C.P]
+_ARGS_BWD_TC = [C.P] * 10 + [C.I] * 6 + [C.LL] * 24 + [C.I, C.I, C.F, C.P]
 
 
 def _rows_aligned(t) -> bool:
     return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
 
 
-def instance(q, k, v, out=None) -> str:
-    """The instance that takes these inputs (and output): "tc" or
-    "cuda_core"."""
-    ts = (q, k, v) if out is None else (q, k, v, out)
-    if (q.dtype == torch.bfloat16 and q.shape[-1] in TC_HEAD_DIMS
-            and all(_rows_aligned(t) for t in ts)):
+def instance(q, k, v, *others, head_dims=TC_HEAD_DIMS) -> str:
+    """The instance that takes these inputs (and the other tensors of the
+    call: the forward's output, the backward's o, do and gradients): "tc"
+    or "cuda_core".  ``head_dims`` are the tensor-core instance's: the
+    forward's by default, ``BWD_HEAD_DIMS`` for the backward."""
+    if (q.dtype == torch.bfloat16 and q.shape[-1] in head_dims
+            and all(_rows_aligned(t) for t in (q, k, v, *others))):
         return "tc"
     return "cuda_core"
+
+
+def _bwd_outputs(q, k, v):
+    """dq, dk, dv as the backward allocates them: each with its input's
+    memory layout."""
+    return tuple(torch.empty_like(t) for t in (q, k, v))
+
+
+def bwd_instance(q, k, v, o, do, grads=None) -> str:
+    """The backward's instance for these tensors (``grads`` the dq, dk,
+    dv it writes; by default allocated as the wrapper allocates them)."""
+    grads = _bwd_outputs(q, k, v) if grads is None else grads
+    return instance(q, k, v, o, do, *grads, head_dims=BWD_HEAD_DIMS)
 
 
 def check_inputs(q, k, v, head_dims=HEAD_DIMS) -> None:
@@ -123,16 +141,19 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                         window: int = 0):
     """Gradients (dq, dk, dv) of :func:`flash_attention` on the CUDA
-    kernel: q, o, do (b, hq, sq, d), k, v (b, hkv, skv, d) as the forward
+    kernels: q, o, do (b, hq, sq, d), k, v (b, hkv, skv, d) as the forward
     takes them (any strides, head dim contiguous; a ``do`` whose head dim
     is strided, e.g. an expanded gradient, is copied contiguous first),
     ``lse`` the forward's (b, hq, sq) fp32.  d in BWD_HEAD_DIMS.
 
     Returns dq, dk, dv in the inputs' dtype, each with its input's memory
-    layout; fp32 accumulation, dk and dv summed over each kv head's
-    group, no atomics (the same bits on every call).
+    layout; fp32 softmax and accumulation, dk and dv summed over each kv
+    head's group, no atomics (the same bits on every call).  The
+    tensor-core instance (:func:`bwd_instance`) rounds P and dS to bf16
+    as the operands of their products, as FlashAttention-2 does
+    (``attention_bwd_ref(..., operand_dtype=torch.bfloat16)`` models it).
     """
-    global LAUNCHES_BWD
+    global LAUNCHES_BWD, LAUNCHES_BWD_TC
     check_inputs(q, k, v, BWD_HEAD_DIMS)
     if do.stride(-1) != 1:
         do = do.contiguous()
@@ -147,20 +168,27 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                          f"{tuple(lse.shape)} {lse.dtype} do not match q "
                          f"{tuple(q.shape)} {q.dtype}")
     lse = lse.contiguous()
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    dq, dk, dv = grads = _bwd_outputs(q, k, v)
     if sq == 0 or skv == 0:
         return dq, dk.zero_(), dv.zero_()
     delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
-    fn = C.entry("flash_attention_bwd", "repro_flash_attention_bwd",
-                 _ARGS_BWD)
+    tc = bwd_instance(q, k, v, o, do, grads) == "tc"
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), delta.data_ptr(), b, hq, hkv, sq, skv, d,
+            *(s for t in (q, k, v, o, do, dq, dk, dv)
+              for s in t.stride()[:3]),
+            int(causal), int(window), d ** -0.5)
     with torch.cuda.device(q.device):
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                dv.data_ptr(), delta.data_ptr(), b, hq, hkv, sq, skv, d,
-                *(s for t in (q, k, v, o, do, dq, dk, dv)
-                  for s in t.stride()[:3]),
-                int(causal), int(window), d ** -0.5, C.DTYPE_CODES[q.dtype],
-                C.stream_of(q))
+        if tc:
+            fn = C.entry("flash_attention_bwd",
+                         "repro_flash_attention_bwd_tc", _ARGS_BWD_TC)
+            rc = fn(*args, C.stream_of(q))
+        else:
+            fn = C.entry("flash_attention_bwd", "repro_flash_attention_bwd",
+                         _ARGS_BWD)
+            rc = fn(*args, C.DTYPE_CODES[q.dtype], C.stream_of(q))
     C.check("flash_attention_bwd", rc)
     LAUNCHES_BWD += 1
+    LAUNCHES_BWD_TC += tc
     return dq, dk, dv

@@ -46,8 +46,14 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     return o, (m + torch.log(den)).reshape(b, hq, sq)
 
 
+def _operand(t, dtype):
+    """``t`` as a product's operand: rounded to ``dtype`` (kept in fp32),
+    or as it is for None."""
+    return t if dtype is None else t.to(dtype).float()
+
+
 def attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
-                      window: int = 0):
+                      window: int = 0, operand_dtype=None):
     """Gradients (dq, dk, dv) of :func:`attention_ref` from its output
     ``o``, row log-sum-exp ``lse`` (b, hq, sq) and the output's gradient
     ``do``, in fp32 (FlashAttention-2's formulas, the plain version of
@@ -58,7 +64,11 @@ def attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
         dV = P^T dO;  dK = scale dS^T Q;  dQ = scale dS K
 
     dk and dv sum over the g query heads of their kv head.  Each result
-    is cast to its input's dtype.
+    is cast to its input's dtype.  With ``operand_dtype`` (the tensor-core
+    kernels' ``torch.bfloat16``), P is rounded to it before dV = P^T dO
+    and dS before dK and dQ, the products still summed in fp32: the
+    tensor-core instance's function up to the order of the sums.  None
+    leaves every result as it is.
     """
     b, hq, sq, d = q.shape
     hkv = k.shape[1]
@@ -67,12 +77,13 @@ def attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
     lse = lse.float().reshape(b, hkv, g, sq, 1)
     p = torch.where(mask, torch.exp(s - lse), torch.zeros_like(s))
     dof = do.float().reshape(b, hkv, g, sq, d)
-    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, dof)
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", _operand(p, operand_dtype), dof)
     dp = torch.einsum("bhgqd,bhkd->bhgqk", dof, v.float())
     delta = torch.sum(dof * o.float().reshape(b, hkv, g, sq, d), dim=-1,
                       keepdim=True)
     ds = p * (dp - delta)
     scale = d ** -0.5
+    ds = _operand(ds, operand_dtype)
     dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, k.float()) * scale
     dk = torch.einsum("bhgqk,bhgqd->bhkd", ds,
                       q.float().reshape(b, hkv, g, sq, d)) * scale
