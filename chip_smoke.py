@@ -13,18 +13,23 @@ each of which raises on failure (nothing is caught):
 2. the launch floor (the graph-replay time of one in-place add on a
    one-element tensor), then each kernel against its plain PyTorch
    version at the serving paths' shapes (attention at smollm-135m's
-   head_dim 64 / group 3, deepseek-moe-16b's head_dim 128 / group 1 and
-   recurrentgemma-2b's head_dim 256 / group 10; paged attention also at
-   16 pages a row, lengths up to 2048; the grouped matmul at deepseek's
-   prefill and decode expert shapes and a ragged one; the RG-LRU scan at
-   recurrentgemma's (1, 300, 2560), also at 2048 and 40 steps, batch 4,
+   head_dim 64 / group 3, deepseek-moe-16b's head_dim 128 / group 1,
+   granite-3-8b's head_dim 128 / group 4 and recurrentgemma-2b's
+   head_dim 256 / group 10; flash also at the static engine's 8 x 200
+   for smollm, granite and recurrentgemma (its 2048 window);
+   paged attention also at 16 pages a row, lengths up to 2048; the
+   grouped matmul at deepseek's prefill and decode expert shapes and a
+   ragged one; the RG-LRU scan at recurrentgemma's (1, 300, 2560), also
+   at 2048 and 40 steps, batch 4 and the static engine's batch 8 x 200,
    a ragged shape and a nonzero initial state, bit-exact in fp32; the
    RWKV-6 WKV at rwkv6-3b's (1, 300, 40, 64), also at the model's full
-   decay range, and at 128 tokens from a nonzero state, output and final
-   state), fp32 and bf16, with its time, the plain version's time, the
-   time of the one PyTorch call that computes the same function where
-   there is one, and its bound on the H100.  Flash attention and the grouped matmul have two
-   instances, the tensor cores' for bf16 and the CUDA cores' for fp32:
+   decay range, at 128 tokens from a nonzero state and at the static
+   engine's batch 8 x 200, output and final state), fp32 and bf16 (bf16
+   flash on the tensor cores), with its time, the plain version's time,
+   the time of the one PyTorch call that computes the same function
+   where there is one, and its bound on the H100.  Flash attention and
+   the grouped matmul have two instances, the tensor cores' for bf16
+   and the CUDA cores' for fp32:
    each case line names the one that ran.  Every kernel must give
    bit-identical output in two calls, and the grouped matmul also runs
    deepseek's decode product as the model does, with
@@ -34,19 +39,29 @@ each of which raises on failure (nothing is caught):
    bf16, random weights from a seed): (a) the CLI entry point, (b) the
    engine over the batched executor with mixed prompt lengths, and (c)
    kernel-vs-plain logits of the full model's prefill and first decode
-   step;
+   step; then (d) the static engine through the CLI (``--engine static``,
+   16 requests, batch 8, 200 tokens, 64 new; ``serve_cli_static``) and
+   (e) the CLI's continuous engine with bursty arrivals spread over 2 s
+   (``serve_cli_arrival``: submit times as ``request_arrivals`` gives
+   them, tokens complete);
 4. the serving path of deepseek-moe-16b at full published width (28
    layers, d 2048, 64 routed top-6 + 2 shared experts, first layer
    dense, vocab 102400) with bf16 params (the reference's serve_bf16
    variant; random weights drawn on the card from a seed): (a) the
    engine over ``make_executor``, rows admitting and detaching
    mid-flight, and (b) kernel-vs-plain logits with all three kernels;
+   then granite-3-8b at full published width (40 layers, d 4096, 32 / 8
+   heads at 128, vocab 49155, fp32 params, bf16 compute): the engine
+   (``serve_engine_granite``), kernel-vs-plain logits, graph vs eager,
+   and the static server at batch 8 (``serve_static``) on the same raw
+   weights;
 5. the serving paths of recurrentgemma-2b (26 layers, d 2560, 8 windowed
    MQA attention layers at head_dim 256, 18 RG-LRU layers, vocab 256000)
    and rwkv6-3b (32 layers, d 2560, 40 WKV heads of 64, vocab 65536) at
    full published width, fp32 params and bf16 compute, each (a) through
-   ``make_executor``, which picks the per-slot executor, and (b) with
-   kernel-vs-plain logits of the prefill and the first decode step;
+   ``make_executor``, which picks the per-slot executor, (b) with
+   kernel-vs-plain logits of the prefill and the first decode step, and
+   (c) through the static server at batch 8 (``serve_static``);
 6. training smollm-135m at full width (bf16 compute, fp32 master
    params, batch 8 x 2048): (a) the flash forward with its LSE at the
    training shape, and the flash backward against its plain version at
@@ -78,6 +93,13 @@ the raw tree, require the kernels' logits on both trees to be
 bit-identical, and time a decode step and a 200-token prefill on both
 (``full_model_timing``: the eager span, the device time, and for the
 step the wall time of one graph replay).
+
+Each static server run (``serve_cli_static``, ``serve_static``) decodes
+with one CUDA graph captured at the full batch and replayed for every
+group; the same requests then go through ``decode_impl="eager"`` on the
+same weights, and the tokens must be identical.  Its counted launches
+must be one ``per_call_launches`` prefill per batch (flash 30 / 40 / 8 /
+0, ``rglru_scan`` 18, ``rwkv6_wkv`` 32) and nothing per decode step.
 
 The launch counters are zeroed before each serving run (before its
 executor is built: the batched one captures its step then).  They count
@@ -287,9 +309,17 @@ def flash_cases(torch):
              ((1, 0), (127, 0), (129, 0), (300, 0), (300, 64))]
     cases += [((1, 16, 16, 128), sq_w) for sq_w in
               ((1, 0), (129, 0), (300, 0))]
+    # granite-3-8b's heads (d 128, group 4): the continuous engine's
+    # batch-1 prefills, and the static engine's batch-8 prefill of 200
+    cases += [((1, 32, 8, 128), sq_w) for sq_w in
+              ((1, 0), (129, 0), (300, 0))]
+    cases += [((8, 32, 8, 128), (200, 0))]
     # recurrentgemma-2b's heads (d 256, MQA group 10; 64-key tiles), with
     # its 2048 window inactive at 300 tokens, and a window of 100 active
     cases += [((1, 10, 1, 256), sq_w) for sq_w in ((300, 0), (300, 100))]
+    # the static engine's batch-8 prefills of 200 for smollm-135m and
+    # recurrentgemma-2b (with its 2048 window, as the model passes it)
+    cases += [((8, 9, 3, 64), (200, 0)), ((8, 10, 1, 256), (200, 2048))]
     for dtype in (torch.float32, torch.bfloat16):
         for (b, hq, hkv, d), (sq, window) in cases:
             g = torch.Generator(device=dev).manual_seed(sq + window + d)
@@ -301,6 +331,8 @@ def flash_cases(torch):
             out, inst = run_counted(
                 torch, fa, what,
                 lambda: fa.flash_attention(q, k, v, window=window))
+            if dtype == torch.bfloat16 and inst != "tc":
+                raise AssertionError(f"{what}: ran on the {inst} instance")
             ref = attention_ref(q, k, v, window=window)
             err = check_close(torch, what, out, ref, TOL[str(dtype)])
             qpos = torch.arange(sq, device=dev)[:, None]
@@ -347,6 +379,8 @@ def paged_cases(torch):
     # a row's pages are split over blocks and merged in the launch
     cases = ([((8, 9, 3, 64), 3, w, serving) for w in (0, 100)]
              + [((8, 16, 16, 128), 3, 0, serving)]
+             # granite-3-8b's heads (d 128, group 4)
+             + [((8, 32, 8, 128), 3, 0, serving)]
              + [(heads, 16, 0, long_ctx)
                 for heads in ((8, 9, 3, 64), (8, 16, 16, 128))])
     for dtype in (torch.float32, torch.bfloat16):
@@ -471,7 +505,8 @@ def gmm_cases(torch):
 def rglru_cases(torch, floor_ms):
     """The RG-LRU scan at recurrentgemma-2b's prefill shape (the gates are
     fp32 in the model), from zeros and from a nonzero state, at 2048 and
-    40 steps, a ragged shape no block divides, and batch 4; fp32 must be
+    40 steps, a ragged shape no block divides, batch 4, and the static
+    engine's batch-8 prefill of 200 tokens; fp32 must be
     bit-exact against the plain version (both round the same two ops)."""
     from repro_torch.kernels.rglru_scan import rglru_scan as rs
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
@@ -479,7 +514,8 @@ def rglru_cases(torch, floor_ms):
     dev = torch.device("cuda")
     shapes = [(1, 300, 2560, False), (1, 300, 2560, True),
               (1, 2048, 2560, False), (1, 40, 2560, False),
-              (3, 37, 200, True), (4, 300, 2560, True)]
+              (3, 37, 200, True), (4, 300, 2560, True),
+              (8, 200, 2560, False)]
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         for b, s, w, with_h0 in shapes:
@@ -520,7 +556,8 @@ def rglru_cases(torch, floor_ms):
 
 def wkv_cases(torch):
     """The RWKV-6 WKV at rwkv6-3b's prefill shape (fp32 in the model), at
-    128 tokens from a nonzero state, and a small ragged one, with decays
+    128 tokens from a nonzero state, a small ragged one, and the static
+    engine's batch-8 prefill of 200 tokens, with decays
     in [-exp(-1), -exp(-6)]; then the prefill shape at the model's full
     decay range (logw = -exp(d), d in [-20, 10], the clamp of
     ``models/rwkv.py``).  The output and the final state both against the
@@ -533,7 +570,8 @@ def wkv_cases(torch):
     shapes = [(1, 300, 40, 64, False, "usual"),
               (1, 128, 40, 64, True, "usual"),
               (2, 37, 4, 16, True, "usual"),
-              (1, 300, 40, 64, False, "full")]
+              (1, 300, 40, 64, False, "full"),
+              (8, 200, 40, 64, False, "usual")]
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         tol = WKV_FP32_TOL if dtype == torch.float32 else TOL[str(dtype)]
@@ -729,48 +767,243 @@ def check_run(cfg, ex, rec, counts, tc_counts, what, mode="graph"):
             / rec["decode_calls"]}
 
 
-def serve_cli(cfg):
+def serve_cli(cfg, extra=(), phase="serve_cli", max_new=64):
+    """The CLI entry point, continuous engine: 16 requests of 200 tokens,
+    ``max_new`` new tokens each, through 8 slots, with the flags
+    ``extra``.  Checks the executor's launches and graph, the tokens and
+    the decode shapes; returns the run's launches and the requests'
+    submit times."""
     from repro_torch.launch import serve
     from repro_torch.serve import batched_executor
 
     argv = ["--requests", "16", "--batch", "8", "--prompt-len", "200",
-            "--max-new", "64"]
-    # the CLI builds its executor through make_executor: keep a handle on
-    # it, for its graph's counts (the CLI's report does not carry them)
-    made = []
-    make = batched_executor.make_executor
+            "--max-new", str(max_new), *extra]
+    # the CLI builds its executor through make_executor and its requests
+    # itself: keep a handle on both, for the graph's counts and the
+    # submit times (the CLI's report carries neither)
+    made, seen = [], []
+    make, run_engine = (batched_executor.make_executor,
+                        serve.run_continuous_server)
 
     def make_and_keep(*args, **kw):
         ex, kv = make(*args, **kw)
         made.append((ex, instrument(ex)))
         return ex, kv
 
+    def run_and_keep(cfg_, reqs, *args, **kw):
+        seen.append([r.t_submit for r in reqs])
+        return run_engine(cfg_, reqs, *args, **kw)
+
     batched_executor.make_executor = make_and_keep
+    serve.run_continuous_server = run_and_keep
     reset_counts()
     t0 = time.perf_counter()
     try:
         out = serve.main(argv)
     finally:
         batched_executor.make_executor = make
+        serve.run_continuous_server = run_engine
     wall = time.perf_counter() - t0
     counts, tc_counts = read_counts(), read_tc_counts()
     (ex, rec), = made
-    run = check_run(cfg, ex, rec, counts, tc_counts, "CLI")
+    run = check_run(cfg, ex, rec, counts, tc_counts, phase)
     # the wrappers refer back to the executor: free it now, not at the
     # next collection, so the runs after this one start without it
     del ex, rec, made
     gc.collect()
     summary = out["executor"]
-    if out["tokens"] != 16 * 64 or out["requests"] != 16:
-        raise AssertionError(f"CLI generated {out['tokens']} tokens for "
-                             f"{out['requests']} requests, expected 1024/16")
+    if out["tokens"] != 16 * max_new or out["requests"] != 16:
+        raise AssertionError(f"{phase}: {out['tokens']} tokens for "
+                             f"{out['requests']} requests, expected "
+                             f"{16 * max_new}/16")
     if summary["decode_shapes"] != 1:
         raise AssertionError(f"decode input shapes changed: {summary}")
-    log({"phase": "serve_cli", "argv": argv, "wall_s": wall, **run,
+    submits, = seen
+    log({"phase": phase, "argv": argv, "wall_s": wall, **run,
          "executor": summary, "tokens": out["tokens"],
-         "mean_ttft_s": out["ttft_s"]["mean"],
-         "slo_goodput": out["slo_goodput"], "RG": out["goodput"]["RG"]})
-    return run["launches"]
+         "mean_ttft_s": out["ttft_s"]["mean"], "span_s": out["span"],
+         "slo_goodput": out["slo_goodput"], "RG": out["goodput"]["RG"],
+         "submit_offsets_s": [t - submits[0] for t in submits]})
+    return run["launches"], submits
+
+
+def serve_cli_arrival(cfg):
+    """The CLI's continuous engine with bursty arrivals spread over 2 s of
+    the serve timeline: the submit times must be the port's
+    ``request_arrivals`` for the CLI's seed, offset by one base time,
+    spread over more than half the span, and the report's tokens
+    complete.  (At a 2 s span every profile is flat; each profile's shape
+    is held against the reference's on the host.)  Returns the run's
+    launches."""
+    from repro_torch.fleet.scenarios import SCENARIOS, request_arrivals
+
+    span, arrival = 2.0, "bursty"
+    counts, submits = serve_cli(
+        cfg, ["--span", str(span), "--arrival", arrival],
+        f"serve_cli_arrival {arrival}", max_new=32)
+    want = request_arrivals(16, span, seed=0,
+                            arrival=SCENARIOS[arrival].arrival)
+    base = submits[0] - want[0]
+    if not (all(abs(t - base - a) < 1e-6 for t, a in zip(submits, want))
+            and all(0.0 <= a < span for a in want)
+            and max(want) - min(want) > span / 2):
+        raise AssertionError(f"serve_cli_arrival {arrival}: submit "
+                             f"offsets {[t - base for t in submits]}, "
+                             f"expected {want}")
+    return counts
+
+
+def check_static(cfg, server, counts, tc_counts, what, mode):
+    """A static server run's launches and decode graph, exact: one
+    ``per_call_launches`` prefill per batch, and per direct call of the
+    decode step (the warm-up and capture calls on the graph path, every
+    step on the eager one) the grouped-matmul launches of a MoE decode
+    step, no other kernel (the decode is plain torch, as the
+    reference's); on a bf16 path every flash and grouped-matmul launch on
+    the tensor cores.  The graph path captures once and replays once per
+    decode step.  Returns the run's figures, with the launches the card
+    made: the counted ones plus each replay's."""
+    import torch
+
+    from repro_torch.serve.decode_graph import WARMUP
+
+    per_pre = per_call_launches(cfg)[0]
+    per_step = {**dict.fromkeys(per_pre, 0), "moe_gmm": per_pre["moe_gmm"]}
+    g = server.decode_graph_stats()
+    want = {k: per_pre[k] * server.batches + per_step[k] * g["calls"]
+            for k in per_pre}
+    if counts != want or not server.batches or not server.decode_steps:
+        raise AssertionError(
+            f"{what}: kernel launches {counts}, expected {want} for "
+            f"{cfg.name} ({per_pre} per batch prefill; {server.batches} "
+            f"batches, {g['calls']} step calls)")
+    if cfg.compute_dtype == torch.bfloat16:
+        want_tc = {k: want[k] for k in TC_KERNELS}
+        if tc_counts != want_tc:
+            raise AssertionError(f"{what}: tensor-core launches {tc_counts}"
+                                 f", expected every bf16 launch {want_tc}")
+    graph = ((1, server.decode_steps, WARMUP + 1) if mode == "graph"
+             else (0, 0, server.decode_steps))
+    if (g["captures"], g["replays"], g["calls"]) != graph:
+        raise AssertionError(f"{what}: {mode} path with {g} for "
+                             f"{server.decode_steps} decode steps")
+    return {"mode": mode, "batches": server.batches,
+            "decode_steps": server.decode_steps, "replays": g["replays"],
+            "step_calls": g["calls"], "capture_s": g["capture_s"],
+            "graph_mem_mb": g["capture_bytes"] / 1e6,
+            "launches": {k: counts[k] + per_step[k] * g["replays"]
+                         for k in counts},
+            "tc_launches": {k: tc_counts[k] + per_step[k] * g["replays"]
+                            for k in TC_KERNELS},
+            "launches_counted": counts}
+
+
+def add_counts(total, counts):
+    """Add a run's launches to ``total``, kernel by kernel."""
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def static_step_ms(torch, server, iters: int = 20) -> float:
+    """Host wall time of one static decode step after a run: a replay of
+    the server's decode graph, then a synchronise, averaged over
+    ``iters`` steps (the static cache's contents are spent by then)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        server._graph()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def serve_static(torch, cfg, params, n_req=8, max_new=32, cli=False):
+    """The static fixed-group server at batch 8 over ``n_req`` requests of
+    200 tokens and ``max_new`` new ones: through the CLI's ``--engine
+    static`` (``cli=True``: the server draws its weights from seed 0)
+    or ``run_static_server`` on the weights ``params``, with the decode
+    as a CUDA graph; then the same requests with ``decode_impl="eager"``
+    on the same weights (for the CLI, drawn again from seed 0), whose
+    tokens must be identical.  Each run's tokens must be complete and its
+    launches exact (:func:`check_static`).  Logs both runs with the
+    graph step's wall time; returns the graph run's launches."""
+    import numpy as np
+
+    from repro_torch.launch import serve
+    from repro_torch.models.init import init_params
+
+    batch, plen = 8, 200
+    run_static = serve.run_static_server
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, plen).astype(np.int32)
+               for _ in range(n_req)]
+    runs, toks = {}, {}
+    for mode in ("graph", "eager"):
+        # submitted now, on the server's clock, as the CLI submits them
+        t_submit = time.monotonic()
+        reqs = [serve.Request(i, p, max_new, t_submit=t_submit)
+                for i, p in enumerate(prompts)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        if cli and mode == "graph":
+            argv = ["--engine", "static", "--requests", str(n_req),
+                    "--batch", str(batch), "--prompt-len", str(plen),
+                    "--max-new", str(max_new)]
+            kept = []
+
+            def run_and_keep(cfg_, reqs_, *args, **kw):
+                server_, out_ = run_static(cfg_, reqs_, *args, **kw)
+                kept.append((server_, reqs_))
+                return server_, out_
+
+            serve.run_static_server = run_and_keep
+            try:
+                out = serve.main(argv)
+            finally:
+                serve.run_static_server = run_static
+            (server, reqs), = kept
+            del kept
+            prompts = [r.prompt for r in reqs]
+        else:
+            if cli:
+                params = init_params(
+                    cfg, torch.Generator(device="cuda").manual_seed(0),
+                    torch.device("cuda"))
+            server, out = run_static(cfg, reqs, batch, max_new, plen,
+                                     params=params, decode_impl=mode)
+        wall = time.perf_counter() - t0
+        what = f"serve_static {cfg.name} {mode}"
+        run = check_static(cfg, server, read_counts(), read_tc_counts(),
+                           what, mode)
+        if (out["tokens_generated"] != n_req * max_new
+                or out["requests"] != n_req):
+            raise AssertionError(f"{what}: {out['tokens_generated']} tokens "
+                                 f"for {out['requests']} requests, expected "
+                                 f"{n_req * max_new}/{n_req}")
+        run.update(wall_s=wall, prefill_s=out["prefill_s"],
+                   decode_s=out["decode_s"],
+                   throughput_tok_s=out["throughput_tok_s"],
+                   mean_ttft_s=out["mean_ttft_s"], RG=out["serve_rg"],
+                   decode_ms_per_step=1e3 * out["decode_s"]
+                   / server.decode_steps,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        if mode == "graph":
+            run["step_graph_wall_ms"] = static_step_ms(torch, server)
+        runs[mode] = run
+        toks[mode] = [r.out_tokens for r in reqs]
+        del server, reqs
+        gc.collect()
+        torch.cuda.empty_cache()
+    same = toks["graph"] == toks["eager"]
+    log({"phase": "serve_cli_static" if cli else "serve_static",
+         "arch": cfg.name, "requests": n_req, "batch": batch,
+         "prompt_len": plen, "max_new": max_new, "tokens_identical": same,
+         **runs})
+    if not same:
+        raise AssertionError(f"{cfg.name}: graph and eager static decode "
+                             f"gave other tokens: {toks}")
+    return runs["graph"]["launches"]
 
 
 def serve_engine(torch, cfg, n_req: int, max_new_hi: int, phase: str):
@@ -1635,13 +1868,16 @@ def main() -> int:
     cfg = get_config("smollm-135m")
     if cfg.compute_dtype != torch.bfloat16 or cfg.num_layers != 30:
         raise AssertionError(f"smollm-135m is not at full width: {cfg}")
-    c_cli = serve_cli(cfg)
+    c_cli, _ = serve_cli(cfg)
     c_eng, params, serving = serve_engine(torch, cfg, 24, 64, "serve_engine")
     graph_vs_eager(torch, cfg, params)
     logits_kernel_vs_plain(torch, cfg, params, serving, LOGIT_ATOL)
     del params, serving
     gc.collect()
     torch.cuda.empty_cache()
+    # the static engine through the CLI, and arrival-shaped streams
+    c_static = serve_static(torch, cfg, None, 16, 64, cli=True)
+    c_arrival = serve_cli_arrival(cfg)
 
     # the reference's serve_bf16 variant: 32.8 GB of bf16 params
     ds = dataclasses.replace(get_config("deepseek-moe-16b"),
@@ -1658,6 +1894,28 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # granite-3-8b at its published widths, fp32 params (33.5 GB) and bf16
+    # compute: the cast tree (17.1 GB) is freed before graph_vs_eager and
+    # the static server each cast their own from the raw tree, so the
+    # card never holds two cast trees beside it
+    gr = get_config("granite-3-8b")
+    if (gr.num_layers, gr.d_model, gr.num_heads, gr.num_kv_heads,
+            gr.head_dim, gr.d_ff, gr.vocab_size, gr.compute_dtype,
+            gr.param_dtype) != (40, 4096, 32, 8, 128, 12800, 49155,
+                                torch.bfloat16, torch.float32):
+        raise AssertionError(f"granite-3-8b is not at full width: {gr}")
+    c_gr, params, serving = serve_engine(torch, gr, 12, 48,
+                                         "serve_engine_granite")
+    logits_kernel_vs_plain(torch, gr, params, serving, None)
+    del serving
+    gc.collect()
+    torch.cuda.empty_cache()
+    graph_vs_eager(torch, gr, params)
+    add_counts(c_static, serve_static(torch, gr, params))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # the recurrent families, fp32 params and bf16 compute, per-slot path
     rg = get_config("recurrentgemma-2b")
     if (rg.num_layers, rg.d_model, rg.num_heads, rg.num_kv_heads,
@@ -1668,6 +1926,7 @@ def main() -> int:
                                          "serve_engine_recurrentgemma")
     graph_vs_eager(torch, rg, params)
     logits_kernel_vs_plain(torch, rg, params, serving, None)
+    add_counts(c_static, serve_static(torch, rg, params))
     del params, serving
     gc.collect()
     torch.cuda.empty_cache()
@@ -1679,6 +1938,7 @@ def main() -> int:
                                          "serve_engine_rwkv6")
     graph_vs_eager(torch, rw, params)
     logits_kernel_vs_plain(torch, rw, params, serving, None)
+    add_counts(c_static, serve_static(torch, rw, params))
     del params, serving
     gc.collect()
     torch.cuda.empty_cache()
@@ -1695,7 +1955,8 @@ def main() -> int:
     # longest smollm prompt, bf16 paged at smollm's mixed batch, the bf16
     # grouped matmul at deepseek's decode, both fp32 scans at their
     # models' 300-token prefill) with the launches of every serving run
-    runs = (c_cli, c_eng, c_ds, c_rg, c_rw, c_train)
+    runs = (c_cli, c_eng, c_static, c_arrival, c_ds, c_gr, c_rg, c_rw,
+            c_train)
 
     def summary(rows, name, source, replaces, pick):
         r = [x for x in rows if pick(x)][0]
@@ -1709,13 +1970,28 @@ def main() -> int:
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"]}
 
+    def case(rows, pick, keys=()):
+        """One case line's shape ``keys`` and its figures."""
+        r = [x for x in rows if pick(x)][0]
+        return {k: r[k] for k in (*keys, "max_abs_err", "kernel_ms",
+                                  "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms")}
+
     bf16, fp32 = "torch.bfloat16", "torch.float32"
+
+    def granite(x, b):          # bf16 at granite-3-8b's heads, b rows
+        return x["dtype"] == bf16 and x["hq"] == 32 and x["b"] == b
+
     log({"kernels": [
-        summary(paged, "paged_attention",
-                "src/repro_torch/kernels/csrc/paged_attention.cu",
-                "src/repro/kernels/paged_attention/paged_attention.py:110",
-                lambda x: x["dtype"] == bf16 and x["window"] == 0
-                and x["d"] == 64 and x["nb"] == 3),
+        dict(summary(paged, "paged_attention",
+                     "src/repro_torch/kernels/csrc/paged_attention.cu",
+                     "src/repro/kernels/paged_attention/"
+                     "paged_attention.py:110",
+                     lambda x: x["dtype"] == bf16 and x["window"] == 0
+                     and x["d"] == 64 and x["nb"] == 3),
+             # granite-3-8b's decode: 8 rows, d 128, group 4, 3 pages
+             granite_shape=case(paged, lambda x: granite(x, 8),
+                                ("b", "hq", "hkv", "d", "nb"))),
         dict(summary(flash + flash_train, "flash_attention",
                      "src/repro_torch/kernels/csrc/flash_attention.cu",
                      "src/repro/kernels/flash_attention/flash_attention.py:70",
@@ -1725,7 +2001,21 @@ def main() -> int:
              train_shape={k: r[k] for k in (
                  "b", "sq", "lse_max_abs_err", "kernel_ms", "plain_ms",
                  "bound_ms", "bound_by", "library_ms")
-                 for r in flash_train if r["dtype"] == bf16}),
+                 for r in flash_train if r["dtype"] == bf16},
+             # granite-3-8b's prefills: one 300-token prompt (the
+             # continuous engine), 8 x 200 (the static engine)
+             granite_shape=[
+                 case(flash, lambda x: granite(x, 1) and x["sq"] == 300,
+                      ("b", "hq", "hkv", "d", "sq", "instance")),
+                 case(flash, lambda x: granite(x, 8),
+                      ("b", "hq", "hkv", "d", "sq", "instance"))],
+             # the static engine's batch-8 prefills of smollm-135m and
+             # recurrentgemma-2b
+             static_shape=[
+                 case(flash, lambda x, hq=hq: x["dtype"] == bf16
+                      and x["b"] == 8 and x["hq"] == hq,
+                      ("b", "hq", "hkv", "d", "sq", "window", "instance"))
+                 for hq in (9, 10)]),
         # no Pallas kernel: the reference differentiates its XLA
         # attention; the line is the smollm training shape
         summary(flash_bwd, "flash_attention_bwd",
@@ -1735,16 +2025,21 @@ def main() -> int:
         summary(gmm, "moe_gmm", "src/repro_torch/kernels/csrc/moe_gmm.cu",
                 "src/repro/kernels/moe_gmm/moe_gmm.py:39",
                 lambda x: x["dtype"] == bf16 and x["case"] == "decode_wi"),
-        summary(scan, "rglru_scan",
-                "src/repro_torch/kernels/csrc/rglru_scan.cu",
-                "src/repro/kernels/rglru_scan/rglru_scan.py:45",
-                lambda x: x["dtype"] == fp32 and x["s"] == 300
-                and not x["h0"]),
-        summary(wkv, "rwkv6_wkv",
-                "src/repro_torch/kernels/csrc/rwkv6_wkv.cu",
-                "src/repro/kernels/rwkv6_wkv/rwkv6_wkv.py:69",
-                lambda x: x["dtype"] == fp32 and x["s"] == 300
-                and x["decay"] == "usual"),
+        # the static engine's batch-8 prefill of 200 tokens as batch8
+        dict(summary(scan, "rglru_scan",
+                     "src/repro_torch/kernels/csrc/rglru_scan.cu",
+                     "src/repro/kernels/rglru_scan/rglru_scan.py:45",
+                     lambda x: x["dtype"] == fp32 and x["s"] == 300
+                     and not x["h0"]),
+             batch8=case(scan, lambda x: x["dtype"] == fp32
+                         and x["b"] == 8, ("b", "s", "w"))),
+        dict(summary(wkv, "rwkv6_wkv",
+                     "src/repro_torch/kernels/csrc/rwkv6_wkv.cu",
+                     "src/repro/kernels/rwkv6_wkv/rwkv6_wkv.py:69",
+                     lambda x: x["dtype"] == fp32 and x["s"] == 300
+                     and x["decay"] == "usual"),
+             batch8=case(wkv, lambda x: x["dtype"] == fp32 and x["b"] == 8,
+                         ("b", "s", "h", "n"))),
     ]})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

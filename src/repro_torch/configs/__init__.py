@@ -5,7 +5,8 @@
     ARCH_IDS              -> the architectures ported so far
 
 The reference registers ten architectures (``repro.configs``); the
-remaining four come over with the slices of their families (ROADMAP.md).
+remaining two, whisper-medium and llava-next-mistral-7b, come over with
+the enc-dec and VLM slice (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ import importlib
 ARCH_IDS = (
     "smollm-135m",
     "qwen2.5-14b",
+    "granite-3-8b",
+    "qwen2-72b",
     "deepseek-moe-16b",
     "mixtral-8x7b",
     "recurrentgemma-2b",

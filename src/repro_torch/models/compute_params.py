@@ -10,9 +10,12 @@ exactly the operand ``lm_logits`` would build.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
+
+import torch
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.init import init_params
 
 PyTree = Any
 
@@ -76,3 +79,16 @@ def compute_params(params: PyTree, cfg: ModelConfig,
         w = out.pop("lm_head") if consume else out["lm_head"]
     out["head"] = w.to(dt).float()
     return out
+
+
+def serving_params(cfg: ModelConfig, params: Optional[PyTree],
+                   device: torch.device) -> PyTree:
+    """The tree a server runs on: :func:`compute_params` of ``params``,
+    or, for ``params=None``, of random params drawn on ``device`` from a
+    ``torch.Generator`` seeded with 0 and consumed as they are cast, so
+    only the cast tree stays on the device."""
+    if params is not None:
+        return compute_params(params, cfg)
+    return compute_params(
+        init_params(cfg, torch.Generator(device).manual_seed(0), device),
+        cfg, consume=True)

@@ -187,8 +187,8 @@ def check_ported(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet (the port "
-            f"covers the dense, MoE, hybrid and ssm decoders; the enc-dec "
-            f"and VLM families come in later slices, see ROADMAP.md)")
+            f"covers the dense, MoE, hybrid and ssm decoders; ROADMAP.md "
+            f"Queue 1: enc-dec and VLM)")
 
 
 def spec_tree(cfg: ModelConfig) -> Dict[str, Any]:

@@ -54,8 +54,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import model, transformer
-from repro_torch.models.compute_params import compute_params
-from repro_torch.models.init import init_params
+from repro_torch.models.compute_params import serving_params
 from repro_torch.serve.decode_graph import DecodeGraph, graph_stats
 from repro_torch.serve.kv_cache import FLASH_ATTENTION_BLOCK_K, PagedKVCache
 from repro_torch.serve.slot_executor import TorchSlotExecutor, slot_kv_cache
@@ -121,14 +120,8 @@ class TorchBatchedExecutor:
                                            self.block_tokens)
         # the tree the model runs on: weights cast to the compute dtype
         # once here, not on every call (bit-identical results)
-        if params is None:      # drawn here: only the cast tree is kept
-            self.params = None
-            self.serving_params = compute_params(
-                init_params(cfg, torch.Generator(self.device).manual_seed(0),
-                            self.device), cfg, consume=True)
-        else:
-            self.params = params
-            self.serving_params = compute_params(params, cfg)
+        self.params = params
+        self.serving_params = serving_params(cfg, params, self.device)
         self._prefill = model.prefill_fn(cfg, max_len=max_len,
                                          attn_impl=attn_impl,
                                          gmm_impl=gmm_impl)

@@ -1,6 +1,4 @@
-"""The port's copy of ``repro.serve.engine``, unchanged in behaviour;
-the static-batching reference ``run_static`` and ``synthetic_requests``
-come over with the static engine's slice.
+"""The port's copy of ``repro.serve.engine``, unchanged in behaviour.
 
 Continuous-batching serve engine with SLO-aware serving goodput.
 
@@ -33,6 +31,9 @@ decode is STEP, late decode is SLO_BREACH, preempted work is LOST, and
 any slot-second not covered by an op is IDLE (the batch bubble) — so the
 emitted intervals partition ``n_slots x [t_start, t_end]`` exactly (the
 gap/overlap-free tiling property test).
+
+``run_static`` is the equal-capacity reference: the legacy fixed-group
+policy replayed through the identical executor, SLO, and accounting.
 
 The engine runs in *virtual time*: every executor op returns its cost
 and the engine advances its clock by it.  With the simulated executor
@@ -490,3 +491,91 @@ class ContinuousServeEngine:
             rg_breakdown=self.ledger.rg_breakdown(),
             kv_cache=self.kv.stats.as_dict() if self.kv else None,
         )
+
+
+# ---------------------------------------------------------------------------
+# the static reference (equal-capacity A/B baseline)
+# ---------------------------------------------------------------------------
+
+def run_static(requests: Sequence[ServeRequest], batch: int, executor,
+               slo: ServeSLO = NO_SLO,
+               ledger: Optional[GoodputLedger] = None,
+               arch: str = "sim") -> ServeReport:
+    """The legacy fixed-group policy under the engine's accounting: groups
+    of ``batch`` requests in submission order, each group waiting for its
+    last member (head-of-line blocking), prefilled together, and decoded
+    ``max(r.max_new)`` iterations at full compiled width — finished
+    requests ride the batch out as IDLE, tail groups pad with IDLE slots.
+    Identical executor, SLO, and emission shapes as the continuous
+    engine, so the two reports differ only by scheduling policy.
+    """
+    eng = ContinuousServeEngine(batch, executor, slo=slo, ledger=ledger,
+                                arch=arch)
+    ledger = eng.ledger
+    reqs = sorted(requests, key=lambda r: (r.t_submit, r.rid))
+    eng.t = eng._t_start = reqs[0].t_submit if reqs else 0.0
+    done: List[ServeRequest] = []
+    for g0 in range(0, len(reqs), batch):
+        group = reqs[g0:g0 + batch]
+        start = max(eng.t, max(r.t_submit for r in group))
+        if start > eng.t:             # whole replica waits for the group
+            eng._advance(start - eng.t, busy=0)
+        for r in group:
+            r.t_admit = eng.t
+        toks, cost = executor.prefill(group)
+        t0, t1 = eng._advance(cost, busy=len(group))
+        for r, tok in zip(group, toks):
+            r.out_tokens.append(tok)
+            r.token_times.append(t1)
+            r.t_first = t1
+            r._add_run(Phase.INIT, t0, t1)
+        for _ in range(max(r.max_new for r in group) - 1):
+            # the compiled program runs at full group width regardless of
+            # how many slots still need tokens — the static bubble
+            dtoks, cost = executor.decode(group)
+            t0, t1 = eng._advance(cost, busy=len(group))
+            for r, tok in zip(group, dtoks):
+                if len(r.out_tokens) < r.max_new:
+                    k = len(r.out_tokens)
+                    r.out_tokens.append(tok)
+                    r.token_times.append(t1)
+                    on_time = t1 <= slo.deadline(r, k)
+                    r._add_run(Phase.STEP if on_time else Phase.SLO_BREACH,
+                               t0, t1)
+                else:                 # riding out the longest request
+                    r._add_run(Phase.IDLE, t0, t1)
+        for r in group:
+            r.t_done = r.token_times[-1]
+            executor.release(r)
+            eng._flush_request(r)
+            done.append(r)
+    eng._flush_idle()
+    report = eng._report(done, engine="static")
+    report.kv_cache = None            # dense per-slot reservation, unpaged
+    return report
+
+
+# ---------------------------------------------------------------------------
+# synthetic request workloads (scenario-arrival driven)
+# ---------------------------------------------------------------------------
+
+def synthetic_requests(arrivals: Sequence[float], prompt_len: int = 128,
+                       max_new: Tuple[int, int] = (16, 64),
+                       seed: int = 0, pg: float = 1.0,
+                       prompt_maker: Optional[Callable] = None
+                       ) -> List[ServeRequest]:
+    """Requests over the given arrival times (see
+    ``repro_torch.fleet.scenarios.request_arrivals``) with per-request
+    output lengths drawn from a seeded stream — hermetic like the fleet
+    workloads."""
+    import random as _random
+
+    rng = _random.Random(seed)
+    lo, hi = max_new
+    out = []
+    for i, t in enumerate(arrivals):
+        out.append(ServeRequest(
+            rid=i, prompt_len=prompt_len, max_new=rng.randint(lo, hi),
+            t_submit=float(t), pg=pg,
+            prompt=prompt_maker(i) if prompt_maker is not None else None))
+    return out

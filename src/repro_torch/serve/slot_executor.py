@@ -45,8 +45,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import model, transformer
-from repro_torch.models.compute_params import compute_params
-from repro_torch.models.init import init_params
+from repro_torch.models.compute_params import serving_params
 from repro_torch.serve.decode_graph import (DecodeGraph, graph_stats,
                                             resolve_decode_impl)
 from repro_torch.serve.kv_cache import PagedKVCache
@@ -63,11 +62,12 @@ def slot_kv_cache(max_len: int, n_slots: int) -> PagedKVCache:
                         block_tokens=block_tokens)
 
 
-def _slot_step(decode, params, b) -> None:
-    """The captured step: the entry's token and cache in, its cache
-    updated in place and the argmax in its token.  A free function over
-    what it reads, so an entry's graph holds no reference back to its
-    executor."""
+def greedy_step(decode, params, b) -> None:
+    """The captured step of a static cache (a per-slot entry's, or the
+    static server's at its full batch): the tokens ``b["tok"]`` and the
+    cache ``b["cache"]`` in, the cache updated in place and the argmax
+    in ``b["tok"]``.  A free function over what it reads, so a graph
+    holds no reference back to its owner."""
     logits = decode(params, b["tok"], b["cache"])
     b["tok"].copy_(torch.argmax(logits, -1))
 
@@ -100,14 +100,8 @@ class TorchSlotExecutor:
         self._decode_mode = resolve_decode_impl(decode_impl, self.device)
         # the tree the model runs on: weights cast to the compute dtype
         # once here, not on every call (bit-identical results)
-        if params is None:      # drawn here: only the cast tree is kept
-            self.params = None
-            self.serving_params = compute_params(
-                init_params(cfg, torch.Generator(self.device).manual_seed(0),
-                            self.device), cfg, consume=True)
-        else:
-            self.params = params
-            self.serving_params = compute_params(params, cfg)
+        self.params = params
+        self.serving_params = serving_params(cfg, params, self.device)
         self._prefill = model.prefill_fn(cfg, max_len=max_len,
                                          attn_impl=attn_impl,
                                          gmm_impl=gmm_impl)
@@ -144,7 +138,7 @@ class TorchSlotExecutor:
                                           self.device),
                 "tok": torch.zeros((1,), dtype=torch.int64,
                                    device=self.device)}
-        step = functools.partial(_slot_step, self._decode,
+        step = functools.partial(greedy_step, self._decode,
                                  self.serving_params)
         entry = DecodeGraph(step, bufs, self.device, self._decode_mode,
                             stream=self._stream, pool=self._mempool)

@@ -93,6 +93,38 @@ def test_graph_and_eager_executors_give_identical_tokens(card, arch):
         assert g["calls"] == (WARMUP + 1) * ex_g.decode_graph_count()
 
 
+def test_static_server_graph_and_eager_give_identical_tokens(card):
+    """The static server's decode (one graph at the full batch, captured
+    once, replayed for every group after its prefill cache is copied in)
+    gives the tokens of the same server eager, on smollm-135m SMOKE in
+    bf16 at batch 4, six requests (a padded tail group)."""
+    import dataclasses
+
+    from repro_torch.launch.serve import Request, run_static_server
+
+    cfg = dataclasses.replace(get_smoke("smollm-135m"),
+                              compute_dtype=torch.bfloat16)
+    params = init_params(cfg, torch.Generator(card).manual_seed(0), card)
+    rng = np.random.default_rng(2)
+    shapes = [(rng.integers(0, cfg.vocab_size, 24).astype(np.int32),
+               int(rng.integers(2, 9))) for _ in range(6)]
+    toks, servers = {}, {}
+    for mode in ("graph", "eager"):
+        reqs = [Request(i, p, m) for i, (p, m) in enumerate(shapes)]
+        servers[mode], out = run_static_server(
+            cfg, reqs, 4, 8, 24, params=params, device=card,
+            decode_impl=mode)
+        assert out["tokens_generated"] == sum(m for _, m in shapes)
+        toks[mode] = [r.out_tokens for r in reqs]
+    assert toks["graph"] == toks["eager"]
+    g = servers["graph"].decode_graph_stats()
+    e = servers["eager"].decode_graph_stats()
+    steps = servers["graph"].decode_steps
+    assert (g["captures"], g["replays"], g["calls"]) == (1, steps,
+                                                         WARMUP + 1)
+    assert (e["captures"], e["replays"], e["calls"]) == (0, 0, steps)
+
+
 def test_graph_replays_add_no_counted_launch(card):
     """A replay of a captured paged-attention call launches the kernel
     without a Python call: the counter moves by the warm-up and capture

@@ -51,7 +51,11 @@ def test_port_has_modules_and_smoke_script():
             "repro_torch/launch/train.py",
             "repro_torch/runtime/compile_cache.py",
             "repro_torch/runtime/checkpoint.py",
-            "repro_torch/runtime/orchestrator.py"} <= names
+            "repro_torch/runtime/orchestrator.py",
+            "repro_torch/fleet/scenarios.py",
+            "repro_torch/fleet/workload.py",
+            "repro_torch/configs/granite_3_8b.py",
+            "repro_torch/configs/qwen2_72b.py"} <= names
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     assert (csrc / "flash_attention_bwd.cu").exists()
     assert PORT_FILES[-1].exists()
@@ -70,7 +74,7 @@ def test_resolve_device_raises_without_cuda(monkeypatch):
 
 def test_entry_points_raise_without_cuda(monkeypatch):
     from repro_torch.configs import get_smoke
-    from repro_torch.launch.serve import main
+    from repro_torch.launch.serve import Server, main
     from repro_torch.launch.train import main as train_main
     from repro_torch.runtime.orchestrator import Orchestrator, RunConfig
     from repro_torch.models.init import init_params
@@ -91,6 +95,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         make_executor(rg, 32, 2)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(["--smoke", "--arch", "rwkv6-3b", "--executor", "slot"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["--smoke", "--engine", "static", "--requests", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Server(cfg, 2, 32)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         init_params(cfg, torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError, match="CUDA is not available"):

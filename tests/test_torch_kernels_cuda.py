@@ -81,7 +81,14 @@ def _close(out, ref, dtype):
     (2, 4, 2, 150, 32, 40), (1, 10, 2, 200, 128, 0),
     (1, 16, 16, 129, 128, 0), (1, 16, 16, 300, 128, 0),
     (1, 10, 1, 300, 256, 0), (1, 10, 1, 300, 256, 100),
-    (2, 10, 1, 65, 256, 0)])
+    (2, 10, 1, 65, 256, 0),
+    # granite-3-8b's heads (d 128, group 4): the continuous engine's
+    # batch-1 prefills and the static engine's batch-8 one
+    (1, 32, 8, 1, 128, 0), (1, 32, 8, 129, 128, 0), (1, 32, 8, 300, 128, 0),
+    (8, 32, 8, 200, 128, 0),
+    # the static engine's batch-8 prefills of smollm-135m and
+    # recurrentgemma-2b (its 2048 window, as the model passes it)
+    (8, 9, 3, 200, 64, 0), (8, 10, 1, 200, 256, 2048)])
 def test_flash_kernel_matches_plain(card, dtype, b, hq, hkv, sq, d, window):
     g = torch.Generator(device=card).manual_seed(sq + d)
     q, k, v = (torch.randn((b, s, h, d), generator=g, device=card).to(dtype)
@@ -101,15 +108,15 @@ def test_flash_kernel_matches_plain(card, dtype, b, hq, hkv, sq, d, window):
 
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d,hq,hkv", [(64, 9, 3), (128, 16, 16),
+                                     (128, 32, 8), (256, 10, 1)])
 @pytest.mark.parametrize("sq,window", [(1, 0), (127, 0), (129, 0), (300, 0),
                                        (300, 100)])
-def test_flash_tc_kernel_matches_plain(card, d, sq, window, causal):
+def test_flash_tc_kernel_matches_plain(card, d, hq, hkv, sq, window, causal):
     """The tensor-core instance (bf16) at every head_dim it takes, at a
     single token, around a tile edge, at a prompt length and with a
     window, causal or not; two calls are bit-identical."""
     dtype = torch.bfloat16
-    hq, hkv = {64: (9, 3), 128: (16, 16), 256: (10, 1)}[d]
     g = torch.Generator(device=card).manual_seed(sq + d + window)
     q, k, v = (torch.randn((1, s, h, d), generator=g, device=card).to(dtype)
                for s, h in ((sq, hq), (sq, hkv), (sq, hkv)))
@@ -327,6 +334,9 @@ LONG = [0, 1, 129, 700, 1000, 1500, 2047, 2048]
     # deepseek's heads at 16 pages: 2,048 blocks, so two pages a split
     (8, 16, 16, 128, 128, 16, 0, LONG),
     (8, 16, 16, 128, 128, 16, 200, LONG),
+    # granite-3-8b's heads (d 128, group 4) at the serving lengths
+    (8, 32, 8, 128, 128, 3, 0, [0, 1, 127, 128, 129, 200, 300, 364]),
+    (8, 32, 8, 128, 128, 16, 0, LONG),
 ])
 def test_paged_kernel_matches_plain(card, dtype, b, hq, hkv, d, bt, nb,
                                     window, lengths):
@@ -438,7 +448,8 @@ def test_moe_gmm_tc_is_deterministic(card, e, c, k, f):
 @pytest.mark.parametrize("batch,seq,ch,with_h0", [
     (1, 300, 2560, False), (1, 300, 2560, True), (3, 37, 200, True),
     (2, 1, 64, False), (1, 2048, 2560, False), (1, 40, 2560, True),
-    (2, 45, 100, True), (1, 33, 70, False), (4, 300, 2560, True)])
+    (2, 45, 100, True), (1, 33, 70, False), (4, 300, 2560, True),
+    (8, 200, 2560, False)])
 def test_rglru_scan_kernel_matches_plain(card, dtype, batch, seq, ch,
                                          with_h0):
     """recurrentgemma-2b's width at 300 and 2048 steps (the ring wraps
@@ -554,7 +565,8 @@ DECAYS = {"usual": (-6.0, -1.0), "full": (-20.0, 10.0)}
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("b,s,h,n,with_s0", [
     (1, 300, 40, 64, False), (1, 128, 40, 64, True), (2, 40, 4, 16, True),
-    (1, 1, 2, 32, False), (1, 77, 8, 64, True), (3, 33, 4, 32, False)])
+    (1, 1, 2, 32, False), (1, 77, 8, 64, True), (3, 33, 4, 32, False),
+    (8, 200, 40, 64, False), (8, 37, 40, 64, True)])
 def test_rwkv6_wkv_kernel_matches_plain(card, dtype, b, s, h, n, with_s0,
                                         decay):
     """rwkv6-3b's widths, lengths that are no multiple of the kernel's

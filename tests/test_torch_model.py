@@ -1,8 +1,9 @@
 """The port's model against the reference on the same weights (the JAX
 params through ``params_from_numpy``), fp32 SMOKE on the CPU, for
-smollm-135m, qwen2.5-14b (QKV bias), deepseek-moe-16b (a dense first
-layer, then MoE blocks with shared experts), recurrentgemma-2b (RG-LRU +
-windowed MQA attention) and rwkv6-3b:
+smollm-135m, qwen2.5-14b (QKV bias), granite-3-8b, qwen2-72b (QKV
+bias), deepseek-moe-16b (a dense first layer, then MoE blocks with shared
+experts), recurrentgemma-2b (RG-LRU + windowed MQA attention) and
+rwkv6-3b:
 
 * ``prefill`` logits and the decode cache match ``transformer.prefill``;
 * ``scatter_prefill_pages`` then 8 steps of ``paged_decode_step`` match
@@ -12,7 +13,8 @@ windowed MQA attention) and rwkv6-3b:
   reference's ``decode_step`` (logits, tokens, the cache after), for
   recurrentgemma (the 16-slot attention ring wraps), rwkv6 (prompts of 40
   and 128: the reference's per-token and chunked WKV), mixtral (a
-  16-token window, per-row ``pos``) and smollm (a scalar ``pos``);
+  16-token window, per-row ``pos``), granite and qwen2-72b (per-row
+  ``pos``, the static server's decode) and smollm (a scalar ``pos``);
 * ``init_cache`` gives the reference's tree, shapes and dtypes.
 
 Tolerance: logits atol/rtol 1e-4 (fp32 through a few layers in another
@@ -33,7 +35,8 @@ from repro_torch.configs import get_smoke as tsmoke  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
 from repro_torch.models.init import params_from_numpy  # noqa: E402
 
-ARCHS = ["smollm-135m", "qwen2.5-14b", "deepseek-moe-16b"]
+ARCHS = ["smollm-135m", "qwen2.5-14b", "granite-3-8b", "qwen2-72b",
+         "deepseek-moe-16b"]
 PREFILL_ARCHS = ARCHS + ["recurrentgemma-2b", "rwkv6-3b"]
 LOGIT_TOL = dict(atol=1e-4, rtol=1e-4)
 
@@ -96,6 +99,7 @@ def test_prefill_logits_and_cache_match_reference(arch, seq):
 @pytest.mark.parametrize("arch,seq,scalar_pos", [
     ("recurrentgemma-2b", 13, False), ("rwkv6-3b", 40, False),
     ("rwkv6-3b", 128, False), ("mixtral-8x7b", 10, False),
+    ("granite-3-8b", 11, False), ("qwen2-72b", 11, False),
     ("smollm-135m", 9, True)])
 def test_decode_step_matches_reference(arch, seq, scalar_pos):
     jcfg, tcfg, jp, tp = _setup(arch)

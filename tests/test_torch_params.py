@@ -17,8 +17,8 @@ from repro.models import init as jinit  # noqa: E402
 from repro_torch import configs as tcfgs  # noqa: E402
 from repro_torch.models import init as tinit  # noqa: E402
 
-ARCHS = ["smollm-135m", "qwen2.5-14b", "deepseek-moe-16b", "mixtral-8x7b",
-         "recurrentgemma-2b", "rwkv6-3b"]
+ARCHS = ["smollm-135m", "qwen2.5-14b", "granite-3-8b", "qwen2-72b",
+         "deepseek-moe-16b", "mixtral-8x7b", "recurrentgemma-2b", "rwkv6-3b"]
 
 
 def _flat(tree, prefix=""):
@@ -61,6 +61,15 @@ def test_config_fields_match_reference(arch, size):
     for key in ("param_dtype", "compute_dtype"):
         assert np.dtype(j.pop(key)).name == str(t.pop(key)).split(".")[-1]
     assert t == j
+
+
+@pytest.mark.parametrize("arch,n", [("granite-3-8b", 8_372_187_136),
+                                    ("qwen2-72b", 72_706_203_648)])
+def test_dense_configs_published_sizes(arch, n):
+    """The two dense configs of the static engine's slice at their
+    published widths: the reference's parameter counts, exactly."""
+    assert tcfgs.get_config(arch).num_params() == n
+    assert jcfgs.get_config(arch).num_params() == n
 
 
 def test_unported_family_raises():
