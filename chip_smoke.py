@@ -71,14 +71,22 @@ each of which raises on failure (nothing is caught):
    distance from the fp32 backward), with its time, the plain version's,
    SDPA's backward's and its bound; (b) the full model's loss and gradients
    with kernel and with plain attention (fp32 leaf by leaf, bf16 against
-   the plain bf16 model's own distance from fp32); (c) the train CLI, 2
-   steps; (d) an ``Orchestrator`` run of 20 steps preempted at 15, then
-   one on the same checkpoints and ``AotCache`` that resumes at step 10
-   and ends at 20: the emissions (STEP, CHECKPOINT, LOST in the
-   scheduling layer, compiler-layer INIT on the cold run only), finite
-   losses, step time, tokens/s, MFU, peak memory, checkpoint seconds,
-   compile seconds and RG; (e) 10 steps on one fixed batch, whose loss
-   must fall; (f) a profile of 2 steps for the device busy share.
+   the plain bf16 model's own distance from fp32); (c) the logits head
+   at the training shape, bf16 x bf16 -> fp32 against the fp32 form it
+   replaced (``train_head``: both forms' ms, the backward's, bounds);
+   then, every step a replay of the captured ``TrainStep``: (d) the
+   train CLI, 2 steps; (e) an ``Orchestrator`` run of 20 steps
+   preempted at 15, then one on the same checkpoints and ``AotCache``
+   (the same captured step) that resumes at step 10 and ends at 20: the
+   emissions (STEP, CHECKPOINT, LOST in the scheduling layer,
+   compiler-layer INIT on the cold run only), finite losses, step time,
+   tokens/s, MFU, peak memory, capture seconds and bytes, checkpoint
+   seconds, compile seconds and RG; (f) ``train_graph_vs_eager``: a
+   captured and a direct-call step from the same state over the same 3
+   batches, bit-identical params, m, v, step and metrics; (g) 10
+   captured steps on one fixed batch, whose loss must fall, and 5
+   direct-call ones with the same losses; (h) a profile of 2 steps of
+   each for the device busy share.
 
 Every serving run goes through the executor's ``serving_params`` (the
 weights cast to the compute dtype once) and runs each decode step as a
@@ -118,9 +126,11 @@ so each of its flash and grouped-matmul launches must also be a
 tensor-core one; the fp32-compute logit checks run the CUDA-core ones.
 
 The training runs' counters are zeroed before each run and must read,
-per step and per warm-up (one per cold ``AotCache``), one flash forward
-per layer, again in remat's recompute, and one flash backward per layer,
-all on the tensor cores.
+per direct call of the train step (its 2 warm-ups and its capture, on a
+cold ``AotCache`` only; a replay makes no Python call), one flash
+forward per layer, again in remat's recompute, and one flash backward
+per layer, all on the tensor cores; the launches a run reports add one
+step's per replay, and the replays must equal the steps.
 
 Prints one JSON line per measured case, then the kernels' summary line,
 and as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
@@ -1609,32 +1619,89 @@ def _leaf_names(tree, prefix=""):
             else prefix + k for k, v in tree.items()}
 
 
-def train_counts_expected(cfg, steps: int, warmups: int):
-    """Flash launches of a training run: per step (and per warm-up) one
-    forward per attention layer, again under remat's recompute, and one
-    backward per attention layer."""
-    n_fwd = cfg.num_layers * (1 + int(cfg.remat))
-    return {"flash_attention": n_fwd * (steps + warmups),
-            "flash_attention_bwd": cfg.num_layers * (steps + warmups)}
+def train_counts_per_call(cfg):
+    """Flash launches of one train step: one forward per attention layer,
+    again under remat's recompute, and one backward per attention
+    layer."""
+    return {"flash_attention": cfg.num_layers * (1 + int(cfg.remat)),
+            "flash_attention_bwd": cfg.num_layers}
 
 
-def check_train_counts(cfg, what, steps, warmups):
+def check_train_counts(cfg, what, calls: int, replays: int):
     """The flash launches counted since ``reset_counts``, which must be
-    ``train_counts_expected``'s, every forward and every backward on the
-    tensor cores (the runs compute in bf16)."""
+    ``train_counts_per_call``'s times ``calls``, the direct calls of the
+    train step (its warm-ups and capture on the graph path; a replay
+    launches from no Python call), every forward and every backward on
+    the tensor cores (the runs compute in bf16).  Returns the launches
+    the run made: ``calls`` plus ``replays`` times one step's."""
     fa = _kernel_modules()["flash_attention"]
     counts = {"flash_attention": fa.LAUNCHES,
               "flash_attention_bwd": fa.LAUNCHES_BWD}
     tc, tc_bwd = fa.LAUNCHES_TC, fa.LAUNCHES_BWD_TC
-    want = train_counts_expected(cfg, steps, warmups)
+    per = train_counts_per_call(cfg)
+    want = {k: n * calls for k, n in per.items()}
     if (counts != want or tc != counts["flash_attention"]
             or tc_bwd != counts["flash_attention_bwd"]):
         raise AssertionError(
             f"{what}: flash launches {counts} ({tc} forward, {tc_bwd} "
-            f"backward on the tensor cores), expected {want} for {steps} "
-            f"steps and {warmups} warm-ups, every bf16 launch on the "
-            f"tensor cores")
-    return counts
+            f"backward on the tensor cores), expected {want} for {calls} "
+            f"direct calls of the step, every bf16 launch on the tensor "
+            f"cores")
+    return {k: n * (calls + replays) for k, n in per.items()}
+
+
+def train_head(torch, cfg):
+    """The logits head at the training shape (the loss's 8 x 2047
+    positions, d 576, smollm-135m's tied 49152-row table as a transposed
+    bf16 view, random values): the port's form (``HeadFn``: bf16 x bf16
+    -> fp32, ``aten::mm.dtype``) against the fp32 form it replaced (both
+    operands cast up, one fp32 GEMM), which it must match within fp32
+    summation-order error (``d x 2^-24 x (|x| @ |w|)`` per element).
+    Logs the ms of the forward in both forms and of the fp32 GEMM alone
+    (operands cast beforehand, as the serving tree held them), of the
+    backward's two fp32 GEMMs (``head_backward``), and their bounds."""
+    from repro_torch.models.layers import HeadFn, head_backward
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    n, d, v = TRAIN_BATCH * (TRAIN_SEQ - 1), cfg.d_model, cfg.vocab_size
+    x = torch.randn((n, d), generator=g, device=dev).bfloat16()
+    w = (0.02 * torch.randn((v, d), generator=g, device=dev)).bfloat16().T
+    with torch.no_grad():
+        new = HeadFn.apply(x, w)
+        old = torch.mm(x.float(), w.float())
+        err = (new - old).abs()
+        ok = bool((err <= d * 2.0 ** -24 * torch.mm(
+            x.float().abs(), w.float().abs())).all())
+        max_err = err.max().item()
+        del new, old, err
+        x32, w32 = x.float(), w.float()
+        cot = torch.randn((n, v), generator=g, device=dev)
+        ms = {"new": lambda: HeadFn.apply(x, w),
+              "old": lambda: torch.mm(x.float(), w.float()),
+              "old_gemm": lambda: torch.mm(x32, w32),
+              "backward": lambda: head_backward(cot, x, w)}
+        ms = {k: cuda_ms(torch, f, iters=10, warmup=2) for k, f in ms.items()}
+        del x32, w32, cot
+    flops = 2.0 * n * d * v
+    out_bytes = 4.0 * n * v
+    b_new = bound(flops, 2.0 * (n * d + d * v) + out_bytes, torch.bfloat16)
+    b_old = bound(flops, 4.0 * (n * d + d * v) + out_bytes, torch.float32)
+    # the cotangent and both operands read, both gradients written (bf16)
+    b_bwd = bound(2 * flops, out_bytes + 4.0 * (n * d + d * v),
+                  torch.float32)
+    log({"phase": "train_head", "n": n, "d": d, "v": v,
+         "new_form": "bf16 x bf16 -> fp32 (aten::mm.dtype)",
+         "old_form": "fp32 x fp32 of the operands cast up",
+         "within_fp32_sum_error": ok, "max_abs_err": max_err,
+         "new_ms": ms["new"], "new_bound_ms": b_new[0],
+         "new_bound_by": b_new[1], "old_ms": ms["old"],
+         "old_gemm_ms": ms["old_gemm"], "old_bound_ms": b_old[0],
+         "backward_fp32_ms": ms["backward"], "backward_bound_ms": b_bwd[0],
+         "backward_bound_by": b_bwd[1]})
+    if not ok:
+        raise AssertionError(f"head: the bf16 form is {max_err} off the "
+                             f"fp32 form, beyond fp32 summation error")
 
 
 def _layer_chip_time(orc, phase):
@@ -1643,32 +1710,67 @@ def _layer_chip_time(orc, phase):
             if phase.value in v}
 
 
+def _train_step_ms(torch, step, batch, n: int):
+    """Host wall ms of ``n`` steps of ``step`` on ``batch``, each read
+    back as the orchestrator reads it (``float(loss)``), and the
+    losses."""
+    walls, losses = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        losses.append(float(step(batch)["loss"]))
+        walls.append(1e3 * (time.perf_counter() - t0))
+    return walls, losses
+
+
+def _profile_steps(torch, step, batch, n: int = 2):
+    """Kernel time by name over ``n`` steps of ``step`` in a
+    ``torch.profiler`` window, and the window's wall seconds."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            m = step(batch)
+        float(m["loss"])
+        span = time.perf_counter() - t0
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA], span
+
+
 def train_runs(torch, cfg):
     """The training path at full width (batch 8 x 2048, bf16 compute,
-    fp32 master params, random weights from seed 0): (a) the CLI entry
-    point, 2 steps; (b) an ``Orchestrator`` run of 20 steps with a
-    checkpoint every 10, preempted at step 15, then a second one on the
-    same directory and the same ``AotCache`` that resumes at step 10 and
-    ends at 20; (c) 10 steps on one fixed batch, whose loss must fall;
-    (d) the step's device busy share from a profile of 2 steps.  Checks
-    the emissions, the launches and the losses; reports step time,
-    tokens/s, MFU, peak memory, checkpoint seconds, compile seconds and
-    RG.  Returns the launches of (a) and (b)."""
+    fp32 master params, random weights from seed 0), every step a replay
+    of the captured ``TrainStep``: (a) the CLI entry point, 2 steps; (b)
+    an ``Orchestrator`` run of 20 steps with a checkpoint every 10,
+    preempted at step 15, then a second one on the same directory and
+    the same ``AotCache`` (the same captured step, its restored state
+    loaded into it) that resumes at step 10 and ends at 20; (c)
+    ``train_graph_vs_eager``: a captured and a direct-call ``TrainStep``
+    from the same state over the same batches, bit-identical state and
+    metrics after every step; (d) 10 captured steps on one fixed batch,
+    whose loss must fall, and 5 direct-call ones that must give the same
+    losses; (e) the device busy share of both steps from a profile of 2
+    steps each.  Checks the emissions, the launches and the losses;
+    reports step time, tokens/s, MFU, peak memory, capture seconds and
+    bytes, checkpoint seconds, compile seconds and RG.  Returns the
+    launches of (a) and (b), replays counted."""
     import shutil
     import tempfile
 
     import numpy as np
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.goodput import (Layer, Phase, compute_goodput,
                                           rg_breakdown)
     from repro_torch.data.pipeline import DataPipeline
     from repro_torch.launch import train
-    from repro_torch.launch.strategy import init_train_state, make_train_step
+    from repro_torch.launch.strategy import TrainStep, init_train_state
     from repro_torch.optim import AdamWConfig
     from repro_torch.runtime.compile_cache import AotCache
     from repro_torch.runtime.orchestrator import Orchestrator, RunConfig
+    from repro_torch.tree import flatten
 
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
     launches = {"flash_attention": 0, "flash_attention_bwd": 0}
@@ -1677,18 +1779,35 @@ def train_runs(torch, cfg):
         for k in launches:
             launches[k] += counts[k]
 
+    class KeptOrchestrator(Orchestrator):
+        """The CLI's orchestrator, kept for its step's counts."""
+        made = []
+
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.made.append(self)
+
     try:
         # (a) the CLI
         reset_counts()
         argv = ["--steps", "2", "--batch", str(TRAIN_BATCH), "--seq",
                 str(TRAIN_SEQ), "--checkpoint-every", "2", "--ckpt-dir",
                 str(tmp / "cli")]
-        out = train.main(argv)
+        train.Orchestrator = KeptOrchestrator
+        try:
+            out = train.main(argv)
+        finally:
+            train.Orchestrator = Orchestrator
         torch.cuda.synchronize()
-        add(check_train_counts(cfg, "train CLI", 2, 1))
+        g = KeptOrchestrator.made[0].train_step.graph
+        if (g.mode, g.replays) != ("graph", 2):
+            raise AssertionError(f"train CLI: step {g.mode}, {g.replays} "
+                                 f"replays for 2 steps")
+        add(check_train_counts(cfg, "train CLI", g.calls, g.replays))
         if out["steps"] != [0, 2] or not np.isfinite(out["final_loss"]):
             raise AssertionError(f"train CLI: {out}")
         log({"phase": "train_cli", "argv": argv, **out})
+        del g, KeptOrchestrator.made[:]
         shutil.rmtree(tmp / "cli")
 
         # (b) preempted run, then the resume, one AotCache
@@ -1696,7 +1815,7 @@ def train_runs(torch, cfg):
         base = dict(steps=20, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                     checkpoint_every=10, ckpt_dir=str(tmp / "orc"), keep=2,
                     device="cuda", job_id="train-smollm-135m")
-        runs = []
+        runs, seen = [], (0, 0)
         for label, extra in (("preempted", {"preempt_at_step": 15}),
                              ("resumed", {})):
             reset_counts()
@@ -1705,12 +1824,21 @@ def train_runs(torch, cfg):
             t0 = time.perf_counter()
             res = orc.run()
             wall = time.perf_counter() - t0
-            peak = torch.cuda.max_memory_allocated() / 1e9
-            n_steps = len(res["losses"])
-            add(check_train_counts(cfg, f"train {label}", n_steps,
-                                   int(label == "preempted")))
+            peak = (torch.cuda.max_memory_allocated() / 1e9,
+                    torch.cuda.max_memory_reserved() / 1e9)
+            g = orc.train_step.graph
+            calls, replays = g.calls - seen[0], g.replays - seen[1]
+            seen = (g.calls, g.replays)
+            if g.mode != "graph" or replays != len(res["losses"]):
+                raise AssertionError(f"train {label}: step {g.mode}, "
+                                     f"{replays} replays for "
+                                     f"{len(res['losses'])} steps")
+            add(check_train_counts(cfg, f"train {label}", calls, replays))
             runs.append((label, orc, res, wall, peak))
         (_, orc1, out1, wall1, peak1), (_, orc2, out2, wall2, peak2) = runs
+        if orc2.train_step is not orc1.train_step:
+            raise AssertionError("train: the resumed run did not reuse the "
+                                 "captured step of its AotCache")
         if not (out1["preempted"] and out1["end_step"] == 15
                 and len(out1["losses"]) == 15 and out2["start_step"] == 10
                 and out2["end_step"] == 20 and not out2["preempted"]
@@ -1750,8 +1878,10 @@ def train_runs(torch, cfg):
         rep = compute_goodput(ivs, sum(i.chip_time for i in ivs))
         ck = [o.ckpt.metrics for o in (orc1, orc2)]
         n_saves = sum(m["n_saves"] for m in ck)
+        g = orc1.train_step.graph
         log({"phase": "train_orchestrator", "arch": cfg.name,
              "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+             "step_impl": g.mode,
              "steps": [[out1["start_step"], out1["end_step"]],
                        [out2["start_step"], out2["end_step"]]],
              "losses": losses, "wall_s": [wall1, wall2],
@@ -1763,7 +1893,11 @@ def train_runs(torch, cfg):
              "mfu": model_flops / step_s / PEAK_FLOPS["torch.bfloat16"],
              "mfu_formula": "(6 N tokens + 12 L b hq d s(s+1)/2) / "
                             "(step_s x 989e12); remat's forward not counted",
-             "n_params": n_params, "peak_mem_gb": [peak1, peak2],
+             "n_params": n_params,
+             "peak_mem_gb": [peak1[0], peak2[0]],
+             "peak_reserved_gb": [peak1[1], peak2[1]],
+             "capture_s": g.capture_s, "capture_gb": g.capture_bytes / 1e9,
+             "step_calls": g.calls, "step_replays": g.replays,
              "ckpt_write_s_per_save": sum(m["write_s"] for m in ck)
              / n_saves,
              "ckpt_pause_s_per_save": sum(m["device_pause_s"] for m in ck)
@@ -1775,57 +1909,104 @@ def train_runs(torch, cfg):
                  o.intervals, sum(i.chip_time for i in o.intervals)).rg
                  for o in (orc1, orc2)],
              "data": out2["data"], "restore": out2["restore"]})
+        del orc1, orc2, runs, aot, orc, g
+        gc.collect()
+        torch.cuda.empty_cache()
 
-        # (c) one fixed batch: the loss must fall
-        state = init_train_state(
+        # (c) graph vs eager on the same state and batches
+        opt = AdamWConfig(lr=1e-3)
+        s0 = init_train_state(
             cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
-        batch = {k: torch.from_numpy(a).cuda() for k, a in next(DataPipeline(
+        # device memory each step took at most above what was allocated
+        # before it: the graph's in its warm-ups and capture, the eager
+        # one's in its warm-up and the 3 steps below
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        graph = TrainStep(cfg, opt, s0, TRAIN_BATCH, TRAIN_SEQ, "graph")
+        extra_gb = {"graph": (torch.cuda.max_memory_allocated() - base) / 1e9}
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        eager = TrainStep(cfg, opt, s0, TRAIN_BATCH, TRAIN_SEQ, "eager")
+        names = flatten(_leaf_names(graph.state))[0]
+        pipe = DataPipeline(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=7)
+        differ, compared = [], []
+        for i in range(3):
+            batch = {k: torch.from_numpy(a) for k, a in next(pipe).items()}
+            mg, me = graph(batch), eager(batch)
+            torch.cuda.synchronize()
+            differ += [f"step {i} metric {k}" for k in mg
+                       if not torch.equal(mg[k], me[k])]
+            differ += [f"step {i} {n}" for n, a, b in zip(
+                names, flatten(graph.state)[0], flatten(eager.state)[0])
+                if not torch.equal(a, b)]
+            compared.append(float(mg["loss"]))
+        extra_gb["eager"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+        log({"phase": "train_graph_vs_eager", "steps": 3,
+             "leaves": len(names), "losses": compared,
+             "identical": not differ, "differ": differ[:20],
+             "peak_above_base_gb": extra_gb,
+             "capture_s": graph.graph.capture_s,
+             "capture_gb": graph.graph.capture_bytes / 1e9})
+        if differ:
+            raise AssertionError(f"train graph vs eager: {len(differ)} "
+                                 f"leaves or metrics differ: {differ[:20]}")
+
+        # (d) one fixed batch: the loss must fall; the direct-call step
+        # must give the same losses
+        batch = {k: torch.from_numpy(a) for k, a in next(DataPipeline(
             cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=123)).items()}
-        step = make_train_step(cfg, AdamWConfig(lr=1e-3))
-        fixed, walls = [], []
-        for _ in range(10):
-            t0 = time.perf_counter()
-            state, m = step(state, batch)
-            fixed.append(float(m["loss"]))
-            walls.append(time.perf_counter() - t0)
+        graph.load_state(s0)
+        eager.load_state(s0)
+        walls, fixed = _train_step_ms(torch, graph, batch, 10)
+        walls_e, fixed_e = _train_step_ms(torch, eager, batch, 5)
         log({"phase": "train_fixed_batch", "losses": fixed,
              "drop": fixed[0] - fixed[-1], "margin": LEARN_MARGIN,
-             "step_ms": [1e3 * w for w in walls]})
+             "step_ms": walls, "eager_losses": fixed_e,
+             "eager_step_ms": walls_e})
         if not (all(np.isfinite(fixed))
                 and fixed[-1] < fixed[0] - LEARN_MARGIN):
             raise AssertionError(f"fixed batch: losses {fixed} did not "
                                  f"fall by {LEARN_MARGIN}")
+        if fixed_e != fixed[:5]:
+            raise AssertionError(f"fixed batch: eager losses {fixed_e} are "
+                                 f"not the graph's {fixed[:5]}")
 
-        # (d) device busy share of the step: its kernel time in a profile
+        # (e) device busy share of each step: its kernel time in a profile
         # of 2 steps over the wall time of an unprofiled step (the last 5
         # fixed-batch steps; the profiler's own host cost stretches the
-        # profiled steps' wall, also reported)
+        # profiled steps' wall, also reported), and for the graph the
+        # device span of one replay by CUDA events
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.graph()
+        end.record()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(2):
-                state, m = step(state, batch)
-            float(m["loss"])
-            span = time.perf_counter() - t0
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA]
-        dev_us = sum(e.self_device_time_total for e in kernels)
-        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
-        unprofiled = float(np.mean(walls[5:]))
-        log({"phase": "train_profile", "steps": 2, "wall_s": span,
-             "device_s": dev_us / 1e6, "unprofiled_step_s": unprofiled,
-             "device_busy_share": (dev_us / 2e6 / unprofiled
-                                   if dev_us else None),
-             "device_busy_share_profiled": (dev_us / 1e6 / span
-                                            if dev_us else None),
-             "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3
-                                for e in top},
-             # the backward's two kernels, ms a step each
-             "flash_bwd_ms_per_step": {
-                 e.key[:60]: e.self_device_time_total / 2e3
-                 for e in kernels if "flash_bwd" in e.key}})
-        del state, batch, step
+        replay_ms = start.elapsed_time(end)
+        prof = {}
+        for name, step, unprofiled in (("graph", graph, walls[5:]),
+                                       ("eager", eager, walls_e[1:])):
+            kernels, span = _profile_steps(torch, step, batch)
+            dev_us = sum(e.self_device_time_total for e in kernels)
+            wall = float(np.mean(unprofiled)) / 1e3
+            top = sorted(kernels, key=lambda e: -e.self_device_time_total)
+            prof[name] = {
+                "wall_s": span, "device_s": dev_us / 1e6,
+                "unprofiled_step_s": wall,
+                "device_busy_share": dev_us / 2e6 / wall if dev_us else None,
+                "device_busy_share_profiled": (dev_us / 1e6 / span
+                                               if dev_us else None),
+                "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3
+                                   for e in top[:12]},
+                # the backward's two kernels, ms a step each
+                "flash_bwd_ms_per_step": {
+                    e.key[:60]: e.self_device_time_total / 2e3
+                    for e in kernels if "flash_bwd" in e.key}}
+        prof["graph"]["replay_device_ms"] = replay_ms
+        prof["graph"]["replay_busy_share"] = (
+            replay_ms / 1e3 / prof["graph"]["unprofiled_step_s"])
+        log({"phase": "train_profile", "steps": 2, **prof})
+        del graph, eager, s0, batch
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return launches
@@ -1947,6 +2128,7 @@ def main() -> int:
     flash_train = flash_train_fwd_cases(torch)
     flash_bwd = flash_bwd_cases(torch)
     train_grads_kernel_vs_plain(torch, cfg)
+    train_head(torch, cfg)
     gc.collect()
     torch.cuda.empty_cache()
     c_train = train_runs(torch, cfg)

@@ -45,10 +45,11 @@ from repro_torch.device import resolve_device
 from repro_torch.models import model
 from repro_torch.models.compute_params import serving_params
 from repro_torch.models.init import check_ported
-from repro_torch.models.transformer import copy_cache_
 from repro_torch.serve import ContinuousServeEngine, ServeRequest, ServeSLO
-from repro_torch.serve.decode_graph import DecodeGraph, graph_stats
+from repro_torch.serve.decode_graph import DecodeGraph
 from repro_torch.serve.slot_executor import greedy_step
+from repro_torch.step_graph import graph_stats
+from repro_torch.tree import copy_tree_
 
 
 @dataclasses.dataclass
@@ -189,7 +190,7 @@ class Server:
         tokens = torch.from_numpy(toks.astype(np.int64)).to(self.device)
         logits, cache = self._prefill(self.serving_params,
                                       {"tokens": tokens})
-        copy_cache_(bufs["cache"], cache)
+        copy_tree_(bufs["cache"], cache, "cache")
         bufs["tok"].copy_(torch.argmax(logits, -1))
         self.batches += 1
         return bufs["tok"].cpu().numpy()

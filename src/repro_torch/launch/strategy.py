@@ -4,7 +4,9 @@
 No mesh and no shardings: the step runs on the device its state lies
 on.  The reference's sharded variants (``make_ctx``, the shardings,
 ``jit_*``, ``lower_cell``) wait for the distribution slice (ROADMAP.md,
-Queue 1).  The reference jits the step; the port runs it eagerly.
+Queue 1).  The reference jits the step with its state donated;
+:class:`TrainStep` is the port's counterpart: the step over a static
+state and batch, updated in place, one captured CUDA graph on the card.
 
 Mixed precision as the reference's: the loss is differentiated with
 respect to compute-dtype copies of every fp32 parameter with more than
@@ -17,15 +19,17 @@ the fp32 gradient and loss sums are divided by the count.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict
 
 import torch
 
 from repro_torch.models import model
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.models.init import abstract_params
 from repro_torch.optim import AdamWConfig, adamw_apply, adamw_init
-from repro_torch.tree import flatten, tree_map, unflatten
+from repro_torch.step_graph import StepGraph
+from repro_torch.tree import copy_tree_, flatten, tree_map, unflatten
 
 PyTree = Any
 
@@ -112,13 +116,72 @@ def init_train_state(cfg: ModelConfig, generator: torch.Generator,
     return {"params": params, "opt": adamw_init(params)}
 
 
-def warm_up(cfg: ModelConfig, params: PyTree,
-            batch: Dict[str, Any]) -> float:
-    """One forward and backward of the loss at ``params`` on ``batch``,
-    results thrown away and nothing updated: what makes the step ready
-    to run on the device (the first kernel call loads the kernel
-    library, building it with nvcc on a cold disk cache).  Waits for the
-    device.  Returns the loss as a float."""
-    loss, _, grads = value_and_grad(cfg)(params, batch)
-    del grads
-    return float(loss)
+def _step_in_place(step: Callable, bufs: Dict[str, Any]) -> None:
+    """``step`` over ``bufs["state"]`` and ``bufs["batch"]``, its new
+    state copied over the old and its metrics into ``bufs["metrics"]``."""
+    new_state, metrics = step(bufs["state"], bufs["batch"])
+    copy_tree_(bufs["state"], new_state, "train state")
+    out = bufs["metrics"]
+    for k, v in metrics.items():
+        if k not in out:        # the first call: a warm-up, never captured
+            out[k] = torch.empty_like(v)
+        out[k].copy_(v)
+
+
+class TrainStep:
+    """The train step as the reference compiles it
+    (``jax.jit(step_fn, donate_argnums=(0,))``, compiled ahead of time):
+    :func:`make_train_step`'s step over a static train state and a static
+    (batch, seq) token batch on ``state``'s device, run as one captured
+    CUDA graph (the forward, remat's recompute and the backward with the
+    flash kernels, the global-norm clip and the AdamW update) or called
+    directly.  ``step_impl`` is ``repro_torch.step_graph``'s choice:
+    "auto" (the graph on CUDA, a direct call on the CPU), "graph" or
+    "eager".
+
+    Each step writes the new state over the old, in place, with the
+    values :func:`make_train_step` returns (its arithmetic, copied into
+    the static tensors): ``self.state`` holds the params, ``opt``'s m, v
+    and step; ``self.metrics`` the step's loss, xent and aux (one
+    microbatch only, as the reference's), grad_norm and lr, fp32 scalars
+    on the device that a caller reads after the call.
+
+    Construction is the step's "compile": warm-up calls (``WARMUP`` and
+    the capture on the graph path, one direct call on the eager one,
+    which loads the kernels), each a whole step on a zero batch that
+    advances the state; then :meth:`load_state` puts ``state``'s values
+    back."""
+
+    def __init__(self, cfg: ModelConfig, opt_cfg: AdamWConfig,
+                 state: PyTree, batch: int, seq: int,
+                 step_impl: str = "auto"):
+        device = flatten(state)[0][0].device
+        self.state = tree_map(lambda t: t.detach().clone(), state)
+        self.batch = model.input_specs(
+            cfg, ShapeConfig("train", "train", seq, batch), abstract=False,
+            device=device)
+        self.metrics: Dict[str, torch.Tensor] = {}
+        # the step holds no reference to self: a TrainStep is freed, its
+        # graph's memory pool with it, as soon as its last user drops it
+        self.graph = StepGraph(
+            functools.partial(_step_in_place, make_train_step(cfg, opt_cfg)),
+            {"state": self.state, "batch": self.batch,
+             "metrics": self.metrics},
+            device, step_impl, option="step_impl")
+        if self.graph.mode == "eager":
+            self.graph()
+        self.load_state(state)
+
+    def load_state(self, state: PyTree) -> None:
+        """Copy ``state`` into the static state; raises ``ValueError``,
+        copying nothing, where its keys, or a leaf's shape or dtype,
+        differ."""
+        copy_tree_(self.state, state, "train state")
+
+    def __call__(self, batch: Dict[str, torch.Tensor]
+                 ) -> Dict[str, torch.Tensor]:
+        """One step on ``batch`` (host or device tensors of the static
+        batch's shapes and dtypes, copied in); returns ``self.metrics``."""
+        copy_tree_(self.batch, batch, "batch")
+        self.graph()
+        return self.metrics

@@ -5,8 +5,8 @@ compiled program; the port runs eagerly, where the same casts would
 read every weight in fp32, write a bf16 copy and read it again on every
 call.  The executors call :func:`compute_params` once and run the model
 on its tree, which gives bit-identical results: every ``.to(dtype)`` a
-consumer applies to a cast leaf is a no-op, and the logits head holds
-exactly the operand ``lm_logits`` would build.
+consumer applies to a cast leaf is a no-op, and the logits head is
+exactly the operand ``lm_logits`` would build, in the same layout.
 """
 from __future__ import annotations
 
@@ -31,8 +31,9 @@ CAST = frozenset({"wq", "wk", "wv", "wo", "wi", "wg", "wr", "w_y", "w_gate",
 def compute_params(params: PyTree, cfg: ModelConfig,
                    consume: bool = False) -> PyTree:
     """``params`` with each leaf named in ``CAST`` in ``cfg.compute_dtype``
-    and a ``head`` entry, the logits operand ``w.to(compute_dtype).float()``
-    of the tied ``embed.tok.T`` or of ``lm_head``.
+    and a ``head`` entry, the logits operand in the compute dtype: the
+    tied models' ``embed.tok.T``, a view of the cast table (no copy), or
+    the untied models' cast ``lm_head``.
 
     Every other leaf is the very tensor of ``params``, because its
     consumer reads it in fp32 or casts only a slice of it:
@@ -74,10 +75,10 @@ def compute_params(params: PyTree, cfg: ModelConfig,
 
     out = cast(params, "")
     if cfg.tie_embeddings:
-        w = out["embed"]["tok"].T
+        out["head"] = out["embed"]["tok"].T
     else:
-        w = out.pop("lm_head") if consume else out["lm_head"]
-    out["head"] = w.to(dt).float()
+        out["head"] = (out.pop("lm_head") if consume
+                       else out["lm_head"]).to(dt)
     return out
 
 

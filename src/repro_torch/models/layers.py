@@ -3,7 +3,7 @@
 Same numerics contract as the reference: norms compute in fp32 and cast
 back; ``dense`` multiplies in the compute dtype with fp32 accumulation
 (cuBLAS accumulates bf16 products in fp32) and casts back; logits come
-out in fp32.
+out in fp32 from compute-dtype operands.
 """
 from __future__ import annotations
 
@@ -80,17 +80,58 @@ def embed_tokens(tokens, w, compute_dtype):
     return w[tokens].to(compute_dtype)
 
 
+class HeadFn(torch.autograd.Function):
+    """logits = x @ w for compute-dtype (bf16) ``x`` (n, d) and ``w`` (d,
+    V): products summed in fp32, fp32 logits (the reference's
+    ``preferred_element_type=float32``).  On CUDA one bf16 GEMM with fp32
+    output (``aten::mm.dtype``, a library GEMM: the reference computes
+    this product outside any Pallas kernel); on the CPU, which has no
+    kernel for it, an fp32 GEMM of the operands cast up, the same values
+    up to summation order.
+
+    The backward is the reference's transpose rule (``dot_general``'s
+    ``_dot_general_transpose_lhs`` / ``_rhs``): the fp32 cotangent times
+    the other operand cast up, summed in fp32, cast to the operand's
+    dtype (:func:`head_backward`)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        if x.is_cuda:
+            return torch.mm(x, w, out_dtype=torch.float32)
+        return torch.mm(x.float(), w.float())
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        return head_backward(g, x, w, *ctx.needs_input_grad[:2])
+
+
+def head_backward(g, x, w, need_x: bool = True, need_w: bool = True):
+    """(dx, dw) of :class:`HeadFn` for the fp32 cotangent ``g`` (n, V):
+    two fp32 GEMMs, each result cast to its operand's dtype (``None``
+    where not needed)."""
+    dx = torch.mm(g, w.float().T).to(x.dtype) if need_x else None
+    dw = torch.mm(x.float().T, g).to(w.dtype) if need_w else None
+    return dx, dw
+
+
 def lm_logits(x, params, cfg: ModelConfig, softcap: float = 0.0):
-    """fp32 logits of compute-dtype inputs: both operands are rounded to
-    the compute dtype, then multiplied and summed in fp32 (the
-    reference's ``preferred_element_type=float32``).  A tree from
-    ``compute_params`` carries the rounded head as ``params["head"]``."""
+    """fp32 logits of compute-dtype inputs: the head is cast to ``x``'s
+    dtype and multiplied with fp32 accumulation (the reference's
+    ``preferred_element_type=float32``): fp32 ``x`` by one fp32 GEMM,
+    anything narrower through :class:`HeadFn`.  A tree from
+    ``compute_params`` carries the cast head as ``params["head"]``."""
     head = params.get("head")
     if head is None:
         w = (params["embed"]["tok"].T if cfg.tie_embeddings
              else params["lm_head"])
-        head = w.to(x.dtype).float()
-    logits = torch.matmul(x.float(), head)
+        head = w.to(x.dtype)
+    if x.dtype == torch.float32:
+        logits = torch.matmul(x, head)
+    else:
+        logits = HeadFn.apply(x.reshape(-1, x.shape[-1]), head).view(
+            *x.shape[:-1], head.shape[-1])
     cap = softcap or cfg.logit_softcap
     if cap > 0:
         logits = cap * torch.tanh(logits / cap)

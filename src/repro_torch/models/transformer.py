@@ -31,6 +31,7 @@ from repro_torch.models.init import check_ported
 from repro_torch.models.layers import (embed_tokens, lm_logits, mlp, norm,
                                        rmsnorm, softmax_xent)
 from repro_torch.models.moe import moe_block
+from repro_torch.tree import copy_tree_
 
 PyTree = Any
 
@@ -45,25 +46,6 @@ def _tree_stack(trees):
     if isinstance(trees[0], dict):
         return {k: _tree_stack([t[k] for t in trees]) for k in trees[0]}
     return torch.stack(trees)
-
-
-def copy_cache_(dst, src, path: str = "") -> None:
-    """Copy ``src``'s tensors into ``dst``'s, in place, every leaf;
-    raises ``ValueError`` where the trees' keys, or a leaf's shape or
-    dtype, differ (nothing is cast)."""
-    if dst.keys() != src.keys():
-        raise ValueError(f"cache {path or '/'}: keys {sorted(src)} where "
-                         f"the destination has {sorted(dst)}")
-    for k, v in src.items():
-        d = dst[k]
-        if isinstance(v, dict):
-            copy_cache_(d, v, f"{path}/{k}")
-        elif d.shape != v.shape or d.dtype != v.dtype:
-            raise ValueError(
-                f"cache {path}/{k}: {tuple(v.shape)} {v.dtype} where the "
-                f"destination has {tuple(d.shape)} {d.dtype}")
-        else:
-            d.copy_(v)
 
 
 # ---------------------------------------------------------------------------
@@ -136,10 +118,14 @@ def _remat(block, cfg: ModelConfig, collect: bool):
     cfg.remat is set, autograd records and no cache is collected, so the
     backward recomputes the block's forward instead of keeping its
     activations; otherwise as it is.  The serving paths run with grad
-    disabled or collect caches, so they never take the checkpoint."""
+    disabled or collect caches, so they never take the checkpoint.  No
+    block draws a random number, so the checkpoint keeps no RNG state
+    (``preserve_rng_state=False``, exact): reading the CUDA generator's
+    state is not allowed while a CUDA graph is being captured."""
     if not (cfg.remat and torch.is_grad_enabled()) or collect:
         return block
-    return lambda x, bp: checkpoint(block, x, bp, use_reentrant=False)
+    return lambda x, bp: checkpoint(block, x, bp, use_reentrant=False,
+                                    preserve_rng_state=False)
 
 
 def run_stack(x, params, cfg: ModelConfig, collect_caches: bool = False,
@@ -442,7 +428,7 @@ def decode_step(params, token, cache, cfg: ModelConfig, *,
             x, st = rwkv_block(x, _tree_slice(params["blocks"], i), cfg,
                                state=_tree_slice(blocks, i),
                                collect_state=True)
-            copy_cache_(_tree_slice(blocks, i), st)
+            copy_tree_(_tree_slice(blocks, i), st, "cache")
         new_cache["blocks"] = blocks
 
     else:
@@ -479,7 +465,7 @@ def decode_step_inplace(params, token, cache, cfg: ModelConfig, *,
     reads and writes the same cache on every replay."""
     logits, new_cache = decode_step(params, token, cache, cfg,
                                     gmm_impl=gmm_impl)
-    copy_cache_(cache, new_cache)
+    copy_tree_(cache, new_cache, "cache")
     return logits
 
 

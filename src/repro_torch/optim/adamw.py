@@ -5,7 +5,9 @@ in the same order.
 Functional, as the reference is: :func:`adamw_apply` returns new
 parameter, moment and step tensors and leaves its inputs alone.
 Everything stays on the device: nothing reads a value on the host
-(no ``.item()``), so an update never waits for the card.  The
+(no ``.item()``) and nothing is copied from it, so an update never waits
+for the card and can be captured in a CUDA graph (the captured train
+step, ``launch/strategy.py``).  The
 reference's optional gradient compression is not ported (single device).
 """
 from __future__ import annotations
@@ -85,7 +87,10 @@ def adamw_apply(grads: PyTree, opt_state: PyTree, params: PyTree,
     new_p = unflatten(structure, [o[0] for o in out])
     new_m = unflatten(structure, [o[1] for o in out])
     new_v = unflatten(structure, [o[2] for o in out])
+    # a float lr is filled on the device: a tensor made from a host value
+    # is a host-to-device copy, which a graph capture refuses
     metrics = {"grad_norm": gnorm,
-               "lr": torch.as_tensor(lr, dtype=torch.float32,
-                                     device=gnorm.device)}
+               "lr": (lr.float() if torch.is_tensor(lr) else
+                      torch.full((), lr, dtype=torch.float32,
+                                 device=gnorm.device))}
     return new_p, {"m": new_m, "v": new_v, "step": step}, metrics

@@ -2,19 +2,21 @@
 ``repro.runtime.compile_cache`` (paper §5.2: "compile on cheap hardware,
 store, and skip JIT on the accelerators").
 
-There is no XLA executable in the port: PyTorch runs the step eagerly.
-What "compile" means here is what makes the step ready to run on the
-device: loading the kernel library (an ``nvcc`` build through
-``repro_torch.kernels._build`` when the on-disk build cache is cold) and
-one warm-up forward and backward of the loss on an example batch
-(``launch.strategy.warm_up``; its gradients are thrown away and no state
-is touched).  :class:`AotCache` keeps the ready step function per key,
-so a second run in the same process with the same key prepares nothing.
+The reference lowers and compiles its jitted step ahead of time
+(``fn.lower(*args).compile()``).  The port's counterpart of that
+executable is the captured train step (``launch.strategy.TrainStep``),
+and "compile" is what makes it: loading the kernel library (an ``nvcc``
+build through ``repro_torch.kernels._build`` when the on-disk build
+cache is cold), the warm-up steps and, on the card, the CUDA graph's
+capture.  :class:`AotCache` keeps the ready step per key, so a second
+run in the same process with the same key prepares nothing: it gets the
+same captured step and loads its own state into it.
 
 The reference's ``enable_persistent_cache`` (XLA's on-disk executable
-cache) has no counterpart: what persists across processes is the kernel
-build cache, ``build/repro_torch_kernels`` in the checkout, keyed by a
-hash of the sources.
+cache) has no counterpart: a CUDA graph lives in its process.  What
+persists across processes is the kernel build cache,
+``build/repro_torch_kernels`` in the checkout, keyed by a hash of the
+sources.
 
 :class:`CompileClock` records the preparation's wall time per key; the
 orchestrator books it as compiler-layer INIT, as the reference does.
@@ -38,7 +40,7 @@ class CompileClock:
 
 
 class AotCache:
-    """In-process registry of ready step functions with preparation-time
+    """In-process registry of ready steps with preparation-time
     accounting."""
 
     def __init__(self):
@@ -46,9 +48,9 @@ class AotCache:
         self.clock = CompileClock()
 
     def get_or_compile(self, key: Hashable, build: Callable[[], Any]) -> Any:
-        """``build()`` -> the step function, ready to run (it loads the
-        kernels and warms the step up).  A key seen before returns its
-        function and records 0 s with ``hit=True``."""
+        """``build()`` -> the step, ready to run (it loads the kernels,
+        warms the step up and captures it).  A key seen before returns the
+        same step object and records 0 s with ``hit=True``."""
         if key in self._store:
             self.clock.record(key, 0.0, hit=True)
             return self._store[key]

@@ -9,8 +9,13 @@ into the compiler layer (the compile clock's seconds: here the step's
 preparation, see ``runtime/compile_cache.py``) and the framework layer,
 STEP per step, CHECKPOINT per save, DATA_STALL from the pipeline's
 measured consumer wait, LOST for the rolled-back steps in the layer of
-the failure's kind.  Unlike the reference, the example state is drawn
-before the step is prepared: the warm-up runs the loss at its params.
+the failure's kind.  The step is ``launch.strategy.TrainStep``, one
+captured CUDA graph on the card over a static state that each step
+updates in place (the reference's jit with the state donated); the run
+copies its starting state, example or restored, into that state and
+each batch into its static batch.  Unlike the reference, the example
+state is drawn before the step is prepared: it is the static state's
+template.
 
 Responsibilities: program setup (AOT cache), data feeding (prefetch
 pipeline), stepping, checkpoint creation (sync or async), preemption/
@@ -31,8 +36,7 @@ from repro_torch.core.goodput import Interval, Layer, Phase
 from repro_torch.core.ledger import GoodputLedger
 from repro_torch.data.pipeline import DataPipeline
 from repro_torch.device import resolve_device
-from repro_torch.models import model
-from repro_torch.models.config import ModelConfig, ShapeConfig
+from repro_torch.models.config import ModelConfig
 from repro_torch.optim import AdamWConfig
 from repro_torch.runtime.checkpoint import CheckpointManager
 from repro_torch.runtime.compile_cache import AotCache
@@ -87,6 +91,7 @@ class Orchestrator:
         self.ckpt = CheckpointManager(self.ckpt_dir, keep=run.keep,
                                       async_mode=run.async_checkpoint)
         self.state = None
+        self.train_step = None      # the run's TrainStep, from the AOT cache
         self.step_times: List[float] = []
 
     @property
@@ -109,25 +114,17 @@ class Orchestrator:
                      **(extra or {})})
 
     # ------------------------------------------------------------------
-    def _build(self, params):
-        """The ready step function from the AOT cache: on a miss, one
-        warm-up forward and backward of the loss at ``params`` on a zero
-        batch of the run's shape (one microbatch of it), which loads the
-        kernels; its results are thrown away."""
-        from repro_torch.launch.strategy import make_train_step, warm_up
+    def _build(self, example):
+        """The ready ``TrainStep`` from the AOT cache: on a miss, one over
+        a static state shaped like ``example`` (its warm-ups load the
+        kernels, and on the card it is captured); a hit returns the step
+        an earlier run built, whose state the caller then loads."""
+        from repro_torch.launch.strategy import TrainStep
 
         cfg, r = self.cfg, self.run_cfg
-
-        def build():
-            step_fn = make_train_step(cfg, AdamWConfig(lr=1e-3))
-            mb = max(1, cfg.microbatches)
-            shape = ShapeConfig("orc", "train", r.seq, r.batch // mb)
-            warm_up(cfg, params, model.input_specs(
-                cfg, shape, abstract=False, device=self.device))
-            return step_fn
-
         key = (cfg.name, r.batch, r.seq, "train")
-        return self.aot.get_or_compile(key, build)
+        return self.aot.get_or_compile(key, lambda: TrainStep(
+            cfg, AdamWConfig(lr=1e-3), example, r.batch, r.seq))
 
     def _init_state(self):
         from repro_torch.launch.strategy import init_train_state
@@ -146,7 +143,7 @@ class Orchestrator:
         restore_fut = self.ckpt.start_restore() if r.async_restore else None
         example = self._init_state()
         compile_before = self.aot.clock.total_compile_s
-        compiled = self._build(example["params"])
+        compiled = self._build(example)
         # the compile portion of setup is the compiler layer's chip-time;
         # a warm AOT cache records 0s here and the whole INIT shifts to
         # the framework layer — the attribution move fig14 quantifies
@@ -162,7 +159,9 @@ class Orchestrator:
             restore_stats = {"read_s": read_s, "exposed_s": read_s,
                              "overlap_s": 0.0}
         start_step = ckpt_step + 1 if restored is not None else 0
-        self.state = restored if restored is not None else example
+        compiled.load_state(restored if restored is not None else example)
+        self.train_step, self.state = compiled, compiled.state
+        del example, restored      # the static state holds their values
         pipeline = DataPipeline(self.cfg.vocab_size, r.batch, r.seq,
                                 seed=start_step).start()
         t_init1 = time.monotonic()
@@ -185,9 +184,8 @@ class Orchestrator:
                     break
                 batch = next(pipeline)   # wait accounted via pipeline stats
                 t1 = time.monotonic()
-                batch = {k: torch.from_numpy(v).to(self.device)
-                         for k, v in batch.items()}
-                self.state, metrics = compiled(self.state, batch)
+                metrics = compiled({k: torch.from_numpy(v)
+                                    for k, v in batch.items()})
                 loss = float(metrics["loss"])    # waits for the device
                 t2 = time.monotonic()
                 self._emit(Phase.STEP, t1, t2, layer=Layer.MODEL)

@@ -55,9 +55,10 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import model, transformer
 from repro_torch.models.compute_params import serving_params
-from repro_torch.serve.decode_graph import DecodeGraph, graph_stats
+from repro_torch.serve.decode_graph import DecodeGraph
 from repro_torch.serve.kv_cache import FLASH_ATTENTION_BLOCK_K, PagedKVCache
 from repro_torch.serve.slot_executor import TorchSlotExecutor, slot_kv_cache
+from repro_torch.step_graph import graph_stats
 
 
 def _paged_step(step, params, k_pages, v_pages, b) -> None:

@@ -3,138 +3,33 @@ called directly: the port's counterpart of the reference's ``jax.jit``
 decode (``repro.serve.batched_executor`` compiles its step once and
 ``repro.serve.jax_executor`` its per-slot step).
 
-A step is a function of a dict of static tensors (``buffers``): it reads
-its inputs there and writes its outputs there, in place, so the same
-addresses serve every call.  The caller fills the inputs with ``copy_``
-before a call and reads the outputs after it.
-
-``decode_impl`` follows the kernels' ``impl`` idiom:
-
-* ``"auto"``: the graph when ``device`` is CUDA, a direct call on the CPU;
-* ``"graph"``: the graph, and ``ValueError`` on the CPU;
-* ``"eager"``: a direct call on any device (the graph's comparison).
-
-There is no fallback: a CUDA step in ``"auto"`` is captured or the
-constructor raises, and nothing is caught.
-
-Capture follows PyTorch's recipe: a side stream waits on the current
-one, ``WARMUP`` calls run on it outside the capture (they make what a
-first call makes: paged attention's per-stream ticket array, the kernel
-libraries, the allocator's blocks), then the step is captured on that
-same stream, so the graph keeps that stream's tickets.  Replays run on
-the current stream; the side stream gets no work after the capture, and
-the current stream waits for it once, so every replay is ordered after
-the warm-up.  A replay launches nothing from Python, so the kernel
-wrappers' ``LAUNCHES`` counters see only the ``calls`` (warm-ups,
-capture, eager calls): the kernels a run really launched are
-``calls`` plus ``replays`` times those of one step.
-
-Tensors the step allocates come, inside the capture, from the graph's
-memory pool; a replay rewrites them.  Nothing but ``buffers`` (made
-before the capture) may be read after a replay.
+The capture, the ``"auto"`` / ``"graph"`` / ``"eager"`` choice, the
+counts and the rules a step keeps are ``repro_torch.step_graph``'s, which
+the train step shares; here the choice is named ``decode_impl``.
 """
 from __future__ import annotations
 
-import gc
-import time
-from typing import Any, Callable, Dict, Iterable, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
-DECODE_IMPLS = ("auto", "graph", "eager")
-# calls before the capture: PyTorch's recipe asks for a few, so every
-# lazy first-call effect (allocations, library loads, the paged
-# kernel's per-stream tickets) happens outside it
-WARMUP = 2
+from repro_torch.step_graph import WARMUP  # noqa: F401
+from repro_torch.step_graph import StepGraph, resolve_impl
 
 
 def resolve_decode_impl(decode_impl: str, device: torch.device) -> str:
-    """"graph" or "eager" for a step on ``device``."""
-    if decode_impl not in DECODE_IMPLS:
-        raise ValueError(f"unknown decode_impl {decode_impl!r}; "
-                         f"one of {DECODE_IMPLS}")
-    if decode_impl == "auto":
-        return "graph" if device.type == "cuda" else "eager"
-    if decode_impl == "graph" and device.type != "cuda":
-        raise ValueError(f"decode_impl='graph' needs a CUDA device, got "
-                         f"{device}")
-    return decode_impl
+    """"graph" or "eager" for a decode step on ``device``."""
+    return resolve_impl(decode_impl, device, "decode_impl")
 
 
-class DecodeGraph:
-    """``step(buffers)`` captured once and replayed, or called directly.
-
-    ``stream`` and ``pool`` let several graphs share one side stream and
-    one memory pool (the per-slot executor's entries); by default each
-    graph has its own.  Counts: ``captures`` (0 or 1), ``replays``,
-    ``calls`` (direct calls of ``step``), ``capture_s`` (wall seconds of
-    the warm-up and the capture) and ``capture_bytes`` (device memory the
-    capture reserved: the graph's share of its pool)."""
+class DecodeGraph(StepGraph):
+    """A decode step's :class:`~repro_torch.step_graph.StepGraph`, its
+    choice named ``decode_impl``."""
 
     def __init__(self, step: Callable[[Dict[str, Any]], None],
                  buffers: Dict[str, Any], device: torch.device,
                  decode_impl: str = "auto",
                  stream: Optional["torch.cuda.Stream"] = None,
                  pool=None):
-        self.step = step
-        self.buffers = buffers
-        self.mode = resolve_decode_impl(decode_impl, device)
-        self.captures = self.replays = self.calls = 0
-        self.capture_s = 0.0
-        self.capture_bytes = 0
-        self.graph = None
-        if self.mode == "graph":
-            self._capture(device, stream, pool)
-
-    def _call(self) -> None:
-        self.step(self.buffers)
-        self.calls += 1
-
-    def _capture(self, device, stream, pool) -> None:
-        t0 = time.perf_counter()
-        cur = torch.cuda.current_stream(device)
-        side = stream if stream is not None else torch.cuda.Stream(device)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            for _ in range(WARMUP):
-                self._call()
-        # torch.cuda.graph empties the allocator's cache on entry; doing it
-        # first makes the reserved bytes' growth the graph's own segments
-        torch.cuda.synchronize(device)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(device)
-        # no garbage collection inside the capture: one may free what an
-        # unreachable executor held (its graphs, pinned host buffers) with
-        # CUDA calls that end the capture (cudaErrorStreamCaptureInvalidated,
-        # seen once in a card test run); the garbage waits until after it
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph, pool=pool, stream=side):
-                self._call()
-        finally:
-            if collecting:
-                gc.enable()
-        cur.wait_stream(side)
-        torch.cuda.synchronize(device)
-        self.capture_bytes = torch.cuda.memory_reserved(device) - reserved
-        self.capture_s = time.perf_counter() - t0
-        self.captures = 1
-
-    def __call__(self) -> None:
-        """One step: a replay on the current stream, or a direct call."""
-        if self.graph is None:
-            self._call()
-        else:
-            self.graph.replay()
-            self.replays += 1
-
-
-def graph_stats(graphs: Iterable[DecodeGraph]) -> Dict[str, float]:
-    """Summed counts of ``graphs``: captures, replays, direct calls of the
-    step, capture seconds and capture bytes."""
-    graphs = list(graphs)
-    return {k: sum(getattr(g, k) for g in graphs)
-            for k in ("captures", "replays", "calls", "capture_s",
-                      "capture_bytes")}
+        super().__init__(step, buffers, device, decode_impl, stream, pool,
+                         option="decode_impl")

@@ -44,11 +44,12 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import model, transformer
+from repro_torch.models import model
 from repro_torch.models.compute_params import serving_params
-from repro_torch.serve.decode_graph import (DecodeGraph, graph_stats,
-                                            resolve_decode_impl)
+from repro_torch.serve.decode_graph import DecodeGraph, resolve_decode_impl
 from repro_torch.serve.kv_cache import PagedKVCache
+from repro_torch.step_graph import graph_stats
+from repro_torch.tree import copy_tree_
 
 
 def slot_kv_cache(max_len: int, n_slots: int) -> PagedKVCache:
@@ -168,7 +169,7 @@ class TorchSlotExecutor:
                                               {"tokens": tokens})
                 entry = self._spare.pop() if self._spare else \
                     self._new_entry()
-                transformer.copy_cache_(entry.buffers["cache"], cache)
+                copy_tree_(entry.buffers["cache"], cache, "cache")
                 entry.buffers["tok"].copy_(torch.argmax(logits, -1))
                 self._entries[r.rid] = entry
                 self._caches[r.rid] = entry.buffers["cache"]

@@ -46,3 +46,29 @@ def tree_map(fn: Callable, tree, *rest) -> Any:
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
     return fn(tree, *rest)
+
+
+def copy_tree_(dst, src, what: str) -> None:
+    """Copy ``src``'s tensors into ``dst``'s, in place, every leaf.
+    Raises ``ValueError``, before anything is copied, where the trees'
+    keys, or a leaf's shape or dtype, differ (nothing is cast); ``what``
+    names the tree in the error."""
+    pairs = []
+
+    def visit(d, s, path):
+        if isinstance(s, dict):
+            if d.keys() != s.keys():
+                raise ValueError(f"{what} {path or '/'}: keys {sorted(s)} "
+                                 f"where the destination has {sorted(d)}")
+            for k, v in s.items():
+                visit(d[k], v, f"{path}/{k}")
+        elif d.shape != s.shape or d.dtype != s.dtype:
+            raise ValueError(
+                f"{what} {path}: {tuple(s.shape)} {s.dtype} where the "
+                f"destination has {tuple(d.shape)} {d.dtype}")
+        else:
+            pairs.append((d, s))
+
+    visit(dst, src, "")
+    for d, s in pairs:
+        d.copy_(s)

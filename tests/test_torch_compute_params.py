@@ -8,8 +8,8 @@ recurrentgemma-2b and rwkv6-3b:
   make per call are made once, to the same values;
 * the cast leaves are in the compute dtype and every other leaf (the
   router, the norms, ``lru_a``, conv weights, RWKV's mixing vectors) is
-  the very tensor of the raw tree; the head is the rounded operand
-  ``lm_logits`` builds;
+  the very tensor of the raw tree; the head is the compute-dtype operand
+  ``lm_logits`` builds, in its layout (tied: a view of the cast table);
 * with fp32 compute nothing is copied;
 * both executors run on the cast tree, and the engine's tokens and
   ``ServeReport`` under a TickClock are those of the raw tree.
@@ -144,9 +144,11 @@ def test_cast_leaves_and_shared_leaves(arch):
         assert lr[name].dtype == torch.float32 and lc[name] is lr[name], name
     w = (raw["embed"]["tok"].T if cfg.tie_embeddings else raw["lm_head"])
     head = cast["head"]
-    assert head.dtype == torch.float32
-    assert torch.equal(head, w.to(cfg.compute_dtype).float())
+    assert head.dtype == cfg.compute_dtype
+    assert torch.equal(head, w.to(cfg.compute_dtype))
     assert head.stride() == w.stride()
+    if cfg.tie_embeddings:      # a view of the cast table, no copy
+        assert head.data_ptr() == lc["embed.tok"].data_ptr()
 
 
 @pytest.mark.parametrize("arch", ARCHS)
