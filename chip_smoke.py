@@ -91,11 +91,20 @@ each of which raises on failure (nothing is caught):
 Every serving run goes through the executor's ``serving_params`` (the
 weights cast to the compute dtype once) and runs each decode step as a
 replay of a captured CUDA graph (``serve/decode_graph.py``: one graph
-for the batched executor, one per pooled batch-1 cache for the per-slot
-one); prefill stays eager.  After each model's serving run the same
+for the batched executor, one per batch-1 cache for the per-slot one,
+its ``n_slots`` entries captured when ``make_executor`` builds it), and
+each prefill as a replay of a graph captured once per prompt length
+(``serve/prefill_graph.py``).  After each model's serving run the same
 short request stream goes through ``decode_impl="graph"`` and
 ``"eager"`` executors on the same weights, and their per-request tokens
-must be identical (``graph_vs_eager``).  The logit checks run the
+must be identical (``graph_vs_eager``); then 8 requests over three
+prompt lengths go through ``prefill_impl="graph"``, ``"eager"`` and
+``"graph"`` with a bound of 2 graphs, with identical tokens, one
+capture per length (the bounded run evicting), one replay per prefill,
+and one 200-token prefill's logits ``torch.equal`` between graph and
+direct call (``prefill_graph_vs_eager``: the wall of a hit, a first
+sight and an eager prefill, the graph's device time, capture seconds
+and pool bytes).  The logit checks run the
 kernels' compute-dtype models on the cast tree and everything else on
 the raw tree, require the kernels' logits on both trees to be
 bit-identical, and time a decode step and a 200-token prefill on both
@@ -104,26 +113,32 @@ step the wall time of one graph replay).
 
 Each static server run (``serve_cli_static``, ``serve_static``) decodes
 with one CUDA graph captured at the full batch and replayed for every
-group; the same requests then go through ``decode_impl="eager"`` on the
-same weights, and the tokens must be identical.  Its counted launches
-must be one ``per_call_launches`` prefill per batch (flash 30 / 40 / 8 /
-0, ``rglru_scan`` 18, ``rwkv6_wkv`` 32) and nothing per decode step.
+group, and prefills each group by a replay of the graph of its shape,
+which writes into the decode graph's static cache; the same requests
+then go through ``decode_impl="eager"`` and ``prefill_impl="eager"`` on
+the same weights, and the tokens must be identical.  Its counted
+launches must be one ``per_call_launches`` prefill per direct call of
+the prefill step (flash 30 / 40 / 8 / 0, ``rglru_scan`` 18,
+``rwkv6_wkv`` 32) and nothing per decode step.
 
 The launch counters are zeroed before each serving run (before its
-executor is built: the batched one captures its step then).  They count
-Python calls of a wrapper, and a replay makes none, so they must read,
-per prefill, one flash launch per attention layer, 3 x (num_layers -
+executor is built: the batched one captures its decode step then, the
+per-slot one its entries).  They count Python calls of a wrapper, and a
+replay makes none, so they must read, per direct call of the prefill
+step (its warm-up and capture calls on the graph path: ``WARMUP`` + 1
+for an owner's first length, 1 for each later one; every prefill on the
+eager path), one flash launch per attention layer, 3 x (num_layers -
 first_k_dense) grouped-matmul launches (MoE only), one RG-LRU scan per
 recurrent layer (hybrid) and one WKV launch per layer (ssm), and per
-direct call of the decode step (the warm-up and capture calls on the
-graph path, every step on the eager one) num_layers paged launches and
+direct call of the decode step (likewise) num_layers paged launches and
 the same grouped-matmul count on the batched path, no launch at all on
 the per-slot path (its decode is plain torch, as the reference's).  The
-replays must equal the decode steps (batched) or the live requests
-summed over the steps (per-slot), and the launches a run reports add
-each replay's to the counted ones.  Every serving path computes in bf16,
-so each of its flash and grouped-matmul launches must also be a
-tensor-core one; the fp32-compute logit checks run the CUDA-core ones.
+prefill replays must equal the prefills, the decode replays the decode
+steps (batched) or the live requests summed over the steps (per-slot),
+and the launches a run reports add each replay's to the counted ones.
+Every serving path computes in bf16, so each of its flash and
+grouped-matmul launches must also be a tensor-core one; the
+fp32-compute logit checks run the CUDA-core ones.
 
 The training runs' counters are zeroed before each run and must read,
 per direct call of the train step (its 2 warm-ups and its capture, on a
@@ -144,6 +159,7 @@ import json
 import subprocess
 import sys
 import time
+from collections import OrderedDict
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -686,9 +702,10 @@ def instrument(ex):
     """Wrap ``ex``'s prefill, decode and release to record a run: the
     executor's decode seconds (its own clock), decode calls, decode
     tokens (the live requests summed over the steps), the most requests
-    live in one step, and the rows live at each admission and detach."""
+    live in one step, the rows live at each admission and detach, and
+    each prefill's input shape in order."""
     rec = {"decode_s": 0.0, "decode_calls": 0, "decode_tokens": 0,
-           "peak_live": 0, "events": []}
+           "peak_live": 0, "events": [], "prefill_shapes": []}
     decode, prefill, release = ex.decode, ex.prefill, ex.release
 
     def live():
@@ -705,6 +722,7 @@ def instrument(ex):
 
     def logged_prefill(rs):
         rec["events"].append(("admit", ex.decode_steps, live()))
+        rec["prefill_shapes"] += [(1, len(r.prompt)) for r in rs]
         return prefill(rs)
 
     def logged_release(r):
@@ -716,32 +734,85 @@ def instrument(ex):
     return rec
 
 
-def check_run(cfg, ex, rec, counts, tc_counts, what, mode="graph"):
-    """A serving run's launches and decode graphs, exact.
+def lru_misses(shapes, bound: int):
+    """(misses, evictions) of a least-recently-used cache of ``bound``
+    entries over ``shapes`` in order: the captures and evictions
+    ``PrefillGraphs`` must report."""
+    kept, misses, evictions = OrderedDict(), 0, 0
+    for shape in shapes:
+        if shape in kept:
+            kept.move_to_end(shape)
+            continue
+        misses += 1
+        if len(kept) >= bound:
+            kept.popitem(last=False)
+            evictions += 1
+        kept[shape] = None
+    return misses, evictions
+
+
+def check_prefill(owner, shapes, what, mode="graph"):
+    """An owner's prefill graphs (``owner._prefills``), exact, for the
+    prefills of ``shapes`` in order: on the graph path one capture per
+    least-recently-used miss (the first after ``WARMUP`` direct calls),
+    evictions as the LRU bound makes them, and one replay per prefill;
+    on the eager path one direct call per prefill.  Returns the
+    graphs' counts."""
+    from repro_torch.step_graph import WARMUP
+
+    p = owner.prefill_graph_stats()
+    misses, evictions = lru_misses(shapes, owner._prefills.max_graphs)
+    if mode == "graph":
+        want = {"captures": misses, "replays": len(shapes),
+                "calls": WARMUP + misses if misses else 0,
+                "evictions": evictions}
+        kept = misses - evictions
+    else:
+        want = {"captures": 0, "replays": 0, "calls": len(shapes),
+                "evictions": evictions}
+        kept = 0
+    got = {k: p[k] for k in want}
+    if got != want or owner.prefill_graph_count() != kept:
+        raise AssertionError(
+            f"{what}: prefill graphs {p} ({owner.prefill_graph_count()} "
+            f"kept), expected {want} ({kept} kept) for {len(shapes)} "
+            f"prefills of {len(set(shapes))} shapes on the {mode} path")
+    return p
+
+
+def check_run(cfg, ex, rec, counts, tc_counts, what, mode="graph",
+              prefill_mode="graph"):
+    """A serving run's launches, decode graphs and prefill graphs, exact.
 
     The counters count Python calls of a kernel's wrapper; a graph replay
     makes none.  So the counted launches must equal ``per_call_launches``
-    per prefill plus per direct call of the decode step (warm-up and
-    capture calls on the graph path, every step on the eager one), and on
-    a bf16 path every flash and grouped-matmul launch must have been a
-    tensor-core one.  On the graph path the batched executor holds one
-    graph replayed once per decode step, the per-slot executor at most
-    one per request live at once, replayed once per live request per
-    step; on the eager path none.  Returns the run's figures, with the
-    launches the card made: the counted ones plus each replay's."""
+    per direct call of the prefill step (its warm-up and capture calls on
+    the graph path, every prefill on the eager one) plus per direct call
+    of the decode step (likewise), and on a bf16 path every flash and
+    grouped-matmul launch must have been a tensor-core one.  On the graph
+    path the batched executor holds one decode graph replayed once per
+    decode step, the per-slot executor its ``n_slots`` entries, made at
+    construction, replayed once per live request per step; on the eager
+    path none.  The prefill graphs are held by :func:`check_prefill`.
+    Returns the run's figures, with the launches the card made: the
+    counted ones plus each replay's."""
     import torch
 
     from repro_torch.serve.decode_graph import WARMUP
 
     per_pre, per_dec = per_call_launches(cfg)
     g = ex.decode_graph_stats()
-    want = {k: per_pre[k] * ex.prefills + per_dec[k] * g["calls"]
+    p = check_prefill(ex, rec["prefill_shapes"], what, prefill_mode)
+    want = {k: per_pre[k] * p["calls"] + per_dec[k] * g["calls"]
             for k in per_pre}
-    if counts != want or not ex.prefills or not ex.decode_steps:
+    if (counts != want or not ex.prefills or not ex.decode_steps
+            or len(rec["prefill_shapes"]) != ex.prefills):
         raise AssertionError(
             f"{what}: kernel launches {counts}, expected {want} for "
-            f"{cfg.name} ({per_pre} per prefill, {per_dec} per call of the "
-            f"decode step; {ex.prefills} prefills, {g['calls']} step calls)")
+            f"{cfg.name} ({per_pre} per call of the prefill step, "
+            f"{per_dec} per call of the decode step; {ex.prefills} "
+            f"prefills, {p['calls']} prefill calls, {g['calls']} step "
+            f"calls)")
     if cfg.compute_dtype == torch.bfloat16:
         want_tc = {k: want[k] for k in TC_KERNELS}
         if tc_counts != want_tc:
@@ -753,8 +824,7 @@ def check_run(cfg, ex, rec, counts, tc_counts, what, mode="graph"):
     if mode == "graph":
         ok = (g["replays"] == (ex.decode_steps if batched
                                else rec["decode_tokens"])
-              and (n_graphs == 1 if batched
-                   else 1 <= n_graphs <= rec["peak_live"])
+              and n_graphs == (1 if batched else ex.n_slots)
               and g["calls"] == (WARMUP + 1) * n_graphs)
     else:
         ok = n_graphs == 0 and g["replays"] == 0
@@ -763,13 +833,20 @@ def check_run(cfg, ex, rec, counts, tc_counts, what, mode="graph"):
             f"{what}: {mode} path with {n_graphs} decode graphs and {g} for "
             f"{ex.decode_steps} decode steps, {rec['decode_tokens']} "
             f"decode tokens, at most {rec['peak_live']} requests live")
-    return {"mode": mode, "decode_graphs": n_graphs,
+    replayed = {k: per_pre[k] * p["replays"] + per_dec[k] * g["replays"]
+                for k in per_pre}
+    return {"mode": mode, "prefill_mode": prefill_mode,
+            "decode_graphs": n_graphs,
             "replays": g["replays"], "step_calls": g["calls"],
             "capture_s": g["capture_s"],
             "graph_mem_mb": g["capture_bytes"] / 1e6,
-            "launches": {k: counts[k] + per_dec[k] * g["replays"]
-                         for k in counts},
-            "tc_launches": {k: tc_counts[k] + per_dec[k] * g["replays"]
+            "prefill_graphs": {
+                "captures": p["captures"], "replays": p["replays"],
+                "calls": p["calls"], "evictions": p["evictions"],
+                "capture_s": p["capture_s"],
+                "graph_mem_mb": p["capture_bytes"] / 1e6},
+            "launches": {k: counts[k] + replayed[k] for k in counts},
+            "tc_launches": {k: tc_counts[k] + replayed[k]
                             for k in TC_KERNELS},
             "launches_counted": counts,
             "decode_tokens_per_s": rec["decode_tokens"] / rec["decode_s"],
@@ -863,16 +940,18 @@ def serve_cli_arrival(cfg):
     return counts
 
 
-def check_static(cfg, server, counts, tc_counts, what, mode):
-    """A static server run's launches and decode graph, exact: one
-    ``per_call_launches`` prefill per batch, and per direct call of the
-    decode step (the warm-up and capture calls on the graph path, every
-    step on the eager one) the grouped-matmul launches of a MoE decode
-    step, no other kernel (the decode is plain torch, as the
-    reference's); on a bf16 path every flash and grouped-matmul launch on
-    the tensor cores.  The graph path captures once and replays once per
-    decode step.  Returns the run's figures, with the launches the card
-    made: the counted ones plus each replay's."""
+def check_static(cfg, server, counts, tc_counts, what, mode, shapes):
+    """A static server run's launches, decode graph and prefill graphs,
+    exact: ``per_call_launches`` per direct call of the group-prefill
+    step (its warm-up and capture calls on the graph path, every batch on
+    the eager one; the batches' prefill ``shapes`` held by
+    :func:`check_prefill`), and per direct call of the decode step
+    (likewise) the grouped-matmul launches of a MoE decode step, no other
+    kernel (the decode is plain torch, as the reference's); on a bf16
+    path every flash and grouped-matmul launch on the tensor cores.  The
+    graph path captures the decode once and replays it once per decode
+    step; ``mode`` is both graphs' path.  Returns the run's figures, with
+    the launches the card made: the counted ones plus each replay's."""
     import torch
 
     from repro_torch.serve.decode_graph import WARMUP
@@ -880,13 +959,16 @@ def check_static(cfg, server, counts, tc_counts, what, mode):
     per_pre = per_call_launches(cfg)[0]
     per_step = {**dict.fromkeys(per_pre, 0), "moe_gmm": per_pre["moe_gmm"]}
     g = server.decode_graph_stats()
-    want = {k: per_pre[k] * server.batches + per_step[k] * g["calls"]
+    p = check_prefill(server, shapes, what, mode)
+    want = {k: per_pre[k] * p["calls"] + per_step[k] * g["calls"]
             for k in per_pre}
-    if counts != want or not server.batches or not server.decode_steps:
+    if (counts != want or not server.batches or not server.decode_steps
+            or len(shapes) != server.batches):
         raise AssertionError(
             f"{what}: kernel launches {counts}, expected {want} for "
-            f"{cfg.name} ({per_pre} per batch prefill; {server.batches} "
-            f"batches, {g['calls']} step calls)")
+            f"{cfg.name} ({per_pre} per call of the prefill step; "
+            f"{server.batches} batches, {p['calls']} prefill calls, "
+            f"{g['calls']} step calls)")
     if cfg.compute_dtype == torch.bfloat16:
         want_tc = {k: want[k] for k in TC_KERNELS}
         if tc_counts != want_tc:
@@ -897,13 +979,18 @@ def check_static(cfg, server, counts, tc_counts, what, mode):
     if (g["captures"], g["replays"], g["calls"]) != graph:
         raise AssertionError(f"{what}: {mode} path with {g} for "
                              f"{server.decode_steps} decode steps")
+    replayed = {k: per_pre[k] * p["replays"] + per_step[k] * g["replays"]
+                for k in per_pre}
     return {"mode": mode, "batches": server.batches,
             "decode_steps": server.decode_steps, "replays": g["replays"],
             "step_calls": g["calls"], "capture_s": g["capture_s"],
             "graph_mem_mb": g["capture_bytes"] / 1e6,
-            "launches": {k: counts[k] + per_step[k] * g["replays"]
-                         for k in counts},
-            "tc_launches": {k: tc_counts[k] + per_step[k] * g["replays"]
+            "prefill_graphs": {
+                "captures": p["captures"], "replays": p["replays"],
+                "calls": p["calls"], "capture_s": p["capture_s"],
+                "graph_mem_mb": p["capture_bytes"] / 1e6},
+            "launches": {k: counts[k] + replayed[k] for k in counts},
+            "tc_launches": {k: tc_counts[k] + replayed[k]
                             for k in TC_KERNELS},
             "launches_counted": counts}
 
@@ -931,9 +1018,10 @@ def serve_static(torch, cfg, params, n_req=8, max_new=32, cli=False):
     200 tokens and ``max_new`` new ones: through the CLI's ``--engine
     static`` (``cli=True``: the server draws its weights from seed 0)
     or ``run_static_server`` on the weights ``params``, with the decode
-    as a CUDA graph; then the same requests with ``decode_impl="eager"``
-    on the same weights (for the CLI, drawn again from seed 0), whose
-    tokens must be identical.  Each run's tokens must be complete and its
+    and the group prefill as CUDA graphs; then the same requests with
+    ``decode_impl="eager"`` and ``prefill_impl="eager"`` on the same
+    weights (for the CLI, drawn again from seed 0), whose tokens must be
+    identical.  Each run's tokens must be complete and its
     launches exact (:func:`check_static`).  Logs both runs with the
     graph step's wall time; returns the graph run's launches."""
     import numpy as np
@@ -981,11 +1069,12 @@ def serve_static(torch, cfg, params, n_req=8, max_new=32, cli=False):
                     cfg, torch.Generator(device="cuda").manual_seed(0),
                     torch.device("cuda"))
             server, out = run_static(cfg, reqs, batch, max_new, plen,
-                                     params=params, decode_impl=mode)
+                                     params=params, decode_impl=mode,
+                                     prefill_impl=mode)
         wall = time.perf_counter() - t0
         what = f"serve_static {cfg.name} {mode}"
         run = check_static(cfg, server, read_counts(), read_tc_counts(),
-                           what, mode)
+                           what, mode, [(batch, plen)] * -(-n_req // batch))
         if (out["tokens_generated"] != n_req * max_new
                 or out["requests"] != n_req):
             raise AssertionError(f"{what}: {out['tokens_generated']} tokens "
@@ -1146,6 +1235,194 @@ def graph_vs_eager(torch, cfg, params):
     if not same:
         raise AssertionError(f"{cfg.name}: graph and eager executors gave "
                              f"other tokens: {toks}")
+
+
+# the compiled prefill's stream: 8 requests over these prompt lengths, so
+# lengths repeat
+PREFILL_LENS = (64, 200, 300)
+
+
+def prefill_walls(ex, kv, cfg, rid: int):
+    """Wall ms of single prefills through ``ex`` after its run, on the
+    executor's own clock (which it reads after the tokens' read-back):
+    200 tokens (a length the run prefilled: a hit on the graph path),
+    then 128 (a length it did not: first sight), then 128 again (a
+    hit)."""
+    import numpy as np
+
+    from repro_torch.serve.engine import ServeRequest
+
+    rng = np.random.default_rng(rid)
+    out = {}
+    for key, n in (("hit_200", 200), ("first_128", 128), ("hit_128", 128)):
+        r = ServeRequest(rid=rid, prompt_len=n, max_new=1,
+                         prompt=rng.integers(0, cfg.vocab_size, n)
+                         .astype(np.int32))
+        kv.allocate(rid, n)
+        _, cost = ex.prefill([r])
+        ex.release(r)
+        kv.free(rid)
+        out[key] = 1e3 * cost
+        rid += 1
+    return out
+
+
+def first_sight_split(torch, step, warm, bufs):
+    """Where a first sight's wall time goes: ``step`` captured over
+    ``bufs`` (a shape it has not run at) on a side stream that has run it
+    over ``warm`` (another shape), as ``PrefillGraphs`` captures a later
+    length: ms of the step's issue under capture, of ``capture_end``
+    (the end of the capture and the graph's instantiation) and of the
+    first replay to its end."""
+    dev = torch.device("cuda")
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        step(warm)
+    torch.cuda.synchronize(dev)
+    graph = torch.cuda.CUDAGraph()
+    gc.disable()
+    try:
+        with torch.cuda.stream(side):
+            t0 = time.perf_counter()
+            graph.capture_begin()
+            step(bufs)
+            t1 = time.perf_counter()
+            graph.capture_end()
+            t2 = time.perf_counter()
+    finally:
+        gc.enable()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    t3 = time.perf_counter()
+    graph.replay()
+    torch.cuda.synchronize(dev)
+    t4 = time.perf_counter()
+    return {"capture_issue_ms": 1e3 * (t1 - t0),
+            "capture_end_ms": 1e3 * (t2 - t1),
+            "first_replay_ms": 1e3 * (t4 - t3)}
+
+
+def prefill_logits(torch, cfg, serving, max_len: int, n: int = 200):
+    """One ``n``-token prefill's logits through a ``PrefillGraphs`` of
+    the model's prefill on the cast tree ``serving``, captured and
+    called directly: whether they are ``torch.equal``, the graph's
+    device ms by CUDA events over 10 replays, the direct call's span by
+    CUDA events, and a 150-token first sight's split
+    (:func:`first_sight_split`)."""
+    from repro_torch.models import model
+    from repro_torch.serve.prefill_graph import PrefillGraphs
+
+    dev = torch.device("cuda")
+    prefill = model.prefill_fn(cfg, max_len=max_len)
+
+    def step(b):
+        b["logits"].copy_(prefill(serving, {"tokens": b["tokens"]})[0])
+
+    def buffers(shape):
+        return {"tokens": torch.zeros(shape, dtype=torch.int64, device=dev),
+                "logits": torch.zeros((shape[0], cfg.vocab_size),
+                                      dtype=torch.float32, device=dev)}
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    tokens = torch.randint(0, cfg.vocab_size, (1, n), generator=gen,
+                           device=dev)
+    logits = {}
+    with torch.inference_mode():
+        for impl in ("graph", "eager"):
+            graphs = PrefillGraphs(step, buffers, dev, impl)
+            bufs = graphs((1, n), lambda b: b["tokens"].copy_(tokens))
+            logits[impl] = bufs["logits"].clone()
+            if impl == "graph":
+                device_ms = cuda_ms(torch, lambda: graphs(
+                    (1, n), lambda b: None), 10, 2)
+            del graphs
+        eager_ms = cuda_ms(torch, lambda: step(bufs), 10, 2)
+        fresh = buffers((1, 150))
+        fresh["tokens"].copy_(tokens[:, :150])
+        split = first_sight_split(torch, step, bufs, fresh)
+    return {f"logits_equal_{n}": torch.equal(logits["graph"],
+                                            logits["eager"]),
+            f"prefill_{n}_device_ms": device_ms,
+            f"prefill_{n}_eager_span_ms": eager_ms,
+            "first_sight_150": split}
+
+
+def prefill_graph_vs_eager(torch, cfg, params):
+    """The compiled prefill against the eager one, on the weights
+    ``params``: 8 requests over the prompt lengths ``PREFILL_LENS`` (so
+    lengths repeat), 4-8 new tokens, 4 slots, through ``make_executor``
+    with ``prefill_impl="graph"``, then ``"eager"``, then ``"graph"``
+    with ``max_prefill_graphs=2`` (decode graphs in all three).  The
+    tokens must be identical in all three; each run's counts are exact
+    (:func:`check_run`), the graph run captures one graph per distinct
+    length and evicts none, the bounded run evicts.  After the graph and
+    eager runs, the wall of single prefills through their executors
+    (:func:`prefill_walls`); then one 200-token prefill's logits,
+    captured and called directly, must be ``torch.equal``
+    (:func:`prefill_logits`, with the graph's device time, the direct
+    call's span, and where a first sight's time goes)."""
+    import numpy as np
+
+    from repro_torch.models.compute_params import serving_params
+    from repro_torch.serve.batched_executor import make_executor
+    from repro_torch.serve.engine import (NO_SLO, ContinuousServeEngine,
+                                          ServeRequest)
+
+    rng = np.random.default_rng(7)
+    lens = [PREFILL_LENS[i % len(PREFILL_LENS)] for i in range(8)]
+    shapes = [(n, int(rng.integers(4, 9))) for n in lens]
+    n_slots, max_len = 4, max(PREFILL_LENS) + 8
+    runs, toks = {}, {}
+    for name, impl, bound in (("graph", "graph", 32),
+                              ("eager", "eager", 32),
+                              ("graph_bound2", "graph", 2)):
+        reqs = [ServeRequest(rid=i, prompt_len=n, max_new=m,
+                             prompt=np.random.default_rng(100 + i).integers(
+                                 0, cfg.vocab_size, n).astype(np.int32))
+                for i, (n, m) in enumerate(shapes)]
+        what = f"prefill_graph_vs_eager {cfg.name} {name}"
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        ex, kv = make_executor(cfg, max_len, n_slots, params=params,
+                               prefill_impl=impl, max_prefill_graphs=bound)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        rec = instrument(ex)
+        rep = ContinuousServeEngine(n_slots, ex, slo=NO_SLO,
+                                    kv_cache=kv).run(reqs)
+        run = check_run(cfg, ex, rec, read_counts(), read_tc_counts(), what,
+                        prefill_mode=impl)
+        p = run["prefill_graphs"]
+        if name == "graph" and (p["captures"] != len(set(lens))
+                                or p["evictions"]):
+            raise AssertionError(f"{what}: {p} for lengths {lens}")
+        if name == "graph_bound2" and not p["evictions"]:
+            raise AssertionError(f"{what}: no eviction at a bound of 2: "
+                                 f"{p}")
+        runs[name] = {"init_s": init_s, "mean_ttft_s": rep.ttft_s["mean"],
+                      "prefill_graphs": p, "launches": run["launches"]}
+        if name != "graph_bound2":
+            runs[name]["prefill_wall_ms"] = prefill_walls(
+                ex, kv, cfg, len(reqs))
+        toks[name] = [r.out_tokens for r in reqs]
+        del ex, kv, rec
+        gc.collect()
+        torch.cuda.empty_cache()
+    same = toks["graph"] == toks["eager"] == toks["graph_bound2"]
+    serving = serving_params(cfg, params, torch.device("cuda"))
+    single = prefill_logits(torch, cfg, serving, max_len)
+    equal = single["logits_equal_200"]
+    del serving
+    gc.collect()
+    torch.cuda.empty_cache()
+    log({"phase": "prefill_graph_vs_eager", "arch": cfg.name,
+         "prompt_lens": lens, "max_new": [m for _, m in shapes],
+         "n_slots": n_slots, "tokens_identical": same, **single, **runs})
+    if not same or not equal:
+        raise AssertionError(f"{cfg.name}: graph and eager prefills differ "
+                             f"(tokens identical {same}, logits equal "
+                             f"{equal}): {toks}")
 
 
 # the logits phase's page pool: 3 pages of 128 tokens per prompt row
@@ -2052,6 +2329,7 @@ def main() -> int:
     c_cli, _ = serve_cli(cfg)
     c_eng, params, serving = serve_engine(torch, cfg, 24, 64, "serve_engine")
     graph_vs_eager(torch, cfg, params)
+    prefill_graph_vs_eager(torch, cfg, params)
     logits_kernel_vs_plain(torch, cfg, params, serving, LOGIT_ATOL)
     del params, serving
     gc.collect()
@@ -2070,6 +2348,7 @@ def main() -> int:
     c_ds, params, serving = serve_engine(torch, ds, 12, 48,
                                          "serve_engine_deepseek")
     graph_vs_eager(torch, ds, params)
+    prefill_graph_vs_eager(torch, ds, params)
     logits_kernel_vs_plain(torch, ds, params, serving, None)
     del params, serving
     gc.collect()
@@ -2092,6 +2371,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     graph_vs_eager(torch, gr, params)
+    prefill_graph_vs_eager(torch, gr, params)
     add_counts(c_static, serve_static(torch, gr, params))
     del params
     gc.collect()
@@ -2106,6 +2386,7 @@ def main() -> int:
     c_rg, params, serving = serve_engine(torch, rg, 12, 48,
                                          "serve_engine_recurrentgemma")
     graph_vs_eager(torch, rg, params)
+    prefill_graph_vs_eager(torch, rg, params)
     logits_kernel_vs_plain(torch, rg, params, serving, None)
     add_counts(c_static, serve_static(torch, rg, params))
     del params, serving
@@ -2118,6 +2399,7 @@ def main() -> int:
     c_rw, params, serving = serve_engine(torch, rw, 12, 48,
                                          "serve_engine_rwkv6")
     graph_vs_eager(torch, rw, params)
+    prefill_graph_vs_eager(torch, rw, params)
     logits_kernel_vs_plain(torch, rw, params, serving, None)
     add_counts(c_static, serve_static(torch, rw, params))
     del params, serving

@@ -47,9 +47,9 @@ from repro_torch.models.compute_params import serving_params
 from repro_torch.models.init import check_ported
 from repro_torch.serve import ContinuousServeEngine, ServeRequest, ServeSLO
 from repro_torch.serve.decode_graph import DecodeGraph
-from repro_torch.serve.slot_executor import greedy_step
+from repro_torch.serve.prefill_graph import PrefillGraphs, copy_inputs
+from repro_torch.serve.slot_executor import cache_prefill_step, greedy_step
 from repro_torch.step_graph import graph_stats
-from repro_torch.tree import copy_tree_
 
 
 @dataclasses.dataclass
@@ -121,13 +121,20 @@ class Server:
     max_len)`` cache and a static (batch,) token buffer, captured once
     here (``decode_impl``: "auto" = a CUDA graph on CUDA, a direct call on
     the CPU) and replayed for every group, whose prefill cache is copied
-    into the static one, never rebound.
+    into the static one, never rebound.  The group prefill is the
+    counterpart of the reference's jitted prefill, compiled once per
+    shape: a :class:`~repro_torch.serve.prefill_graph.PrefillGraphs` step
+    per (batch, prompt length) that takes static tokens and writes the
+    cache and the argmax straight into the decode graph's static cache
+    and token (``prefill_impl``, "auto" as ``decode_impl``); both capture
+    on one side stream into one memory pool.
     """
 
     def __init__(self, cfg, batch: int, max_len: int,
                  ledger: Optional[GoodputLedger] = None,
                  clock: Callable[[], float] = time.monotonic, *,
-                 params=None, device=None, decode_impl: str = "auto"):
+                 params=None, device=None, decode_impl: str = "auto",
+                 prefill_impl: str = "auto"):
         if batch <= 0:
             raise ValueError(f"batch must be positive, got {batch}")
         check_ported(cfg)
@@ -137,7 +144,11 @@ class Server:
         self.ledger = ledger if ledger is not None else GoodputLedger()
         self.device = resolve_device(device)
         self.serving_params = serving_params(cfg, params, self.device)
-        self._prefill = model.prefill_fn(cfg, max_len=max_len)
+        # one side stream and one memory pool for both graphs
+        stream = pool = None
+        if self.device.type == "cuda":
+            stream = torch.cuda.Stream(self.device)
+            pool = torch.cuda.graph_pool_handle()
         with torch.inference_mode():
             bufs = {"cache": model.init_cache(cfg, batch, max_len,
                                               self.device),
@@ -146,7 +157,13 @@ class Server:
             step = functools.partial(greedy_step,
                                      model.decode_inplace_fn(cfg),
                                      self.serving_params)
-            self._graph = DecodeGraph(step, bufs, self.device, decode_impl)
+            self._graph = DecodeGraph(step, bufs, self.device, decode_impl,
+                                      stream=stream, pool=pool)
+        self._prefills = PrefillGraphs(
+            functools.partial(cache_prefill_step,
+                              model.prefill_fn(cfg, max_len=max_len),
+                              self.serving_params),
+            self._prefill_buffers, self.device, prefill_impl, stream, pool)
         # what a run did: batches prefilled and decode steps run
         self.batches = 0
         self.decode_steps = 0
@@ -159,6 +176,20 @@ class Server:
     def decode_graph_stats(self):
         """The decode graph's counts (:func:`graph_stats`)."""
         return graph_stats([self._graph])
+
+    def prefill_graph_count(self) -> int:
+        """Captured group-prefill graphs kept: one per prompt length."""
+        return self._prefills.count()
+
+    def prefill_graph_stats(self):
+        """The group prefill's counts (:meth:`PrefillGraphs.stats`)."""
+        return self._prefills.stats()
+
+    def _prefill_buffers(self, shape):
+        return {"tokens": torch.zeros(shape, dtype=torch.int64,
+                                      device=self.device),
+                "cache": self._graph.buffers["cache"],
+                "tok": self._graph.buffers["tok"]}
 
     def capacity_chip_time(self) -> float:
         """Slot-chips x the ledger-time span this server was serving —
@@ -183,15 +214,13 @@ class Server:
                                   "layer": layer.value})
 
     def _prefill_batch(self, toks: np.ndarray) -> np.ndarray:
-        """Prefill the group, copy its cache and argmax tokens into the
-        decode graph's static buffers, and return the tokens (one
-        device-to-host copy, which waits for the device)."""
-        bufs = self._graph.buffers
-        tokens = torch.from_numpy(toks.astype(np.int64)).to(self.device)
-        logits, cache = self._prefill(self.serving_params,
-                                      {"tokens": tokens})
-        copy_tree_(bufs["cache"], cache, "cache")
-        bufs["tok"].copy_(torch.argmax(logits, -1))
+        """Prefill the group into the decode graph's static cache and
+        token, and return the tokens (one device-to-host copy, which
+        waits for the device)."""
+        toks = toks.astype(np.int64)
+        bufs = self._prefills(
+            toks.shape, lambda b: copy_inputs(b, {"tokens": toks},
+                                              self.device))
         self.batches += 1
         return bufs["tok"].cpu().numpy()
 
@@ -278,14 +307,14 @@ def run_static_server(cfg, reqs: List[Request], batch: int, max_new: int,
                       prompt_len: int,
                       ledger: Optional[GoodputLedger] = None,
                       clock: Callable[[], float] = time.monotonic, *,
-                      params=None, device=None, decode_impl: str = "auto"
-                      ) -> Tuple[Server, dict]:
+                      params=None, device=None, decode_impl: str = "auto",
+                      prefill_impl: str = "auto") -> Tuple[Server, dict]:
     """Drive the static fixed-group loop and summarize it (CLI + tests):
     the reference's report, key for key."""
     ledger = ledger if ledger is not None else GoodputLedger(window=60.0)
     server = Server(cfg, batch, max_len=prompt_len + max_new,
                     ledger=ledger, clock=clock, params=params, device=device,
-                    decode_impl=decode_impl)
+                    decode_impl=decode_impl, prefill_impl=prefill_impl)
     t_pre = t_dec = 0.0
     for i in range(0, len(reqs), batch):
         group = pad_group(reqs[i:i + batch], batch)
@@ -338,7 +367,7 @@ def run_continuous_server(cfg, reqs: List[ServeRequest], batch: int,
         kv = executor.kv
     elif executor_kind == "slot":
         executor = TorchSlotExecutor(cfg, max_len, clock=clock,
-                                     device=device)
+                                     device=device, n_slots=batch)
         kv = slot_kv_cache(max_len, batch)
     else:
         executor, kv = make_executor(cfg, max_len, batch, clock=clock,

@@ -31,6 +31,16 @@ CUDA, 0 eager) is the counterpart of the reference's
 ``decode_compiles()``; :meth:`decode_shape_count`, the signature of the
 decode's inputs, stays 1 across admission churn.
 
+The reference jits its prefill and its page scatter, compiled once per
+prompt length.  The port captures both as one step per length
+(:class:`~repro_torch.serve.prefill_graph.PrefillGraphs`,
+``prefill_impl``): static tokens (1, s), page ids (s,) and offsets (s,)
+in, filled by non-blocking copies from pinned host arrays; the prefill,
+its argmax into a static token, and the scatter of its cache into the
+page pools, so the prefill cache never leaves the graph's memory pool.
+The decode graph and the prefill graphs capture on one side stream into
+one pool.
+
 Construct the engine with ``kv_cache=executor.kv`` — the allocator must
 be shared or the gather map and the bookkeeping drift apart.
 
@@ -57,6 +67,8 @@ from repro_torch.models import model, transformer
 from repro_torch.models.compute_params import serving_params
 from repro_torch.serve.decode_graph import DecodeGraph
 from repro_torch.serve.kv_cache import FLASH_ATTENTION_BLOCK_K, PagedKVCache
+from repro_torch.serve.prefill_graph import (MAX_PREFILL_GRAPHS,
+                                             PrefillGraphs, copy_inputs)
 from repro_torch.serve.slot_executor import TorchSlotExecutor, slot_kv_cache
 from repro_torch.step_graph import graph_stats
 
@@ -69,6 +81,16 @@ def _paged_step(step, params, k_pages, v_pages, b) -> None:
     logits, _, _ = step(params, b["tok"], b["len"], k_pages, v_pages,
                         b["tables"])
     b["out"].copy_(torch.argmax(logits, -1))
+
+
+def _paged_prefill_step(prefill, params, cfg, k_pages, v_pages, b) -> None:
+    """The captured prefill of one prompt length: the tokens, page ids
+    and offsets in, the argmax in ``b["tok"]`` and the cache scattered
+    into the page pools.  A free function, as :func:`_paged_step` is."""
+    logits, cache = prefill(params, {"tokens": b["tokens"]})
+    b["tok"].copy_(torch.argmax(logits, -1))
+    transformer.scatter_prefill_pages(cache, cfg, k_pages, v_pages,
+                                      b["pages"], b["offs"])
 
 
 def decode_config(cfg):
@@ -93,15 +115,19 @@ class TorchBatchedExecutor:
     reference's) stays ``self.params``, as it is.
     ``attn_impl`` selects the attention of both phases and ``gmm_impl``
     the experts' grouped matmul ("auto" = the kernels on CUDA, the plain
-    versions on the CPU); ``decode_impl`` the decode step's graph
-    ("auto" = a CUDA graph on CUDA, a direct call on the CPU; see
-    :mod:`~repro_torch.serve.decode_graph`).
+    versions on the CPU); ``decode_impl`` the decode step's graph and
+    ``prefill_impl`` the prefill's graphs, at most ``max_prefill_graphs``
+    of them ("auto" = a CUDA graph on CUDA, a direct call on the CPU; see
+    :mod:`~repro_torch.serve.decode_graph` and
+    :mod:`~repro_torch.serve.prefill_graph`).
     """
 
     def __init__(self, cfg, max_len: int, n_slots: int,
                  clock: Callable[[], float] = time.monotonic,
                  attn_impl: str = "auto", device=None, params=None,
-                 gmm_impl: str = "auto", decode_impl: str = "auto"):
+                 gmm_impl: str = "auto", decode_impl: str = "auto",
+                 prefill_impl: str = "auto",
+                 max_prefill_graphs: int = MAX_PREFILL_GRAPHS):
         if not model.supports_paged_decode(cfg, max_len):
             raise ValueError(
                 f"family {cfg.family!r} (window={cfg.attention_window}) "
@@ -149,6 +175,11 @@ class TorchBatchedExecutor:
         self.prefills = 0
         self.decode_steps = 0
         self._decode_shapes: Set[Tuple] = set()
+        # one side stream and one memory pool for every graph captured
+        stream = pool = None
+        if self.device.type == "cuda":
+            stream = torch.cuda.Stream(self.device)
+            pool = torch.cuda.graph_pool_handle()
         with torch.inference_mode():
             self._kp = torch.zeros(shape, dtype=cfg.compute_dtype,
                                    device=self.device)
@@ -163,7 +194,13 @@ class TorchBatchedExecutor:
             step = functools.partial(_paged_step, self._step,
                                      self.serving_params, self._kp,
                                      self._vp)
-            self._graph = DecodeGraph(step, bufs, self.device, decode_impl)
+            self._graph = DecodeGraph(step, bufs, self.device, decode_impl,
+                                      stream=stream, pool=pool)
+        self._prefills = PrefillGraphs(
+            functools.partial(_paged_prefill_step, self._prefill,
+                              self.serving_params, cfg, self._kp, self._vp),
+            self._prefill_buffers, self.device, prefill_impl, stream, pool,
+            max_prefill_graphs)
 
     # ---- introspection ----------------------------------------------------
     def decode_shape_count(self) -> int:
@@ -180,17 +217,28 @@ class TorchBatchedExecutor:
         """The decode graph's counts (:func:`graph_stats`)."""
         return graph_stats([self._graph])
 
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+    def prefill_graph_count(self) -> int:
+        """Captured prefill graphs kept: one per prompt length seen, at
+        most ``max_prefill_graphs``; 0 on the eager path."""
+        return self._prefills.count()
 
-    def _dev(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(self.device)
+    def prefill_graph_stats(self) -> Dict[str, float]:
+        """The prefill graphs' counts (:meth:`PrefillGraphs.stats`)."""
+        return self._prefills.stats()
+
+    def _prefill_buffers(self, shape) -> Dict[str, torch.Tensor]:
+        b, s = shape
+
+        def zeros(*size):
+            return torch.zeros(size, dtype=torch.int64, device=self.device)
+
+        return {"tokens": zeros(b, s), "pages": zeros(s), "offs": zeros(s),
+                "tok": zeros(b)}
 
     # ---- executor protocol ------------------------------------------------
     def prefill(self, reqs: Sequence) -> Tuple[List[int], float]:
         t0 = self.clock()
-        pend = []
+        pend, rows = [], []
         with torch.inference_mode():
             for r in reqs:
                 if r.prompt is None:
@@ -199,26 +247,25 @@ class TorchBatchedExecutor:
                 row = self._free_rows.pop()
                 self.rows[r.rid] = row
                 prompt = np.asarray(r.prompt, np.int64)
-                logits, cache = self._prefill(
-                    self.serving_params,
-                    {"tokens": self._dev(prompt[None, :])})
-                tok = torch.argmax(logits, -1)
+                s = prompt.shape[-1]
                 table = np.asarray(self.kv.block_table(r.rid), np.int64)
-                pos = np.arange(prompt.shape[-1])
-                transformer.scatter_prefill_pages(
-                    cache, self.cfg, self._kp, self._vp,
-                    self._dev(table[pos // self.block_tokens]),
-                    self._dev(pos % self.block_tokens))
-                self._len[row] = prompt.shape[-1]
+                pos = np.arange(s)
+                inputs = {"tokens": prompt[None, :],
+                          "pages": table[pos // self.block_tokens],
+                          "offs": pos % self.block_tokens}
+                bufs = self._prefills(
+                    (1, s), lambda b: copy_inputs(b, inputs, self.device))
+                # the next prefill of this length rewrites the buffer
+                pend.append(bufs["tok"].clone())
+                rows.append(row)
+                self._len[row] = s
                 self.prefills += 1
-                pend.append((row, tok))
-        self._sync()
+            # ONE device-to-host copy of every token (one sync) before
+            # the clock is read
+            toks = torch.cat(pend).tolist() if pend else []
         cost = max(0.0, self.clock() - t0)
-        toks = []
-        for row, tok in pend:
-            t = int(tok[0])
+        for row, t in zip(rows, toks):
             self._tok[row] = t
-            toks.append(t)
         return toks, cost
 
     def decode(self, reqs: Sequence) -> Tuple[List[int], float]:
@@ -260,19 +307,21 @@ class TorchBatchedExecutor:
 def make_executor(cfg, max_len: int, n_slots: int,
                   clock: Callable[[], float] = time.monotonic,
                   attn_impl: str = "auto", device=None, params=None,
-                  gmm_impl: str = "auto", decode_impl: str = "auto"):
+                  gmm_impl: str = "auto", decode_impl: str = "auto",
+                  prefill_impl: str = "auto",
+                  max_prefill_graphs: int = MAX_PREFILL_GRAPHS):
     """The executor the reference's ``run_continuous_server`` picks, and
     the allocator to pass to the engine: the batched paged executor (its
     own allocator) where ``model.supports_paged_decode`` holds, else the
     per-slot executor with the reference's block sizing
-    (:func:`slot_kv_cache`).  Nothing else is substituted."""
+    (:func:`slot_kv_cache`), its ``n_slots`` decode entries made (and, on
+    the graph path, captured) here.  Nothing else is substituted."""
+    kw = dict(clock=clock, attn_impl=attn_impl, device=device,
+              params=params, gmm_impl=gmm_impl, decode_impl=decode_impl,
+              prefill_impl=prefill_impl,
+              max_prefill_graphs=max_prefill_graphs)
     if model.supports_paged_decode(cfg, max_len):
-        ex = TorchBatchedExecutor(cfg, max_len, n_slots, clock=clock,
-                                  attn_impl=attn_impl, device=device,
-                                  params=params, gmm_impl=gmm_impl,
-                                  decode_impl=decode_impl)
+        ex = TorchBatchedExecutor(cfg, max_len, n_slots, **kw)
         return ex, ex.kv
-    ex = TorchSlotExecutor(cfg, max_len, clock=clock, attn_impl=attn_impl,
-                           device=device, params=params, gmm_impl=gmm_impl,
-                           decode_impl=decode_impl)
+    ex = TorchSlotExecutor(cfg, max_len, n_slots=n_slots, **kw)
     return ex, slot_kv_cache(max_len, n_slots)

@@ -13,19 +13,32 @@ The reference compiles the per-slot step once (``jax.jit`` of
 batch-1 cache (``init_cache``'s layout, which is the prefill cache's),
 a static token and the step captured over them as a CUDA graph
 (:class:`~repro_torch.serve.decode_graph.DecodeGraph`; a direct call on
-the CPU or with ``decode_impl="eager"``).  The pool grows in the prefill
-that first finds no free entry — the new entry is warmed up and captured
-on its zeroed cache, and only then is the request's prefill cache copied
-in, every leaf, a leaf of another shape or dtype raising — so it holds
-as many entries as requests were ever live at once; ``release`` returns
-an entry to the free list.  A step writes the cache in place
-(``decode_step_inplace``) and its argmax into the token, the next step's
-input.  All entries capture on one side stream into one memory pool:
-their replays run one after another on the current stream, never
-together, and nothing a capture allocates is read after its replay (a
-step's inputs and outputs are the entry's static tensors), so entries
-may reuse each other's intermediates.  The pool costs about one step's
-intermediates, not one per entry.
+the CPU or with ``decode_impl="eager"``).  Given ``n_slots`` (as
+``make_executor`` gives it), the executor makes its ``n_slots`` entries
+when it is built, each warmed up and captured on its zeroed cache, so no
+capture lands in a request's time to first token; without it the pool
+grows in the prefill that first finds no free entry, to as many entries
+as requests were ever live at once.  A prefill copies the request's
+prefill cache into a free entry, every leaf, a leaf of another shape or
+dtype raising; ``release`` returns the entry to the free list.  A step
+writes the cache in place (``decode_step_inplace``) and its argmax into
+the token, the next step's input.
+
+The reference jits its batch-1 prefill, compiled once per prompt
+length; the port captures it once per length
+(:class:`~repro_torch.serve.prefill_graph.PrefillGraphs`,
+``prefill_impl``): static tokens (1, s) in, filled by a non-blocking copy
+from pinned host memory, the cache written into one static *landing*
+cache (``init_cache(cfg, 1, max_len)``'s layout, shared by every length)
+and the argmax into a static token; the landing cache is then copied
+into the request's entry, outside the graph.
+
+All graphs — the entries' and the prefills' — capture on one side stream
+into one memory pool: their replays run one after another on the
+current stream, never together, and nothing a capture allocates is read
+after its replay (a step's inputs and outputs are static tensors), so
+the graphs may reuse each other's intermediates.  The pool costs about
+one step's intermediates, not one per graph.
 
 ``prefill`` and ``decode`` issue every slot's work, then read all the
 slots' tokens in one device-to-host copy, which synchronises the device
@@ -38,7 +51,7 @@ from __future__ import annotations
 
 import functools
 import time
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -48,6 +61,9 @@ from repro_torch.models import model
 from repro_torch.models.compute_params import serving_params
 from repro_torch.serve.decode_graph import DecodeGraph, resolve_decode_impl
 from repro_torch.serve.kv_cache import PagedKVCache
+from repro_torch.serve.prefill_graph import (MAX_PREFILL_GRAPHS,
+                                             PrefillGraphs, copy_inputs,
+                                             resolve_prefill_impl)
 from repro_torch.step_graph import graph_stats
 from repro_torch.tree import copy_tree_
 
@@ -73,6 +89,17 @@ def greedy_step(decode, params, b) -> None:
     b["tok"].copy_(torch.argmax(logits, -1))
 
 
+def cache_prefill_step(prefill, params, b) -> None:
+    """The captured prefill into a static cache (the per-slot executor's
+    landing cache, or the static server's decode cache at its full
+    batch): the tokens ``b["tokens"]`` in, the prefill cache copied into
+    ``b["cache"]`` and the argmax into ``b["tok"]``.  A free function, as
+    :func:`greedy_step` is."""
+    logits, cache = prefill(params, {"tokens": b["tokens"]})
+    copy_tree_(b["cache"], cache, "cache")
+    b["tok"].copy_(torch.argmax(logits, -1))
+
+
 class TorchSlotExecutor:
     """Batch-1 prefill and decode per request over the real model.
 
@@ -86,19 +113,27 @@ class TorchSlotExecutor:
     ``attn_impl`` and ``gmm_impl`` select flash attention and the experts'
     grouped matmul: "auto" = the kernels on CUDA, the plain versions on the
     CPU (the recurrence kernels always run as "auto"); ``decode_impl`` the
-    entries' step: "auto" = a CUDA graph on CUDA, a direct call on the CPU
-    (:mod:`~repro_torch.serve.decode_graph`).
+    entries' step and ``prefill_impl`` the prefill's graphs, at most
+    ``max_prefill_graphs`` of them: "auto" = a CUDA graph on CUDA, a
+    direct call on the CPU (:mod:`~repro_torch.serve.decode_graph`,
+    :mod:`~repro_torch.serve.prefill_graph`).  ``n_slots``, where given,
+    is the number of entries made here.
     """
 
     def __init__(self, cfg, max_len: int,
                  clock: Callable[[], float] = time.monotonic,
                  attn_impl: str = "auto", device=None, params=None,
-                 gmm_impl: str = "auto", decode_impl: str = "auto"):
+                 gmm_impl: str = "auto", decode_impl: str = "auto",
+                 prefill_impl: str = "auto",
+                 max_prefill_graphs: int = MAX_PREFILL_GRAPHS,
+                 n_slots: Optional[int] = None):
         self.cfg = cfg
         self.max_len = max_len
+        self.n_slots = n_slots
         self.clock = clock
         self.device = resolve_device(device)
         self._decode_mode = resolve_decode_impl(decode_impl, self.device)
+        prefill_mode = resolve_prefill_impl(prefill_impl, self.device)
         # the tree the model runs on: weights cast to the compute dtype
         # once here, not on every call (bit-identical results)
         self.params = params
@@ -116,22 +151,50 @@ class TorchSlotExecutor:
         self._tok: Dict[int, torch.Tensor] = {}
         # one side stream and one memory pool for every capture
         self._stream = self._mempool = None
-        if self._decode_mode == "graph":
+        if "graph" in (self._decode_mode, prefill_mode):
             self._stream = torch.cuda.Stream(self.device)
             self._mempool = torch.cuda.graph_pool_handle()
+        # the prefill graphs' landing cache and token, shared by every
+        # prompt length
+        with torch.inference_mode():
+            self._landing = {
+                "cache": model.init_cache(cfg, 1, max_len, self.device),
+                "tok": torch.zeros((1,), dtype=torch.int64,
+                                   device=self.device)}
+            self._prefills = PrefillGraphs(
+                functools.partial(cache_prefill_step, self._prefill,
+                                  self.serving_params),
+                self._prefill_buffers, self.device, prefill_mode,
+                self._stream, self._mempool, max_prefill_graphs)
+            for _ in range(n_slots or 0):
+                self._spare.append(self._new_entry())
         # what a run did: prefilled requests and decode calls
         self.prefills = 0
         self.decode_steps = 0
 
     # ---- introspection ----------------------------------------------------
     def decode_graph_count(self) -> int:
-        """Captured decode graphs: the entries made on the graph path (at
-        most the most requests live at once), 0 on the eager path."""
+        """Captured decode graphs: the entries made on the graph path
+        (``n_slots`` where it was given, else at most the most requests
+        live at once), 0 on the eager path."""
         return sum(e.captures for e in self._pool)
 
     def decode_graph_stats(self) -> Dict[str, float]:
         """The entries' summed counts (:func:`graph_stats`)."""
         return graph_stats(self._pool)
+
+    def prefill_graph_count(self) -> int:
+        """Captured prefill graphs kept: one per prompt length seen, at
+        most ``max_prefill_graphs``; 0 on the eager path."""
+        return self._prefills.count()
+
+    def prefill_graph_stats(self) -> Dict[str, float]:
+        """The prefill graphs' counts (:meth:`PrefillGraphs.stats`)."""
+        return self._prefills.stats()
+
+    def _prefill_buffers(self, shape) -> Dict[str, object]:
+        return {"tokens": torch.zeros(shape, dtype=torch.int64,
+                                      device=self.device), **self._landing}
 
     # ---- entries ------------------------------------------------------------
     def _new_entry(self) -> DecodeGraph:
@@ -163,14 +226,15 @@ class TorchSlotExecutor:
                 if r.prompt is None:
                     raise ValueError(
                         f"request {r.rid} carries no prompt tokens")
-                tokens = torch.from_numpy(
-                    np.asarray(r.prompt, np.int64)[None, :]).to(self.device)
-                logits, cache = self._prefill(self.serving_params,
-                                              {"tokens": tokens})
+                tokens = np.asarray(r.prompt, np.int64)[None, :]
                 entry = self._spare.pop() if self._spare else \
                     self._new_entry()
-                copy_tree_(entry.buffers["cache"], cache, "cache")
-                entry.buffers["tok"].copy_(torch.argmax(logits, -1))
+                out = self._prefills(
+                    tokens.shape,
+                    lambda b: copy_inputs(b, {"tokens": tokens},
+                                          self.device))
+                copy_tree_(entry.buffers["cache"], out["cache"], "cache")
+                entry.buffers["tok"].copy_(out["tok"])
                 self._entries[r.rid] = entry
                 self._caches[r.rid] = entry.buffers["cache"]
                 self._tok[r.rid] = entry.buffers["tok"]

@@ -20,15 +20,18 @@ There is no fallback: a CUDA step in ``"auto"`` is captured or the
 constructor raises, and nothing is caught.
 
 Capture follows PyTorch's recipe: a side stream waits on the current
-one, ``WARMUP`` calls run on it outside the capture (they make what a
-first call makes: paged attention's per-stream ticket array, the kernel
-libraries, cuBLAS's per-stream workspace, the allocator's blocks), then
-the step is captured on that same stream, so the graph keeps that
-stream's state.  Work the step runs in autograd's backward is captured
-too: autograd runs each backward node on its forward's stream.  Replays
-run on the current stream; the side stream gets no work after the
-capture, and the current stream waits for it once, so every replay is
-ordered after the warm-up.  A replay launches nothing from Python, so
+one, ``warmup`` calls (``WARMUP`` by default) run on it outside the
+capture (they make what a first call makes: paged attention's per-stream
+ticket array, the kernel libraries, cuBLAS's per-stream workspace, the
+allocator's blocks), then the step is captured on that same stream, so
+the graph keeps that stream's state.  A graph captured on a side stream
+where a step of the same kernels has already run (the prefill graphs
+after an owner's first, ``serve/prefill_graph.py``) may pass
+``warmup=0``: what a first call makes is there already.  Work the step
+runs in autograd's backward is captured too: autograd runs each backward
+node on its forward's stream.  Replays run on the current stream; the
+side stream gets no work after the capture, and the current stream
+waits for it once, so every replay is ordered after the warm-up.  A replay launches nothing from Python, so
 the kernel wrappers' ``LAUNCHES`` counters see only the ``calls``
 (warm-ups, capture, eager calls): the kernels a run really launched are
 ``calls`` plus ``replays`` times those of one step.
@@ -71,16 +74,19 @@ class StepGraph:
 
     ``stream`` and ``pool`` let several graphs share one side stream and
     one memory pool (the per-slot executor's entries); by default each
-    graph has its own.  Counts: ``captures`` (0 or 1), ``replays``,
-    ``calls`` (direct calls of ``step``), ``capture_s`` (wall seconds of
-    the warm-up and the capture) and ``capture_bytes`` (device memory the
+    graph has its own.  ``warmup`` is the number of direct calls before
+    the capture.  Counts: ``captures`` (0 or 1), ``replays``, ``calls``
+    (direct calls of ``step``), ``capture_s`` (wall seconds of the
+    warm-up and the capture) and ``capture_bytes`` (device memory the
     capture reserved: the graph's share of its pool)."""
 
     def __init__(self, step: Callable[[Dict[str, Any]], None],
                  buffers: Dict[str, Any], device: torch.device,
                  impl: str = "auto",
                  stream: Optional["torch.cuda.Stream"] = None,
-                 pool=None, option: str = "impl"):
+                 pool=None, option: str = "impl", warmup: int = WARMUP):
+        if warmup < 0:
+            raise ValueError(f"warmup must be >= 0, got {warmup}")
         self.step = step
         self.buffers = buffers
         self.mode = resolve_impl(impl, device, option)
@@ -88,6 +94,7 @@ class StepGraph:
         self.capture_s = 0.0
         self.capture_bytes = 0
         self.graph = None
+        self.warmup = warmup
         if self.mode == "graph":
             self._capture(device, stream, pool)
 
@@ -101,7 +108,7 @@ class StepGraph:
         side = stream if stream is not None else torch.cuda.Stream(device)
         side.wait_stream(cur)
         with torch.cuda.stream(side):
-            for _ in range(WARMUP):
+            for _ in range(self.warmup):
                 self._call()
         # torch.cuda.graph empties the allocator's cache on entry; doing it
         # first makes the reserved bytes' growth the graph's own segments

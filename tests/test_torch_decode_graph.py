@@ -137,11 +137,12 @@ def test_batched_buffers_keep_their_addresses():
 @pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-3b"])
 def test_slot_entries_keep_their_addresses(arch):
     """Every entry's leaves stay where they were made; a live request's
-    cache is its entry's; the pool grows to the most requests live at
-    once and no further."""
+    cache is its entry's; the pool holds the ``n_slots`` entries
+    ``make_executor`` has the executor make when built, and no more."""
     cfg = get_smoke(arch)
     ex, kv = make_executor(cfg, 24, 3, device="cpu")
     assert isinstance(ex, TorchSlotExecutor)
+    assert len(ex._pool) == 3 == len(ex._spare)
     made = {}
     peak = [0]
 

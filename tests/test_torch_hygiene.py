@@ -39,6 +39,7 @@ def test_port_has_modules_and_smoke_script():
             "repro_torch/kernels/moe_gmm/moe_gmm.py",
             "repro_torch/models/moe.py",
             "repro_torch/serve/slot_executor.py",
+            "repro_torch/serve/prefill_graph.py",
             "repro_torch/kernels/rglru_scan/rglru_scan.py",
             "repro_torch/kernels/rwkv6_wkv/rwkv6_wkv.py",
             "repro_torch/models/rglru.py",

@@ -592,9 +592,11 @@ def test_executor_on_card_matches_host(card, arch):
     """SMOKE config (fp32) served on the card through the kernels gives
     the host's tokens on the same weights and requests, through the
     executor ``make_executor`` picks (batched paged for dense and MoE,
-    per-slot for the recurrent families).  On the card the decode step is
-    a captured graph: the counters see its warm-up and capture calls
-    (``decode_graph_stats()["calls"]``), not its replays."""
+    per-slot for the recurrent families).  On the card the decode step and
+    each prompt length's prefill are captured graphs: the counters see
+    their warm-up and capture calls (``decode_graph_stats()["calls"]``,
+    ``prefill_graph_stats()["calls"]``), not their replays, and every
+    prefill is a replay."""
     from repro_torch.configs import get_smoke
     from repro_torch.models.init import init_params
     from repro_torch.serve.batched_executor import make_executor
@@ -627,7 +629,9 @@ def test_executor_on_card_matches_host(card, arch):
                                             (17, 12), (99, 30), (3, 2)])]
         ContinuousServeEngine(4, ex, slo=NO_SLO, kv_cache=kv).run(reqs)
         got = [m.LAUNCHES - n for m, n in zip(mods, n0)]
-        pre, dec = ex.prefills, ex.decode_graph_stats()["calls"]
+        p = ex.prefill_graph_stats()
+        pre, dec = p["calls"], ex.decode_graph_stats()["calls"]
+        assert p["replays"] == (ex.prefills if dev == "cuda" else 0)
         if dev == "cpu":
             assert got == [0] * 5
         elif cfg.family == "hybrid":
