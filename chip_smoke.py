@@ -8,7 +8,7 @@ checkout's ``src/``; imports nothing of JAX or of the JAX package.  Phases,
 each of which raises on failure (nothing is caught):
 
 1. the card's name and power limit, the torch/CUDA versions, and the
-   build of all six kernels from ``src/repro_torch/kernels/csrc``
+   build of all seven kernels from ``src/repro_torch/kernels/csrc``
    (nvcc, sm_90a, one process per source, all at once);
 2. the launch floor (the graph-replay time of one in-place add on a
    one-element tensor), then each kernel against its plain PyTorch
@@ -86,7 +86,26 @@ each of which raises on failure (nothing is caught):
    batches, bit-identical params, m, v, step and metrics; (g) 10
    captured steps on one fixed batch, whose loss must fall, and 5
    direct-call ones with the same losses; (h) a profile of 2 steps of
-   each for the device busy share.
+   each for the device busy share;
+7. training deepseek-moe-16b at its published widths with the depth cut
+   28 -> 2 (the dense first layer and one MoE layer of 64 routed top-6
+   and 2 shared experts; bf16 compute, fp32 master params, batch 4 x
+   2048, so 960 rows per expert), each part freeing its memory before
+   the next: (a) the grouped matmul's backward (``moe_gmm_bwd``, dX and
+   dW) against its plain version at the wi / wg and wo training shapes
+   with a real top-6 routing's row counts, and a ragged case with empty
+   experts, fp32 on the CUDA cores and bf16 on the tensor cores, with
+   its time, the plain version's, ``torch.bmm``'s and its bound, and the
+   forward at C = 960; (b) the full model's loss and gradients with the
+   kernels and with the plain versions, as in phase 6, after both fp32
+   runs routed every token alike; (c) a captured ``TrainStep`` built
+   from a state held on the host, 10 steps on one fixed batch (the loss
+   must fall, the aux loss stay finite and positive): step ms,
+   tokens/s, MFU by active parameters, peak memory, capture seconds and
+   pool bytes, a 2-step profile; (d) ``train_moe_graph_vs_eager``: a
+   captured and a direct-call step from the same host state over the
+   same 3 batches, one after the other, bit-identical metrics and final
+   params, m, v and step.
 
 Every serving run goes through the executor's ``serving_params`` (the
 weights cast to the compute dtype once) and runs each decode step as a
@@ -144,7 +163,9 @@ The training runs' counters are zeroed before each run and must read,
 per direct call of the train step (its 2 warm-ups and its capture, on a
 cold ``AotCache`` only; a replay makes no Python call), one flash
 forward per layer, again in remat's recompute, and one flash backward
-per layer, all on the tensor cores; the launches a run reports add one
+per layer, and for the MoE 3 grouped-matmul forwards per MoE layer,
+again in remat's recompute, and 3 backward calls (``LAUNCHES_BWD``, each
+dX and dW), all on the tensor cores; the launches a run reports add one
 step's per replay, and the replays must equal the steps.
 
 Prints one JSON line per measured case, then the kernels' summary line,
@@ -668,8 +689,9 @@ def reset_counts():
         mod.LAUNCHES = 0
     for name in TC_KERNELS:
         mods[name].LAUNCHES_TC = 0
-    mods["flash_attention"].LAUNCHES_BWD = 0
-    mods["flash_attention"].LAUNCHES_BWD_TC = 0
+    for name in ("flash_attention", "moe_gmm"):
+        mods[name].LAUNCHES_BWD = 0
+        mods[name].LAUNCHES_BWD_TC = 0
 
 
 def read_counts():
@@ -1828,13 +1850,37 @@ def _rel_dist(torch, a, b) -> float:
     return torch.linalg.vector_norm(a - b).item() / max(nb, 1e-30)
 
 
-def train_grads_kernel_vs_plain(torch, cfg):
+def _record_routing(store):
+    """Make the port's router keep each call's expert ids (the device
+    tensor it returns) in ``store``; returns the function that undoes
+    it."""
+    from repro_torch.models import moe
+
+    real = moe.router_topk
+
+    def router(x2d, router_w, cfg):
+        out = real(x2d, router_w, cfg)
+        store.append(out[1])
+        return out
+
+    moe.router_topk = router
+    return lambda: setattr(moe, "router_topk", real)
+
+
+def train_grads_kernel_vs_plain(torch, cfg, batch_size=TRAIN_BATCH,
+                                seq=TRAIN_SEQ):
     """One loss and gradient of the full-width model (random weights
-    from seed 0, one DataPipeline batch of 8 x 2048 tokens) with kernel
-    and with plain attention, through the train step's mixed-precision
+    from seed 0, one DataPipeline batch of ``batch_size`` x ``seq``
+    tokens) with the kernels (attention, and the experts' grouped
+    matmul for a MoE, forward and backward) and with their plain
+    versions, through the train step's mixed-precision
     ``value_and_grad``: fp32 compute held leaf by leaf to the plain
     gradients, bf16 compute held to the plain bf16 model's own distance
-    from the fp32 plain gradients (the module note)."""
+    from the fp32 plain gradients (the module note).  For a MoE the two
+    fp32 runs must route every token alike first (each MoE layer's
+    expert ids, recorded from the router): a near-tie tipped by the
+    kernels' summation order would show as such, not as a gradient
+    off."""
     from repro_torch.data.pipeline import DataPipeline
     from repro_torch.launch.strategy import value_and_grad
     from repro_torch.models.init import init_params
@@ -1844,18 +1890,29 @@ def train_grads_kernel_vs_plain(torch, cfg):
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          dev)
     batch = {k: torch.from_numpy(a).to(dev) for k, a in next(DataPipeline(
-        cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=5)).items()}
+        cfg.vocab_size, batch_size, seq, seed=5)).items()}
     names = flatten(_leaf_names(params))[0]
-    res = {}
+    res, routes = {}, {}
     for dt in (torch.float32, torch.bfloat16):
         c = dataclasses.replace(cfg, compute_dtype=dt)
         for impl in ("ref", "kernel"):
-            t0 = time.perf_counter()
-            loss, _, grads = value_and_grad(c, impl)(params, batch)
-            torch.cuda.synchronize()
+            routes[(dt, impl)] = []
+            undo = _record_routing(routes[(dt, impl)])
+            try:
+                t0 = time.perf_counter()
+                loss, metrics, grads = value_and_grad(c, impl, impl)(params,
+                                                                     batch)
+                torch.cuda.synchronize()
+            finally:
+                undo()
             res[(dt, impl)] = (float(loss), flatten(grads)[0],
-                               time.perf_counter() - t0)
+                               time.perf_counter() - t0,
+                               float(metrics["aux"]))
     f32, b16 = torch.float32, torch.bfloat16
+    # each MoE layer's ids from the forward (remat's recompute repeats them)
+    n_moe = (cfg.num_layers - cfg.first_k_dense) if cfg.num_experts else 0
+    tipped = [int((a != b).any(dim=-1).sum()) for a, b in zip(
+        routes[(f32, "kernel")][:n_moe], routes[(f32, "ref")][:n_moe])]
     worst32, worst16, control = 0.0, 0.0, float("inf")
     failed = []
     for i, name in enumerate(names):
@@ -1870,15 +1927,23 @@ def train_grads_kernel_vs_plain(torch, cfg):
             failed.append((name, d32, d16, floor))
     loss_err = abs(res[(f32, "kernel")][0] - res[(f32, "ref")][0])
     log({"phase": "train_grads_kernel_vs_plain", "arch": cfg.name,
-         "batch": [TRAIN_BATCH, TRAIN_SEQ], "leaves": len(names),
+         "num_layers": cfg.num_layers, "batch": [batch_size, seq],
+         "leaves": len(names),
          "loss": {f"{str(dt)}_{impl}": v[0] for (dt, impl), v in res.items()},
+         "aux": {f"{str(dt)}_{impl}": v[3] for (dt, impl), v in res.items()},
          "seconds": {f"{str(dt)}_{impl}": v[2]
                      for (dt, impl), v in res.items()},
+         "fp32_tokens_routed_apart": tipped,
          "fp32_loss_abs_err": loss_err,
          "fp32_worst_leaf_rel": worst32, "fp32_rtol": TRAIN_FP32_GRAD_RTOL,
          "bf16_floor_min_leaf_rel": control,
          "bf16_worst_leaf_ratio": worst16,
          "bf16_factor": DS_BF16_FLOOR_FACTOR})
+    del res, routes, params, batch
+    if any(tipped):
+        raise AssertionError(f"{cfg.name}: the fp32 kernel and plain runs "
+                             f"route {tipped} tokens apart (per MoE layer): "
+                             f"a near-tie between two experts")
     if control <= TRAIN_FP32_GRAD_RTOL:
         raise AssertionError(f"{cfg.name}: the plain bf16 gradients lie "
                              f"within {control} of fp32, under the fp32 "
@@ -1897,33 +1962,38 @@ def _leaf_names(tree, prefix=""):
 
 
 def train_counts_per_call(cfg):
-    """Flash launches of one train step: one forward per attention layer,
-    again under remat's recompute, and one backward per attention
-    layer."""
-    return {"flash_attention": cfg.num_layers * (1 + int(cfg.remat)),
-            "flash_attention_bwd": cfg.num_layers}
+    """Kernel launches of one train step: one flash forward per attention
+    layer, again under remat's recompute, and one flash backward per
+    attention layer; for a MoE, 3 grouped-matmul forwards per MoE layer
+    (again under remat) and 3 backward calls (dX and dW each)."""
+    n_fwd = 1 + int(cfg.remat)
+    n_moe = cfg.num_layers - cfg.first_k_dense if cfg.num_experts else 0
+    return {"flash_attention": cfg.num_layers * n_fwd,
+            "flash_attention_bwd": cfg.num_layers,
+            "moe_gmm": 3 * n_moe * n_fwd, "moe_gmm_bwd": 3 * n_moe}
 
 
 def check_train_counts(cfg, what, calls: int, replays: int):
-    """The flash launches counted since ``reset_counts``, which must be
+    """The launches counted since ``reset_counts``, which must be
     ``train_counts_per_call``'s times ``calls``, the direct calls of the
     train step (its warm-ups and capture on the graph path; a replay
     launches from no Python call), every forward and every backward on
     the tensor cores (the runs compute in bf16).  Returns the launches
     the run made: ``calls`` plus ``replays`` times one step's."""
-    fa = _kernel_modules()["flash_attention"]
-    counts = {"flash_attention": fa.LAUNCHES,
-              "flash_attention_bwd": fa.LAUNCHES_BWD}
-    tc, tc_bwd = fa.LAUNCHES_TC, fa.LAUNCHES_BWD_TC
+    mods = _kernel_modules()
+    counts, tc = {}, {}
+    for name in ("flash_attention", "moe_gmm"):
+        mod = mods[name]
+        counts[name], tc[name] = mod.LAUNCHES, mod.LAUNCHES_TC
+        counts[name + "_bwd"] = mod.LAUNCHES_BWD
+        tc[name + "_bwd"] = mod.LAUNCHES_BWD_TC
     per = train_counts_per_call(cfg)
     want = {k: n * calls for k, n in per.items()}
-    if (counts != want or tc != counts["flash_attention"]
-            or tc_bwd != counts["flash_attention_bwd"]):
+    if counts != want or tc != counts:
         raise AssertionError(
-            f"{what}: flash launches {counts} ({tc} forward, {tc_bwd} "
-            f"backward on the tensor cores), expected {want} for {calls} "
-            f"direct calls of the step, every bf16 launch on the tensor "
-            f"cores")
+            f"{what}: launches {counts} ({tc} on the tensor cores), "
+            f"expected {want} for {calls} direct calls of the step, every "
+            f"bf16 launch on the tensor cores")
     return {k: n * (calls + replays) for k, n in per.items()}
 
 
@@ -2289,6 +2359,312 @@ def train_runs(torch, cfg):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 7: training deepseek-moe-16b at its published widths, depth 2
+# ---------------------------------------------------------------------------
+
+# 4 x 2048 = 8,192 tokens: capacity 960 rows per expert
+MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 4, 2048
+MOE_TRAIN_LAYERS = 2                    # the dense first layer and one MoE
+
+
+def _gmm_bwd_bound(torch, x, w, counts):
+    """Bound of one ``moe_gmm_bwd`` call on these inputs: dX's and dW's
+    flops over the rows the counts hold, against the bytes of those rows
+    of x and dy, the weights of the experts that hold a row (read once)
+    and all of dx and dw (written once)."""
+    e, c, k = x.shape
+    f = w.shape[2]
+    es = x.element_size()
+    if counts is None:
+        n_rows, live = e * c, e
+    else:
+        n_rows, live = int(counts.sum()), int((counts > 0).sum())
+    flops = 4.0 * n_rows * k * f
+    nbytes = (es * (n_rows * (k + f) + live * k * f + e * c * k + e * k * f)
+              + (0 if counts is None else 4 * e))
+    return bound(flops, nbytes, x.dtype), flops, n_rows, live
+
+
+def gmm_bwd_cases(torch):
+    """The grouped matmul's backward (``moe_gmm_bwd``: dX and dW in one
+    call) against ``moe_gmm_bwd_ref`` on the same inputs, at the training
+    shapes of deepseek-moe-16b (C = 960, the wi / wg product (2048,
+    1408) and the wo product (1408, 2048)) with the row counts of a real
+    top-6 routing of 8,192 tokens, and a ragged case (C = 200, experts
+    with no row, rows past the counts holding values that must add
+    nothing); fp32 on the CUDA cores, bf16 on the tensor cores; two calls
+    bit-identical.  Each line: the call's device time (graph replays),
+    dX's and dW's kernels' shares of it (a profile), the plain version's
+    time, the library calls' (``torch.bmm(dy, w^T)`` for dX, ``torch.bmm
+    (x^T, dy)`` for dW, and their sum) and the bound of the rows the
+    counts hold.  Then the forward ``moe_gmm`` at the wi shape, C = 960
+    (first timed there), against the plain version, ``torch.bmm`` and
+    its bound.  Returns (backward lines, forward lines)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.moe_gmm import moe_gmm as mg
+    from repro_torch.kernels.moe_gmm.ref import moe_gmm_bwd_ref, moe_gmm_ref
+
+    dev = torch.device("cuda")
+    tokens = MOE_TRAIN_BATCH * MOE_TRAIN_SEQ
+    shapes = [("train_wi", 64, 960, 2048, 1408),
+              ("train_wo", 64, 960, 1408, 2048),
+              ("ragged", 8, 200, 256, 136)]
+    rows, fwd_rows = [], []
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        for what, e, c, k, f in shapes:
+            g = torch.Generator(device=dev).manual_seed(e + c + k + f)
+            x = torch.randn((e, c, k), generator=g, device=dev).to(dtype)
+            w = (torch.randn((e, k, f), generator=g, device=dev)
+                 * k ** -0.5).to(dtype)
+            dy = torch.randn((e, c, f), generator=g, device=dev).to(dtype)
+            if what == "ragged":
+                counts = torch.tensor([0, 200, 37, 1, 0, 150, 199, 64],
+                                      dtype=torch.int32, device=dev)
+            else:
+                counts = routed_counts(torch, e, c, tokens, 6, seed=23)
+                # the model's buffers: rows past the counts are zeros
+                live_rows = torch.arange(c, device=dev)[None, :] < counts[
+                    :, None]
+                x *= live_rows[..., None]
+            name = f"moe_gmm_bwd {what} {dtype}"
+
+            def call():
+                return mg.moe_gmm_bwd(x, w, dy, counts)
+
+            (dx, dw), inst = run_counted(torch, mg, name, call,
+                                         counter="LAUNCHES_BWD",
+                                         tc_counter="LAUNCHES_BWD_TC")
+            if inst != ("tc" if bf16 else "cuda_core"):
+                raise AssertionError(f"{name}: ran on the {inst} instance")
+            rdx, rdw = moe_gmm_bwd_ref(x, w, dy, counts)
+            errs = {"dx": check_close(torch, f"{name} dx", dx, rdx,
+                                      TOL[str(dtype)]),
+                    "dw": check_close(torch, f"{name} dw", dw, rdw,
+                                      TOL[str(dtype)])}
+            past = (torch.arange(c, device=dev)[None, :]
+                    >= counts[:, None])[..., None]
+            if bool((dx.masked_select(past) != 0).any()):
+                raise AssertionError(f"{name}: dx rows past the counts are "
+                                     f"not zero")
+            del dx, dw, rdx, rdw
+            (bound_ms, bound_by), flops, n_rows, live = _gmm_bwd_bound(
+                torch, x, w, counts)
+            big = not bf16 and what != "ragged"
+            reps = dict(reps=2, replays=3) if big else {}
+            kernel_ms = graph_ms(torch, call, **reps)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    call()
+                torch.cuda.synchronize()
+            split = {ev.key[:60]: ev.self_device_time_total / 3e3
+                     for ev in prof.key_averages()
+                     if ev.device_type == DeviceType.CUDA
+                     and "gmm_bwd" in ev.key}
+            lib = {"dx": graph_ms(torch, lambda: torch.bmm(
+                       dy, w.transpose(1, 2)), **reps),
+                   "dw": graph_ms(torch, lambda: torch.bmm(
+                       x.transpose(1, 2), dy), **reps)}
+            row = {"kernel": "moe_gmm_bwd", "case": what,
+                   "dtype": str(dtype), "e": e, "c": c, "k": k, "f": f,
+                   "filled_rows": n_rows, "live_experts": live,
+                   "instance": inst, "max_abs_err": max(errs.values()),
+                   "errs": errs, "tol": TOL[str(dtype)],
+                   "kernel_ms": kernel_ms, "kernel_split_ms": split,
+                   "plain_ms": graph_ms(torch, lambda: moe_gmm_bwd_ref(
+                       x, w, dy, counts), reps=2, replays=3),
+                   "library_ms": lib["dx"] + lib["dw"],
+                   "library_dx_ms": lib["dx"], "library_dw_ms": lib["dw"],
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "flops": flops, "tflops": flops / kernel_ms / 1e9}
+            rows.append(row)
+            log(row)
+            if what == "train_wi" and bf16:
+                # the forward at the training capacity, as the model runs it
+                fname = f"moe_gmm {what}_forward {dtype}"
+
+                def fcall():
+                    return mg.moe_gmm(x, w, counts)
+
+                out, finst = run_counted(torch, mg, fname, fcall)
+                err = check_close(torch, fname, out,
+                                  moe_gmm_ref(x, w, counts), TOL[str(dtype)])
+                es = x.element_size()
+                fb = bound(2.0 * n_rows * k * f,
+                           es * (n_rows * k + live * k * f + e * c * f)
+                           + 4 * e, dtype)
+                frow = {"kernel": "moe_gmm", "case": f"{what}_forward",
+                        "dtype": str(dtype), "e": e, "c": c, "k": k, "f": f,
+                        "filled_rows": n_rows, "live_experts": live,
+                        "instance": finst, "max_abs_err": err,
+                        "tol": TOL[str(dtype)], "kernel_ms": graph_ms(
+                            torch, fcall),
+                        "plain_ms": graph_ms(torch, lambda: moe_gmm_ref(
+                            x, w, counts), reps=2, replays=3),
+                        "library_ms": graph_ms(torch,
+                                               lambda: torch.bmm(x, w)),
+                        "bound_ms": fb[0], "bound_by": fb[1]}
+                fwd_rows.append(frow)
+                log(frow)
+                del out
+            del x, w, dy, counts
+            gc.collect()
+            torch.cuda.empty_cache()
+    return rows, fwd_rows
+
+
+def _host(tree):
+    """A copy of a tree of device tensors on the host."""
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t: t.detach().cpu(), tree)
+
+
+def train_moe_runs(torch, cfg):
+    """The MoE training path at full published width, depth
+    ``cfg.num_layers`` (batch 4 x 2048, bf16 compute, fp32 master
+    params, random weights from seed 0, the initial state held on the
+    host so that the card holds only the step's own): (a) a captured
+    ``TrainStep``, 10 steps on one fixed batch, whose loss must fall by
+    LEARN_MARGIN with a finite aux above 0 at every step: step ms (mean
+    of the steady steps), tokens/s, MFU by active parameters, peak
+    memory, capture seconds and pool bytes, and a 2-step profile for the
+    device busy share and the top kernels; (b) ``train_moe_graph_vs_
+    eager``: a captured and a direct-call step from the same state over
+    the same 3 batches, one after the other (two steps do not fit the
+    card at once), the first's metrics and final state held on the host:
+    bit-identical params, m, v, step and metrics.  Launches counted
+    exactly, per direct call, all on the tensor cores.  Returns the
+    launches made, replays counted."""
+    import numpy as np
+
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.launch.strategy import TrainStep, init_train_state
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.tree import flatten
+
+    b, s = MOE_TRAIN_BATCH, MOE_TRAIN_SEQ
+    opt = AdamWConfig(lr=1e-3)
+    s0 = _host(init_train_state(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+
+    # (a) the captured step on one fixed batch
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    step = TrainStep(cfg, opt, s0, b, s, "graph", device="cuda")
+    build_s = time.perf_counter() - t0
+    batch = {k: torch.from_numpy(a) for k, a in next(DataPipeline(
+        cfg.vocab_size, b, s, seed=123)).items()}
+    walls, losses, auxes = [], [], []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        m = step(batch)
+        losses.append(float(m["loss"]))
+        walls.append(1e3 * (time.perf_counter() - t0))
+        auxes.append(float(m["aux"]))
+    peak = (torch.cuda.max_memory_allocated() / 1e9,
+            torch.cuda.max_memory_reserved() / 1e9)
+    kernels, span = _profile_steps(torch, step, batch)
+    by_name = {}                      # device ms a step, by kernel name
+    for e in kernels:
+        key = e.key[:100]
+        by_name[key] = by_name.get(key, 0.0) + e.self_device_time_total / 2e3
+    g = step.graph
+    if g.replays != 10 + 2:
+        raise AssertionError(f"train_moe: {g.replays} replays for 10 + 2 "
+                             f"(profiled) steps")
+    add(check_train_counts(cfg, "train_moe", g.calls, g.replays))
+    dev_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:16]
+    step_s = float(np.mean(walls[1:])) / 1e3
+    tokens = b * s
+    n_active = cfg.num_active_params()
+    pairs = s * (s + 1) // 2
+    attn_flops = (12.0 * cfg.num_layers * b * cfg.num_heads * cfg.head_dim
+                  * pairs)
+    model_flops = 6.0 * n_active * tokens + attn_flops
+    log({"phase": "train_moe", "arch": cfg.name,
+         "num_layers": cfg.num_layers, "batch": b, "seq": s,
+         "n_params": cfg.num_params(), "n_active_params": n_active,
+         "losses": losses, "aux": auxes, "drop": losses[0] - losses[-1],
+         "margin": LEARN_MARGIN, "step_ms_all": walls,
+         "step_ms": 1e3 * step_s, "tokens_per_s": tokens / step_s,
+         "model_flops_per_step": model_flops,
+         "mfu": model_flops / step_s / PEAK_FLOPS["torch.bfloat16"],
+         "mfu_formula": "(6 N_active tokens + 12 L b hq d s(s+1)/2) / "
+                        "(step_s x 989e12); remat's forward not counted",
+         "peak_mem_gb": peak[0], "peak_reserved_gb": peak[1],
+         "build_s": build_s, "capture_s": g.capture_s,
+         "capture_gb": g.capture_bytes / 1e9, "step_calls": g.calls,
+         "step_replays": g.replays,
+         "profile": {"steps": 2, "wall_s": span, "device_s": dev_us / 1e6,
+                     "device_busy_share": dev_us / 2e6 / step_s,
+                     "device_busy_share_profiled": dev_us / 1e6 / span,
+                     "top_kernels_ms_per_step": dict(top),
+                     "top_kernels_share": {
+                         k: v * 2e3 / dev_us for k, v in top}}})
+    if not (all(np.isfinite(losses))
+            and losses[-1] < losses[0] - LEARN_MARGIN):
+        raise AssertionError(f"train_moe: losses {losses} did not fall by "
+                             f"{LEARN_MARGIN}")
+    if not all(np.isfinite(a) and a > 0 for a in auxes):
+        raise AssertionError(f"train_moe: aux losses {auxes}")
+    del step, g, m, kernels, top, by_name
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) graph vs eager, one after the other from the host state
+    pipe = DataPipeline(cfg.vocab_size, b, s, seed=7)
+    batches = [{k: torch.from_numpy(a) for k, a in next(pipe).items()}
+               for _ in range(3)]
+    seen = {}
+    for mode in ("graph", "eager"):
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        st = TrainStep(cfg, opt, s0, b, s, mode, device="cuda")
+        metrics = [{k: v.cpu() for k, v in st(bt).items()} for bt in batches]
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        calls, replays = st.graph.calls, st.graph.replays
+        if (calls, replays) != ((3, 3) if mode == "graph" else (4, 0)):
+            raise AssertionError(f"train_moe_graph_vs_eager {mode}: "
+                                 f"{calls} calls, {replays} replays")
+        add(check_train_counts(cfg, f"train_moe_graph_vs_eager {mode}",
+                               calls, replays))
+        seen[mode] = (metrics, st.state if mode == "eager"
+                      else _host(st.state), peak_gb)
+        if mode == "graph":
+            del st
+            gc.collect()
+            torch.cuda.empty_cache()
+    (mg, sg, peak_g), (me, se, peak_e) = seen["graph"], seen["eager"]
+    names = flatten(_leaf_names(sg))[0]
+    differ = [f"step {i} metric {k}" for i in range(3) for k in mg[i]
+              if not torch.equal(mg[i][k], me[i][k])]
+    differ += [n for n, a, e in zip(names, flatten(sg)[0], flatten(se)[0])
+               if not torch.equal(a, e.cpu())]
+    log({"phase": "train_moe_graph_vs_eager", "steps": 3,
+         "leaves": len(names), "losses": [float(x["loss"]) for x in mg],
+         "aux": [float(x["aux"]) for x in mg], "identical": not differ,
+         "differ": differ[:20], "peak_mem_gb": {"graph": peak_g,
+                                                "eager": peak_e}})
+    if differ:
+        raise AssertionError(f"train_moe graph vs eager: {len(differ)} "
+                             f"leaves or metrics differ: {differ[:20]}")
+    del seen, se, sg, s0
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2307,7 +2683,7 @@ def main() -> int:
     log({"torch": torch.__version__, "cuda": torch.version.cuda,
          "device": torch.cuda.get_device_name(0),
          "count": torch.cuda.device_count()})
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     reports = _build.build()
     log({"phase": "build", "seconds": time.perf_counter() - t0,
          "ptxas": {k: [ln.strip() for ln in v.splitlines()
@@ -2415,12 +2791,32 @@ def main() -> int:
     torch.cuda.empty_cache()
     c_train = train_runs(torch, cfg)
 
+    # phase 7: training deepseek-moe-16b at its published widths, depth
+    # cut 28 -> 2 (the dense first layer and one MoE layer)
+    dst = dataclasses.replace(get_config("deepseek-moe-16b"),
+                              num_layers=MOE_TRAIN_LAYERS)
+    if (dst.d_model, dst.num_heads, dst.head_dim, dst.num_experts,
+            dst.experts_per_token, dst.d_ff, dst.num_shared_experts,
+            dst.first_k_dense, dst.vocab_size, dst.compute_dtype,
+            dst.param_dtype) != (2048, 16, 128, 64, 6, 1408, 2, 1, 102400,
+                                 torch.bfloat16, torch.float32):
+        raise AssertionError(f"deepseek-moe-16b is not at full width: {dst}")
+    gmm_bwd, gmm_train = gmm_bwd_cases(torch)
+    train_grads_kernel_vs_plain(torch, dst, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ)
+    gc.collect()
+    torch.cuda.empty_cache()
+    c_train_moe = train_moe_runs(torch, dst)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # the summary: the main paths' shapes and dtypes (bf16 flash at the
     # longest smollm prompt, bf16 paged at smollm's mixed batch, the bf16
-    # grouped matmul at deepseek's decode, both fp32 scans at their
-    # models' 300-token prefill) with the launches of every serving run
+    # grouped matmul at deepseek's decode and its backward at deepseek's
+    # training wi / wg product, both fp32 scans at their models'
+    # 300-token prefill) with the launches of every serving and training
+    # run
     runs = (c_cli, c_eng, c_static, c_arrival, c_ds, c_gr, c_rg, c_rw,
-            c_train)
+            c_train, c_train_moe)
 
     def summary(rows, name, source, replaces, pick):
         r = [x for x in rows if pick(x)][0]
@@ -2446,6 +2842,7 @@ def main() -> int:
     def granite(x, b):          # bf16 at granite-3-8b's heads, b rows
         return x["dtype"] == bf16 and x["hq"] == 32 and x["b"] == b
 
+    log({"phase": "total", "seconds": time.perf_counter() - t_start})
     log({"kernels": [
         dict(summary(paged, "paged_attention",
                      "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -2486,9 +2883,25 @@ def main() -> int:
                 "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                 "src/repro/models/attention.py:52",
                 lambda x: x["dtype"] == bf16 and x["case"] == "smollm_train"),
-        summary(gmm, "moe_gmm", "src/repro_torch/kernels/csrc/moe_gmm.cu",
-                "src/repro/kernels/moe_gmm/moe_gmm.py:39",
-                lambda x: x["dtype"] == bf16 and x["case"] == "decode_wi"),
+        dict(summary(gmm, "moe_gmm",
+                     "src/repro_torch/kernels/csrc/moe_gmm.cu",
+                     "src/repro/kernels/moe_gmm/moe_gmm.py:39",
+                     lambda x: x["dtype"] == bf16
+                     and x["case"] == "decode_wi"),
+             # the training path's forward: the wi product at C = 960
+             train_shape=case(gmm_train, lambda x: True,
+                              ("e", "c", "k", "f", "filled_rows",
+                               "instance"))),
+        # no Pallas kernel: the reference differentiates the einsums of
+        # its expert FFN; the line is the training wi / wg product
+        dict(summary(gmm_bwd, "moe_gmm_bwd",
+                     "src/repro_torch/kernels/csrc/moe_gmm_bwd.cu",
+                     "src/repro/models/moe.py:64",
+                     lambda x: x["dtype"] == bf16
+                     and x["case"] == "train_wi"),
+             wo_shape=case(gmm_bwd, lambda x: x["dtype"] == bf16
+                           and x["case"] == "train_wo",
+                           ("e", "c", "k", "f", "filled_rows"))),
         # the static engine's batch-8 prefill of 200 tokens as batch8
         dict(summary(scan, "rglru_scan",
                      "src/repro_torch/kernels/csrc/rglru_scan.cu",

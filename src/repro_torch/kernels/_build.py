@@ -24,7 +24,7 @@ from typing import Dict, Sequence
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 KERNELS = ("flash_attention", "flash_attention_bwd", "paged_attention",
-           "moe_gmm", "rglru_scan", "rwkv6_wkv")
+           "moe_gmm", "moe_gmm_bwd", "rglru_scan", "rwkv6_wkv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -34,12 +34,16 @@ from repro_torch.tree import copy_tree_, flatten, tree_map, unflatten
 PyTree = Any
 
 
-def value_and_grad(cfg: ModelConfig, attn_impl: str = "auto") -> Callable:
+def value_and_grad(cfg: ModelConfig, attn_impl: str = "auto",
+                   gmm_impl: str = "auto") -> Callable:
     """f(params, batch) -> (loss, metrics, grads) of the loss at the fp32
     master ``params``, differentiated at their compute-dtype copies (the
     module note): grads is a tree like params, each leaf in its
-    differentiated copy's dtype.  loss and metrics are detached."""
-    lfn = model.loss_fn(cfg, attn_impl)
+    differentiated copy's dtype.  loss and metrics are detached.
+    ``attn_impl`` and ``gmm_impl`` pick the attention's and the MoE
+    experts' implementations (``repro_torch.kernels``), forward and
+    backward."""
+    lfn = model.loss_fn(cfg, attn_impl, gmm_impl)
 
     def leaf(p):
         if p.dtype == torch.float32 and p.dim() > 1:
@@ -134,10 +138,10 @@ class TrainStep:
     :func:`make_train_step`'s step over a static train state and a static
     (batch, seq) token batch on ``state``'s device, run as one captured
     CUDA graph (the forward, remat's recompute and the backward with the
-    flash kernels, the global-norm clip and the AdamW update) or called
-    directly.  ``step_impl`` is ``repro_torch.step_graph``'s choice:
-    "auto" (the graph on CUDA, a direct call on the CPU), "graph" or
-    "eager".
+    flash and grouped-matmul kernels, the global-norm clip and the AdamW
+    update) or called directly.  ``step_impl`` is
+    ``repro_torch.step_graph``'s choice: "auto" (the graph on CUDA, a
+    direct call on the CPU), "graph" or "eager".
 
     Each step writes the new state over the old, in place, with the
     values :func:`make_train_step` returns (its arithmetic, copied into
@@ -150,13 +154,17 @@ class TrainStep:
     the capture on the graph path, one direct call on the eager one,
     which loads the kernels), each a whole step on a zero batch that
     advances the state; then :meth:`load_state` puts ``state``'s values
-    back."""
+    back.  The step runs on ``device`` (default: where ``state`` lies);
+    a ``state`` held on the host is copied over, so a caller whose
+    state would not fit on the card beside the step's keeps it there."""
 
     def __init__(self, cfg: ModelConfig, opt_cfg: AdamWConfig,
                  state: PyTree, batch: int, seq: int,
-                 step_impl: str = "auto"):
-        device = flatten(state)[0][0].device
-        self.state = tree_map(lambda t: t.detach().clone(), state)
+                 step_impl: str = "auto", device=None):
+        device = (torch.device(device) if device is not None
+                  else flatten(state)[0][0].device)
+        self.state = tree_map(lambda t: t.detach().to(device, copy=True),
+                              state)
         self.batch = model.input_specs(
             cfg, ShapeConfig("train", "train", seq, batch), abstract=False,
             device=device)

@@ -5,11 +5,12 @@
 
 runs the MPG-instrumented orchestrator (checkpoint/restart, async
 checkpoints, step-preparation cache) on the GPU, each step one replay of
-the captured train step with the flash-attention kernels forward and
-backward; add ``--device cpu`` (and ``--smoke`` for
-the reduced config) to run on the host with the plain versions.  The
-flags and the printed JSON keys are the reference's, plus ``--device``.
-Trains the dense family (``model.loss_fn`` refuses the others).
+the captured train step with the flash-attention kernels (and, for a
+MoE, the grouped-matmul kernels) forward and backward; add ``--device
+cpu`` (and ``--smoke`` for the reduced config) to run on the host with
+the plain versions.  The flags and the printed JSON keys are the
+reference's, plus ``--device``.  Trains the dense and MoE families
+(``model.loss_fn`` refuses the others).
 """
 from __future__ import annotations
 

@@ -3,11 +3,12 @@
 The fields and derived properties are the reference's, so a config file
 reads the same on both sides; only the two dtypes are ``torch`` dtypes.
 The port serves the dense, MoE, hybrid and ssm families
-(``repro_torch.models.transformer``) and trains the dense one; the other
-families' fields are kept so that their config files can be copied over
-unchanged when their slices land.  ``ShapeConfig`` is the reference's
-input-shape cell (its ``SHAPES`` table and ``shape_applicable`` come with
-the compile-time analysis, ROADMAP.md Queue 1).
+(``repro_torch.models.transformer``) and trains the dense and MoE ones;
+the other families' fields are kept so that their config files can be
+copied over unchanged when their slices land.  ``ShapeConfig`` is the
+reference's input-shape cell (its ``SHAPES`` table and
+``shape_applicable`` come with the compile-time analysis, ROADMAP.md
+Queue 1).
 """
 from __future__ import annotations
 
@@ -129,6 +130,21 @@ class ModelConfig:
         from repro_torch.models.init import param_specs
 
         return sum(math.prod(s.shape) for s in param_specs(self).values())
+
+    def num_active_params(self) -> int:
+        """Parameters touched per token (the reference's rule): a MoE's
+        routed expert weights count at experts_per_token / num_experts."""
+        if self.num_experts == 0:
+            return self.num_params()
+        from repro_torch.models.init import param_specs
+
+        total = 0
+        for name, spec in param_specs(self).items():
+            n = math.prod(spec.shape)
+            if ".experts." in name:
+                n = n * self.experts_per_token // self.num_experts
+            total += n
+        return total
 
 
 @dataclasses.dataclass(frozen=True)

@@ -14,6 +14,17 @@ each token's k rows in a fixed order (the top-k order) instead of
 scatter-adding in the experts' order, so a bf16 run on the card gives
 the same result every time.  In fp32 the second changes the sum's order
 only (about 1e-7 relative).
+
+The backward is as deterministic as the forward (training captures it in
+a CUDA graph and holds the replay to a direct call bit for bit).  Every
+index the forward gathers with is unique or lands in a discarded row,
+so no gradient is scatter-added at a repeated index: the dispatch takes
+each token's k rows as an expand (whose backward sums the k rows in a
+fixed order) permuted into expert order, and the combine gathers dropped
+assignments from a spare zero row past the experts' output.  The
+experts' products differentiate through ``moe_gmm``'s backward kernel
+(``MoeGmmFn``); the load-balancing loss goes back through the router's
+probabilities.
 """
 from __future__ import annotations
 
@@ -101,24 +112,31 @@ def moe_gspmd(x, p, cfg: ModelConfig, *, gmm_impl: str = "auto"):
     x2d = x.reshape(t, d)
     gates, idx, aux = router_topk(x2d, p["router"], cfg)
     cap = capacity(t, cfg)
-    tok, e_sorted, slot, keep, order = build_dispatch(idx, t, cap, cfg)
+    _, e_sorted, slot, keep, order = build_dispatch(idx, t, cap, cfg)
 
     # each kept assignment owns its (expert, slot) row; dropped ones all
-    # land on one spare row past the buffer, which the experts never see
+    # land on one spare row past the buffer, which the experts never see.
+    # The rows are x2d[tok] (build_dispatch's tok) taken as each token's
+    # k copies permuted into expert order: ``order`` is a permutation, so
+    # the backward gathers instead of scatter-adding at tok's repeated
+    # indices
     n_rows = cfg.num_experts * cap
     dest = torch.where(keep, e_sorted * cap + slot,
                        torch.full_like(slot, n_rows))
+    rows = x2d.unsqueeze(1).expand(t, k, d).reshape(t * k, d)[order]
     buf = x.new_zeros((n_rows + 1, d))
-    buf[dest] = x2d[tok]
+    buf[dest] = rows
     ye = expert_ffn(buf[:n_rows].view(cfg.num_experts, cap, d),
                     p["experts"], cfg, expert_counts(idx, cap, cfg),
                     gmm_impl=gmm_impl)
 
-    # gather expert outputs back, weighted by gate prob, then sum each
+    # gather expert outputs back, weighted by gate prob (dropped rows from
+    # a spare zero row, so the kept indices stay unique), then sum each
     # token's k rows in top-k order
     g_sorted = gates.reshape(-1)[order]
     w = torch.where(keep, g_sorted, torch.zeros_like(g_sorted)).to(x.dtype)
-    out_rows = ye.reshape(n_rows, d)[torch.where(keep, dest, 0)] * w[:, None]
+    ye_rows = torch.cat([ye.reshape(n_rows, d), ye.new_zeros((1, d))])
+    out_rows = ye_rows[dest] * w[:, None]
     inv = torch.empty_like(order)
     inv[order] = torch.arange(t * k, device=x.device)
     out = out_rows[inv].view(t, k, d).sum(dim=1)

@@ -1,8 +1,8 @@
 """Decoder-only LM of the port, dense, MoE, hybrid (RG-LRU + local
 attention) and ssm (RWKV-6) families: prefill, the per-request decode
 step, and batched paged decode (the counterparts of
-``repro.models.transformer``), and the training loss of the dense
-family (``loss_fn``).
+``repro.models.transformer``), and the training loss of the dense and
+MoE families (``loss_fn``).
 
 Layer stacks are a Python loop: for dense and MoE the unrolled
 ``dense_layers`` first (``first_k_dense`` of them), then the stacked L dim
@@ -54,22 +54,24 @@ def _tree_stack(trees):
 
 def _ffn(x, bp, cfg: ModelConfig, moe: bool, gmm_impl: str):
     """The block's feed-forward on the post-attention residual ``x``:
-    MoE or dense MLP.  The MoE aux loss is dropped: serving has no use
-    for it (training sums it)."""
+    MoE or dense MLP.  Returns (out, aux): the MoE layer's load-balancing
+    loss (training sums it; serving drops it), None for a dense MLP."""
     h = norm(x, bp, "ln2", cfg)
     if moe:
-        return moe_block(h, bp["moe"], cfg, gmm_impl=gmm_impl)[0]
-    return mlp(h, bp["mlp"], cfg)
+        return moe_block(h, bp["moe"], cfg, gmm_impl=gmm_impl)
+    return mlp(h, bp["mlp"], cfg), None
 
 
 def decoder_block(x, bp, cfg: ModelConfig, *, moe: bool,
                   collect_kv: bool = False, attn_impl: str = "auto",
                   gmm_impl: str = "auto"):
-    """Pre-norm decoder block. Returns (x, (k, v) | None)."""
+    """Pre-norm decoder block. Returns (x, (k, v) | None, aux | None),
+    aux the MoE layer's load-balancing loss."""
     h = norm(x, bp, "ln1", cfg)
     attn_out, kv = self_attention(h, bp["attn"], cfg, attn_impl=attn_impl)
     x = x + attn_out
-    return x + _ffn(x, bp, cfg, moe, gmm_impl), (kv if collect_kv else None)
+    out, aux = _ffn(x, bp, cfg, moe, gmm_impl)
+    return x + out, (kv if collect_kv else None), aux
 
 
 def hybrid_block(x, bp, cfg: ModelConfig, collect_state: bool = False,
@@ -113,7 +115,7 @@ def rwkv_block(x, bp, cfg: ModelConfig, state=None,
 
 
 def _remat(block, cfg: ModelConfig, collect: bool):
-    """``block`` (x, bp) -> (x, kv) as it runs in the stack: under
+    """``block`` (x, bp) -> (x, kv, aux) as it runs in the stack: under
     ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``) when
     cfg.remat is set, autograd records and no cache is collected, so the
     backward recomputes the block's forward instead of keeping its
@@ -131,7 +133,9 @@ def _remat(block, cfg: ModelConfig, collect: bool):
 def run_stack(x, params, cfg: ModelConfig, collect_caches: bool = False,
               attn_impl: str = "auto", gmm_impl: str = "auto",
               scan_impl: str = "auto"):
-    """Run the block stack.  Returns (hidden, caches).  With
+    """Run the block stack.  Returns (hidden, aux, caches): aux the MoE
+    layers' load-balancing losses summed in the stack's order (an fp32
+    zero without MoE layers, as the reference's).  With
     collect_caches: dense / MoE give caches["dense_layers"], a list of
     (k, v) (b, s, hkv, hd), and caches["blocks"] = (k, v) stacked to
     (L - first_k_dense, b, s, hkv, hd); hybrid gives caches["layers"], a
@@ -140,6 +144,7 @@ def run_stack(x, params, cfg: ModelConfig, collect_caches: bool = False,
     the backward where :func:`_remat` says so."""
     check_ported(cfg)
     caches: Dict[str, Any] = {}
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "hybrid":
         states = []
         for i in range(cfg.num_layers):
@@ -149,7 +154,7 @@ def run_stack(x, params, cfg: ModelConfig, collect_caches: bool = False,
             states.append(st)
         if collect_caches:
             caches["layers"] = states
-        return x, caches
+        return x, aux_total, caches
     if cfg.family == "ssm":
         states = []
         for i in range(cfg.num_layers):
@@ -159,7 +164,7 @@ def run_stack(x, params, cfg: ModelConfig, collect_caches: bool = False,
             states.append(st)
         if collect_caches:
             caches["blocks"] = _tree_stack(states)
-        return x, caches
+        return x, aux_total, caches
 
     def block(moe):
         return _remat(
@@ -171,19 +176,21 @@ def run_stack(x, params, cfg: ModelConfig, collect_caches: bool = False,
 
     dense_block = block(False)
     for i in range(cfg.first_k_dense):
-        x, kv = dense_block(x, params["dense_layers"][str(i)])
+        x, kv, _ = dense_block(x, params["dense_layers"][str(i)])
         if collect_caches:
             caches.setdefault("dense_layers", []).append(kv)
     stacked_block = block(cfg.num_experts > 0)
     ks, vs = [], []
     for i in range(cfg.num_layers - cfg.first_k_dense):
-        x, kv = stacked_block(x, _tree_slice(params["blocks"], i))
+        x, kv, aux = stacked_block(x, _tree_slice(params["blocks"], i))
+        if aux is not None:
+            aux_total = aux_total + aux
         if collect_caches:
             ks.append(kv[0])
             vs.append(kv[1])
     if collect_caches:
         caches["blocks"] = (torch.stack(ks), torch.stack(vs))
-    return x, caches
+    return x, aux_total, caches
 
 
 def _embed(tokens, params, cfg: ModelConfig):
@@ -228,9 +235,9 @@ def prefill(params, batch, cfg: ModelConfig, max_len: int = 0,
     x = embed_inputs(params, batch, cfg)
     b, seq = x.shape[:2]
     max_len = max_len or seq + 64
-    x, caches = run_stack(x, params, cfg, collect_caches=True,
-                          attn_impl=attn_impl, gmm_impl=gmm_impl,
-                          scan_impl=scan_impl)
+    x, _, caches = run_stack(x, params, cfg, collect_caches=True,
+                             attn_impl=attn_impl, gmm_impl=gmm_impl,
+                             scan_impl=scan_impl)
     x = norm(x, params, "final_norm", cfg)
     logits = lm_logits(x[:, -1:], params, cfg)[:, 0]
     return logits, _caches_to_decode_cache(caches, cfg, seq, max_len, b)
@@ -240,10 +247,10 @@ def prefill(params, batch, cfg: ModelConfig, max_len: int = 0,
 # training loss
 # ---------------------------------------------------------------------------
 
-# the families this slice trains, and where the others wait (ROADMAP.md,
-# Queue 1: "Training path" and the items after it)
+# the families the port cannot train yet, and where they wait
+# (ROADMAP.md, Queue 1: "Training of the other families" and the items
+# after it)
 _TRAIN_TODO = {
-    "moe": "MoE training (moe_gmm's dX/dW products and the aux loss)",
     "hybrid": "hybrid training (a reverse rglru_scan, flash backward at "
               "head_dim 256)",
     "ssm": "ssm training (a WKV backward)",
@@ -254,25 +261,28 @@ _TRAIN_TODO = {
 
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a family the port cannot train
-    yet, naming the ROADMAP item that adds it: only the dense family
-    trains so far (a MoE loss without its aux term would be silently
-    wrong, so it is refused too)."""
-    if cfg.family != "dense":
+    yet, naming the ROADMAP item that adds it: the dense and MoE
+    families train so far."""
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"{cfg.name}: training family {cfg.family!r} is not ported yet; "
             f"ROADMAP.md Queue 1: "
             f"{_TRAIN_TODO.get(cfg.family, 'training path')}")
 
 
-def loss_fn(params, batch, cfg: ModelConfig, attn_impl: str = "auto"):
-    """Causal LM loss of the dense family (``repro.models.transformer.
-    loss_fn``): predict ``tokens[:, 1:]`` from positions ``[:-1]``, mean
-    token cross-entropy in fp32; over sequence chunks when
-    ``cfg.loss_chunk`` divides the predicted length and is shorter.
-    Returns (loss, {"xent", "aux"}); aux is a zero tensor (no MoE).
-    ``model.loss_fn`` refuses the other families (``check_trainable``)."""
+def loss_fn(params, batch, cfg: ModelConfig, attn_impl: str = "auto",
+            gmm_impl: str = "auto"):
+    """Causal LM loss of the dense and MoE families
+    (``repro.models.transformer.loss_fn``): predict ``tokens[:, 1:]`` from
+    positions ``[:-1]``, mean token cross-entropy in fp32; over sequence
+    chunks when ``cfg.loss_chunk`` divides the predicted length and is
+    shorter.  Returns (loss, {"xent", "aux"}): aux the MoE layers' summed
+    load-balancing loss (a zero without them), added to the loss as
+    ``0.01 * aux`` when the config has experts.  ``model.loss_fn``
+    refuses the other families (``check_trainable``)."""
     x = embed_inputs(params, batch, cfg)
-    x, _ = run_stack(x, params, cfg, attn_impl=attn_impl)
+    x, aux, _ = run_stack(x, params, cfg, attn_impl=attn_impl,
+                          gmm_impl=gmm_impl)
     x = norm(x, params, "final_norm", cfg)
     h = x[:, :-1]
     labels = batch["tokens"][:, 1:]
@@ -281,8 +291,10 @@ def loss_fn(params, batch, cfg: ModelConfig, attn_impl: str = "auto"):
         loss = _chunked_xent(h, labels, params, cfg)
     else:
         loss = softmax_xent(lm_logits(h, params, cfg), labels)
-    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
-    return loss, {"xent": loss, "aux": aux}
+    metrics = {"xent": loss, "aux": aux}
+    if cfg.num_experts > 0:
+        loss = loss + 0.01 * aux
+    return loss, metrics
 
 
 def _chunked_xent(h, labels, params, cfg: ModelConfig):
@@ -437,7 +449,7 @@ def decode_step(params, token, cache, cfg: ModelConfig, *,
             out, _ = decode_self_attention(h, bp["attn"], cfg,
                                            {**lc, "pos": pos})
             x = x + out
-            return x + _ffn(x, bp, cfg, moe, gmm_impl)
+            return x + _ffn(x, bp, cfg, moe, gmm_impl)[0]
 
         for i in range(cfg.first_k_dense):
             lc = cache["dense_layers"][str(i)]
@@ -554,12 +566,12 @@ def paged_decode_step(params, token, lengths, k_pages, v_pages, block_tables,
     for i in range(cfg.first_k_dense):
         bp = params["dense_layers"][str(i)]
         x = attn_layer(x, bp, i)
-        x = x + _ffn(x, bp, cfg, False, gmm_impl)
+        x = x + _ffn(x, bp, cfg, False, gmm_impl)[0]
     is_moe = cfg.num_experts > 0
     for i in range(cfg.num_layers - cfg.first_k_dense):
         bp = _tree_slice(params["blocks"], i)
         x = attn_layer(x, bp, cfg.first_k_dense + i)
-        x = x + _ffn(x, bp, cfg, is_moe, gmm_impl)
+        x = x + _ffn(x, bp, cfg, is_moe, gmm_impl)[0]
 
     x = norm(x, params, "final_norm", cfg)
     logits = lm_logits(x[:, -1], params, cfg)

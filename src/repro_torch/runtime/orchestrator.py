@@ -2,7 +2,7 @@
 runtime layer of the stack (paper §3.3), instrumented so every second of
 chip time lands in an MPG Interval ledger.  It runs on CUDA unless
 ``RunConfig.device`` asks for the CPU, and trains the families
-``model.loss_fn`` takes (dense so far).
+``model.loss_fn`` takes (dense and MoE so far).
 
 The same emissions, layers and segments as the reference's: INIT split
 into the compiler layer (the compile clock's seconds: here the step's

@@ -10,7 +10,13 @@ batched decode's raised capacity (no drops).
 Tolerances: expert ids, capacity and dispatch exact; gates and aux
 atol/rtol 1e-6; block and FFN outputs atol/rtol 1e-5 — fp32 sums in
 another order, the port summing each token's k rows in top-k order
-where the reference scatter-adds in expert order.
+where the reference scatter-adds in expert order.  The block's
+gradients (against ``jax.grad`` of the reference's ``moe_gspmd``):
+rtol 1e-5 and atol 2e-6 of the leaf's largest entry, and each leaf's
+relative distance (2-norm) within 1e-5 — a weight's gradient sums one
+term per routed token, and the crowded inputs that force drops make
+those terms share a sign, so entries reach ~400 and carry fp32
+summation-order error of ~3e-7 of that (measured), not of themselves.
 """
 import dataclasses
 
@@ -33,6 +39,8 @@ from repro_torch.serve.batched_executor import decode_config  # noqa: E402
 ARCHS = ["deepseek-moe-16b", "mixtral-8x7b"]
 OUT_TOL = dict(atol=1e-5, rtol=1e-5)
 GATE_TOL = dict(atol=1e-6, rtol=1e-6)
+GRAD_RTOL = 1e-5
+GRAD_ATOL_SHARE = 2e-6
 
 
 def _block(arch):
@@ -167,3 +175,117 @@ def test_moe_gspmd_with_counts_matches_reference(drops, monkeypatch):
                                rtol=1e-4)
     assert len(seen) == 3 and all(c is not None for c in seen)
     assert bool((seen[0] < tmoe.capacity(48, tcfg)).any())
+
+
+def _np_leaves(tree, prefix=""):
+    """{dotted name: numpy array} of a nested dict (either package)."""
+    out = {}
+    for k, v in tree.items():
+        name = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(_np_leaves(v, name + "."))
+        else:
+            out[name] = np.asarray(v.detach().numpy() if hasattr(v, "detach")
+                                   else v, dtype=np.float32)
+    return out
+
+
+@pytest.mark.parametrize("part", ["out", "aux"])
+@pytest.mark.parametrize("drops", [True, False], ids=["drops", "decode_cf"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_moe_block_gradients_match_jax_grad(arch, drops, part):
+    """The block's gradients for x, the router, the routed experts and
+    the shared experts against ``jax.grad`` of the reference's
+    ``moe_gspmd``, fp32, OUT_TOL: for a random cotangent of the output
+    (``part="out"``), and for the load-balancing loss alone
+    (``part="aux"``: through the router's probabilities only).  The
+    routing is asserted equal first, so a near-tie would show as such."""
+    jcfg, tcfg, jp, tp = _block(arch)
+    if not drops:
+        jcfg = dataclasses.replace(
+            jcfg, capacity_factor=float(jcfg.num_experts))
+        tcfg = decode_config(tcfg)
+    x = _x(tcfg, 2, 24, seed=10, crowd=3.0 if drops else 0.0)
+    cot = np.random.default_rng(11).standard_normal(x.shape).astype(
+        np.float32)
+    c_out, c_aux = (1.0, 0.0) if part == "out" else (0.0, 1.0)
+    _, jidx, _ = jmoe.router_topk(jnp.asarray(x).reshape(48, -1),
+                                  jp["router"], jcfg)
+    _, tidx, _ = tmoe.router_topk(torch.from_numpy(x).reshape(48, -1),
+                                  tp["router"], tcfg)
+    np.testing.assert_array_equal(tidx.numpy(), np.asarray(jidx))
+
+    def jloss(xx, pp):
+        out, aux = jmoe.moe_gspmd(xx, pp, jcfg)
+        return c_out * jnp.sum(out * cot) + c_aux * aux
+
+    jgx, jgp = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(x), jp)
+    tx = torch.from_numpy(x).requires_grad_()
+    tleaves = {k: v.detach().clone().requires_grad_()
+               for k, v in _flat_torch(tp).items()}
+    out, aux = tmoe.moe_gspmd(tx, _unflat(tleaves), tcfg)
+    (c_out * (out * torch.from_numpy(cot)).sum() + c_aux * aux).backward()
+    want = {"x": np.asarray(jgx), **_np_leaves(jgp)}
+    got = {"x": tx.grad.numpy()}
+    got.update({n: (leaf.grad if leaf.grad is not None
+                    else torch.zeros_like(leaf)).numpy()
+                for n, leaf in tleaves.items()})
+    assert set(want) == set(got)
+    for name, g in got.items():
+        w = want[name]
+        scale = float(np.abs(w).max())
+        np.testing.assert_allclose(g, w, rtol=GRAD_RTOL,
+                                   atol=GRAD_ATOL_SHARE * scale,
+                                   err_msg=name)
+        assert (np.linalg.norm(g - w)
+                <= GRAD_RTOL * max(np.linalg.norm(w), 1e-30)), name
+    if part == "aux":                   # only the router and x move it
+        assert all(float(tleaves[n].grad.abs().max()) == 0
+                   for n in tleaves if n != "router"
+                   if tleaves[n].grad is not None)
+
+
+def _flat_torch(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_torch(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _unflat(flat):
+    tree = {}
+    for name, v in flat.items():
+        node = tree
+        *path, last = name.split(".")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[last] = v
+    return tree
+
+
+def test_expand_then_permute_dispatch_equals_the_gather():
+    """The dispatch's rows, each token's k copies permuted by ``order``,
+    give ``x2d[tok]``'s values and, for an integer cotangent (exact
+    sums), its gradient bit for bit."""
+    tcfg = tsmoke("deepseek-moe-16b")
+    t, k, d = 40, tcfg.experts_per_token, tcfg.d_model
+    rng = np.random.default_rng(12)
+    idx = torch.from_numpy(np.stack([rng.choice(tcfg.num_experts, k,
+                                                replace=False)
+                                     for _ in range(t)])).long()
+    tok, _, _, _, order = tmoe.build_dispatch(
+        idx, t, tmoe.capacity(t, tcfg), tcfg)
+    x = torch.from_numpy(rng.standard_normal((t, d)).astype(np.float32))
+    cot = torch.from_numpy(rng.integers(-4, 5, (t * k, d)).astype(
+        np.float32))
+    xa = x.clone().requires_grad_()
+    xb = x.clone().requires_grad_()
+    ra = xa[tok]
+    rb = xb.unsqueeze(1).expand(t, k, d).reshape(t * k, d)[order]
+    assert torch.equal(ra, rb)
+    (ra * cot).sum().backward()
+    (rb * cot).sum().backward()
+    assert torch.equal(xa.grad, xb.grad)

@@ -424,6 +424,39 @@ def test_orchestrator_losses_match_reference(tmp_path, monkeypatch):
                                atol=1e-5, rtol=1e-5)
 
 
+def test_moe_orchestrator_losses_match_reference(tmp_path, monkeypatch):
+    """deepseek-moe-16b SMOKE, as ``test_orchestrator_losses_match_
+    reference``: from the reference's params the port's orchestrator
+    takes the reference orchestrator's 6 steps (its loss with the
+    ``0.01 * aux`` term), losses within 1e-5."""
+    from repro.configs import get_smoke as jsmoke
+    from repro.models import model as jmodel
+    from repro.runtime.orchestrator import Orchestrator as JaxOrchestrator
+    from repro.runtime.orchestrator import RunConfig as JaxRunConfig
+    from repro_torch.models.init import params_from_numpy
+    from repro_torch.optim import adamw_init
+
+    arch = "deepseek-moe-16b"
+    jcfg = jsmoke(arch)
+    jout = JaxOrchestrator(jcfg, JaxRunConfig(
+        steps=6, batch=2, seq=32, checkpoint_every=3,
+        ckpt_dir=str(tmp_path / "jax"))).run()
+    jparams = jax.tree.map(np.asarray,
+                           jmodel.init_params(jcfg, jax.random.key(0)))
+
+    def ref_params_state():
+        params = params_from_numpy(jparams, device="cpu")
+        return {"params": params, "opt": adamw_init(params)}
+
+    orc = Orchestrator(get_smoke(arch), _run(
+        steps=6, checkpoint_every=3, ckpt_dir=str(tmp_path / "torch")))
+    monkeypatch.setattr(orc, "_init_state", ref_params_state)
+    out = orc.run()
+    assert len(out["losses"]) == len(jout["losses"]) == 6
+    np.testing.assert_allclose(out["losses"], jout["losses"],
+                               atol=1e-5, rtol=1e-5)
+
+
 REF_ARGS = ["--smoke", "--steps", "12", "--batch", "2", "--seq", "32",
             "--checkpoint-every", "4", "--preempt-at", "9"]
 
@@ -441,6 +474,27 @@ def test_train_cli_prints_the_reference_keys(tmp_path, capsys):
     assert set(printed) == set(ref)
     assert set(printed["rg_breakdown"]) == set(ref["rg_breakdown"])
     assert set(printed["ckpt"]) == set(ref["ckpt"])
+    assert printed["steps"] == ref["steps"] == [0, 9]
+    assert np.isfinite(printed["final_loss"])
+    assert 0 < printed["runtime_goodput"] <= 1
+
+
+def test_moe_train_cli_prints_the_reference_keys(tmp_path, capsys):
+    """``--arch deepseek-moe-16b --smoke --device cpu`` prints the
+    reference CLI's keys and steps and a finite loss (each side draws
+    its own weights, so the losses are not compared)."""
+    from repro.launch.train import main as jmain
+    from repro_torch.launch.train import main
+
+    args = ["--arch", "deepseek-moe-16b"] + REF_ARGS
+    jmain(args + ["--ckpt-dir", str(tmp_path / "jax")])
+    ref = json.loads(capsys.readouterr().out)
+    out = main(args + ["--ckpt-dir", str(tmp_path / "torch"),
+                       "--device", "cpu"])
+    printed = json.loads(capsys.readouterr().out)
+    assert printed == out
+    assert set(printed) == set(ref)
+    assert printed["arch"] == ref["arch"] == "deepseek-moe-16b"
     assert printed["steps"] == ref["steps"] == [0, 9]
     assert np.isfinite(printed["final_loss"])
     assert 0 < printed["runtime_goodput"] <= 1
