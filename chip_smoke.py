@@ -94,15 +94,21 @@ each of which raises on failure (nothing is caught):
    the next: (a) the grouped matmul's backward (``moe_gmm_bwd``, dX and
    dW) against its plain version at the wi / wg and wo training shapes
    with a real top-6 routing's row counts, and a ragged case with empty
-   experts, fp32 on the CUDA cores and bf16 on the tensor cores, with
-   its time, the plain version's, ``torch.bmm``'s and its bound, and the
-   forward at C = 960; (b) the full model's loss and gradients with the
+   experts, fp32 on the CUDA cores and bf16 on the tensor cores (the
+   persistent ``wgmma`` + TMA kernel: its SASS must hold ``HGMMA``
+   where cuobjdump exists, its registers and spills come from the
+   build's ptxas report, its dX and dW tiles are also timed alone in
+   two builds of the source for one product each, started beside the
+   package's build), with its time, the plain version's, ``torch.bmm``'s,
+   its bound and the card's clocks while they ran, an fp32 case whose
+   kernel and plain sums must both lie within the worst-case fp32 error
+   of the fp64 sum, and the forward at C = 960; (b) the full model's loss and gradients with the
    kernels and with the plain versions, as in phase 6, after both fp32
    runs routed every token alike; (c) a captured ``TrainStep`` built
    from a state held on the host, 10 steps on one fixed batch (the loss
    must fall, the aux loss stay finite and positive): step ms,
-   tokens/s, MFU by active parameters, peak memory, capture seconds and
-   pool bytes, a 2-step profile; (d) ``train_moe_graph_vs_eager``: a
+   tokens/s, MFU by active parameters, the card's clocks, peak memory,
+   capture seconds and pool bytes, a 2-step profile; (d) ``train_moe_graph_vs_eager``: a
    captured and a direct-call step from the same host state over the
    same 3 batches, one after the other, bit-identical metrics and final
    params, m, v and step.
@@ -2386,7 +2392,218 @@ def _gmm_bwd_bound(torch, x, w, counts):
     return bound(flops, nbytes, x.dtype), flops, n_rows, live
 
 
-def gmm_bwd_cases(torch):
+def ptxas_entries(report: str, fragment: str):
+    """Registers and spill bytes of each kernel whose mangled name holds
+    ``fragment``, from one source's ``-Xptxas -v`` report: ``{name:
+    {"registers", "spill_stores", "spill_loads"}}``, or None where the
+    report is empty (the library was built before this run)."""
+    if not report:
+        return None
+    out, cur = {}, None
+    for ln in report.splitlines():
+        if "Compiling entry function '" in ln:
+            name = ln.split("'")[1]
+            cur = out.setdefault(name, {}) if fragment in name else None
+        elif cur is not None and "spill stores" in ln:
+            nums = [int(t) for t in ln.replace(",", " ").split()
+                    if t.isdigit()]
+            cur["spill_stores"], cur["spill_loads"] = nums[1], nums[2]
+        elif cur is not None and "Used" in ln and "registers" in ln:
+            words = ln.split()
+            cur["registers"] = int(words[words.index("registers,") - 1])
+    return out
+
+
+def sass_has(lib: Path, opcode: str):
+    """Whether ``cuobjdump -sass`` of a built library shows ``opcode``
+    (e.g. Hopper's ``HGMMA``); None where the toolkit has no cuobjdump."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    return opcode in sass
+
+
+class ClockSampler:
+    """The card's SM clock (MHz), power draw (W) and active clock-event
+    (throttle) reasons, sampled every ``period_ms`` by ``nvidia-smi -lms``
+    while the ``with`` block runs; ``summary()`` gives the clock's least,
+    median and most, the most power drawn, the reason masks seen and the
+    number of samples (None when the block ended before the first
+    sample).  The sampler is stopped when the block ends."""
+
+    QUERY = "clocks.sm,power.draw,clocks_throttle_reasons.active"
+
+    def __init__(self, period_ms: int = 100):
+        self.period_ms = period_ms
+        self.samples = []
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "-i", "0", f"--query-gpu={self.QUERY}",
+             "--format=csv,noheader,nounits", "-lms", str(self.period_ms)],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        try:
+            out, _ = self.proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            out, _ = self.proc.communicate()
+        for ln in out.splitlines():
+            parts = [t.strip() for t in ln.split(",")]
+            try:
+                self.samples.append((float(parts[0]), float(parts[1]),
+                                     parts[2]))
+            except (IndexError, ValueError):
+                continue                # a line cut by the terminate
+        return False
+
+    def summary(self):
+        if not self.samples:
+            return None
+        mhz = sorted(c for c, _, _ in self.samples)
+        return {"sm_mhz_min": mhz[0], "sm_mhz_median": mhz[len(mhz) // 2],
+                "sm_mhz_max": mhz[-1],
+                "power_w_max": max(w for _, w, _ in self.samples),
+                "reasons": sorted({r for _, _, r in self.samples}),
+                "samples": len(self.samples)}
+
+
+# the tensor-core backward built for one product alone (its source's
+# REPRO_GMM_BWD_PARTS: 1 walks dX's tiles, 2 dW's), to time the two apart
+GMM_BWD_PARTS = {"dx": 1, "dw": 2}
+
+
+def start_gmm_bwd_part_builds():
+    """Start ``nvcc`` on ``moe_gmm_bwd.cu`` once for each product alone,
+    with the package's flags plus ``-DREPRO_GMM_BWD_PARTS``, into
+    ``build/moe_gmm_bwd_parts/``: timing builds for phase 7(a), beside
+    the package's build and not part of it.  Returns ``{part: (process,
+    library)}`` for :func:`gmm_bwd_part_entries`."""
+    from repro_torch.kernels import _build
+
+    out = _build.BUILD_DIR.parent / "moe_gmm_bwd_parts"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for part, bits in GMM_BWD_PARTS.items():
+        lib = out / f"moe_gmm_bwd_{part}.so"
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS,
+               f"-DREPRO_GMM_BWD_PARTS={bits}", "-I", str(_build.CSRC),
+               "-o", str(lib), str(_build.CSRC / "moe_gmm_bwd.cu")]
+        procs[part] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT,
+                                        text=True), lib)
+    return procs
+
+
+def gmm_bwd_part_entries(procs):
+    """Wait for :func:`start_gmm_bwd_part_builds`' compilers; raise if one
+    failed.  Returns ``{part: the library's repro_moe_gmm_bwd_tc}``, with
+    the wrapper's argument types."""
+    import ctypes
+
+    from repro_torch.kernels.moe_gmm import moe_gmm as mg
+
+    fns, failed = {}, []
+    for part, (proc, lib) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"--- {part} (nvcc exit {proc.returncode}) ---\n"
+                          f"{out}")
+            continue
+        fn = ctypes.CDLL(str(lib)).repro_moe_gmm_bwd_tc
+        fn.argtypes, fn.restype = mg._ARGS_BWD_TC, ctypes.c_int
+        fns[part] = fn
+    if failed:
+        raise RuntimeError("moe_gmm_bwd timing build failed:\n"
+                           + "\n".join(failed))
+    return fns
+
+
+def gmm_bwd_fp64(torch, x, w, dy, counts):
+    """dx and dw of ``moe_gmm_bwd`` summed in fp64 from the same inputs,
+    and for each element the worst-case error of an fp32 sum of the same
+    n products in any order, gamma_n sum_i |a_i b_i| with gamma_n =
+    n u / (1 - n u), u = 2^-24 (Higham, Accuracy and Stability of
+    Numerical Algorithms, eq. 3.5): n = F for dX, the expert's live rows
+    for dW.  Returns (dx, dw, dx bound, dw bound)."""
+    e, c, k = x.shape
+    f = w.shape[2]
+    live = torch.arange(c, device=x.device)[None, :] < counts[:, None]
+    xd, wd = x.double(), w.double()
+    dyd = dy.double() * live[..., None]
+    u = 2.0 ** -24
+    n_dw = counts.clamp(max=c).double()[:, None, None]
+    return (torch.einsum("ecf,ekf->eck", dyd, wd),
+            torch.einsum("eck,ecf->ekf", xd, dyd),
+            f * u / (1 - f * u) * torch.einsum("ecf,ekf->eck", dyd.abs(),
+                                               wd.abs()),
+            n_dw * u / (1 - n_dw * u) * torch.einsum(
+                "eck,ecf->ekf", xd.abs(), dyd.abs()))
+
+
+def gmm_bwd_sum_order(torch):
+    """The fp32 CUDA-core backward at (E 1, C 300, K 128, F 264, counts
+    [250]), with the inputs the card tests draw for this edge case (the
+    same seed and draws): for each product, the elements where the
+    kernel and the plain version (cuBLAS, its own order) differ by more
+    than the fp32 tests' allowance against the plain version (1e-5 +
+    1e-5 |plain|), and the one where the difference is the largest
+    share of that allowance, with both values, the fp64 sum of the same
+    products and the worst-case error of an fp32 sum there
+    (``gmm_bwd_fp64``).  Both must lie within that bound of the fp64 sum
+    at every element; the line is logged."""
+    import numpy as np
+
+    from repro_torch.kernels.moe_gmm import moe_gmm as mg
+    from repro_torch.kernels.moe_gmm.ref import moe_gmm_bwd_ref
+
+    dev = torch.device("cuda")
+    e, c, k, f = 1, 300, 128, 264
+    g = torch.Generator(device=dev).manual_seed(e + c + k + f)
+    x = torch.randn((e, c, k), generator=g, device=dev)
+    w = torch.randn((e, k, f), generator=g, device=dev) * k ** -0.5
+    dy = torch.randn((e, c, f), generator=g, device=dev)
+    counts = torch.tensor([250], dtype=torch.int32, device=dev)
+    got = mg.moe_gmm_bwd(x, w, dy, counts)
+    plain = moe_gmm_bwd_ref(x, w, dy, counts)
+    d64 = gmm_bwd_fp64(torch, x, w, dy, counts)
+    row = {"kernel": "moe_gmm_bwd", "case": "fp32_sum_order",
+           "dtype": str(torch.float32), "e": e, "c": c, "k": k, "f": f,
+           "counts": [250]}
+    for i, what in enumerate(("dx", "dw")):
+        kern, pl, ref, bnd = got[i], plain[i], d64[i], d64[2 + i]
+        share = (kern - pl).abs() / (1e-5 + 1e-5 * pl.abs())
+        j = int(share.argmax())
+        at = [t.reshape(-1)[j].item() for t in (kern, pl, ref, bnd)]
+        ratio = {name: float(((t.double() - ref).abs() / bnd.clamp_min(
+                     1e-300)).max()) for name, t in (("kernel", kern),
+                                                     ("plain", pl))}
+        row[what] = {"n": f if what == "dx" else 250,
+                     "index": [int(t) for t in np.unravel_index(
+                         j, tuple(kern.shape))],
+                     "kernel": at[0], "plain": at[1], "fp64": at[2],
+                     "kernel_minus_plain": at[0] - at[1],
+                     "test_allowance": 1e-5 + 1e-5 * abs(at[1]),
+                     "over_allowance": int((share > 1).sum()),
+                     "elements": kern.numel(),
+                     "gamma_n_bound": at[3],
+                     "max_err_over_bound": ratio}
+        if max(ratio.values()) > 1:
+            log(row)
+            raise AssertionError(f"moe_gmm_bwd fp32 {what}: off the fp64 "
+                                 f"sum by more than gamma_n: {ratio}")
+    log(row)
+    return row
+
+
+def gmm_bwd_cases(torch, part_fns, ptxas_report: str = ""):
     """The grouped matmul's backward (``moe_gmm_bwd``: dX and dW in one
     call) against ``moe_gmm_bwd_ref`` on the same inputs, at the training
     shapes of deepseek-moe-16b (C = 960, the wi / wg product (2048,
@@ -2395,19 +2612,37 @@ def gmm_bwd_cases(torch):
     with no row, rows past the counts holding values that must add
     nothing); fp32 on the CUDA cores, bf16 on the tensor cores; two calls
     bit-identical.  Each line: the call's device time (graph replays),
-    dX's and dW's kernels' shares of it (a profile), the plain version's
-    time, the library calls' (``torch.bmm(dy, w^T)`` for dX, ``torch.bmm
-    (x^T, dy)`` for dW, and their sum) and the bound of the rows the
-    counts hold.  Then the forward ``moe_gmm`` at the wi shape, C = 960
-    (first timed there), against the plain version, ``torch.bmm`` and
-    its bound.  Returns (backward lines, forward lines)."""
+    dX's and dW's shares of it (fp32: a profile of its two kernels; bf16:
+    the one persistent kernel built for dX's tiles alone and for dW's
+    alone, ``part_fns`` from :func:`gmm_bwd_part_entries`, whose outputs
+    must equal the full call's bit for bit), the plain version's time,
+    the library calls' (``torch.bmm(dy, w^T)`` for dX, ``torch.bmm(x^T,
+    dy)`` for dW, and their sum), the bound of the rows the counts hold
+    and the card's clocks while they were timed (:class:`ClockSampler`);
+    the instance's design, its registers and spills from ``ptxas_report``
+    (the build's ``-Xptxas -v`` report of ``moe_gmm_bwd.cu``, None if it
+    was built before this run) and whether the library's SASS holds
+    ``HGMMA`` (None without cuobjdump).  Then the fp32 sum-order case
+    (:func:`gmm_bwd_sum_order`) and the forward ``moe_gmm`` at the wi
+    shape, C = 960 (first timed there), against the plain version,
+    ``torch.bmm`` and its bound.  Returns (backward lines, forward
+    lines)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import _ctypes as C
     from repro_torch.kernels.moe_gmm import moe_gmm as mg
     from repro_torch.kernels.moe_gmm.ref import moe_gmm_bwd_ref, moe_gmm_ref
 
     dev = torch.device("cuda")
+    hgmma = sass_has(_build._artifact("moe_gmm_bwd"), "HGMMA")
+    if hgmma is False:
+        raise AssertionError("moe_gmm_bwd: the built library's SASS holds no "
+                             "HGMMA (wgmma) instruction")
+    design = {"tc": "wgmma+tma", "cuda_core": "cuda-core fma"}
+    regs = {inst: ptxas_entries(ptxas_report, frag) for inst, frag in
+            (("tc", "gmm_bwd_tc"), ("cuda_core", "gmm_bwd_cc"))}
     tokens = MOE_TRAIN_BATCH * MOE_TRAIN_SEQ
     shapes = [("train_wi", 64, 960, 2048, 1408),
               ("train_wo", 64, 960, 1408, 2048),
@@ -2450,24 +2685,46 @@ def gmm_bwd_cases(torch):
             if bool((dx.masked_select(past) != 0).any()):
                 raise AssertionError(f"{name}: dx rows past the counts are "
                                      f"not zero")
+            if bf16:
+                alone = (torch.empty_like(dx), torch.empty_like(dw))
+
+                def part_call(fn):
+                    rc = fn(x.data_ptr(), w.data_ptr(), dy.data_ptr(),
+                            alone[0].data_ptr(), alone[1].data_ptr(),
+                            counts.data_ptr(), e, c, k, f, C.stream_of(x))
+                    C.check("moe_gmm_bwd", rc)
+
+                parts = {part: (lambda fn=fn: part_call(fn))
+                         for part, fn in part_fns.items()}
+                for part in parts.values():
+                    part()
+                if not (torch.equal(alone[0], dx)
+                        and torch.equal(alone[1], dw)):
+                    raise AssertionError(f"{name}: dX or dW alone differs "
+                                         f"from the full call")
             del dx, dw, rdx, rdw
             (bound_ms, bound_by), flops, n_rows, live = _gmm_bwd_bound(
                 torch, x, w, counts)
             big = not bf16 and what != "ragged"
             reps = dict(reps=2, replays=3) if big else {}
-            kernel_ms = graph_ms(torch, call, **reps)
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(3):
-                    call()
-                torch.cuda.synchronize()
-            split = {ev.key[:60]: ev.self_device_time_total / 3e3
-                     for ev in prof.key_averages()
-                     if ev.device_type == DeviceType.CUDA
-                     and "gmm_bwd" in ev.key}
-            lib = {"dx": graph_ms(torch, lambda: torch.bmm(
-                       dy, w.transpose(1, 2)), **reps),
-                   "dw": graph_ms(torch, lambda: torch.bmm(
-                       x.transpose(1, 2), dy), **reps)}
+            with ClockSampler() as clocks:
+                kernel_ms = graph_ms(torch, call, **reps)
+                if bf16:
+                    split = {part: graph_ms(torch, fn)
+                             for part, fn in parts.items()}
+                else:
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        for _ in range(3):
+                            call()
+                        torch.cuda.synchronize()
+                    split = {ev.key[:60]: ev.self_device_time_total / 3e3
+                             for ev in prof.key_averages()
+                             if ev.device_type == DeviceType.CUDA
+                             and "gmm_bwd" in ev.key}
+                lib = {"dx": graph_ms(torch, lambda: torch.bmm(
+                           dy, w.transpose(1, 2)), **reps),
+                       "dw": graph_ms(torch, lambda: torch.bmm(
+                           x.transpose(1, 2), dy), **reps)}
             row = {"kernel": "moe_gmm_bwd", "case": what,
                    "dtype": str(dtype), "e": e, "c": c, "k": k, "f": f,
                    "filled_rows": n_rows, "live_experts": live,
@@ -2479,9 +2736,14 @@ def gmm_bwd_cases(torch):
                    "library_ms": lib["dx"] + lib["dw"],
                    "library_dx_ms": lib["dx"], "library_dw_ms": lib["dw"],
                    "bound_ms": bound_ms, "bound_by": bound_by,
-                   "flops": flops, "tflops": flops / kernel_ms / 1e9}
+                   "share_of_bound": bound_ms / kernel_ms,
+                   "flops": flops, "tflops": flops / kernel_ms / 1e9,
+                   "design": design[inst], "sass_hgmma": hgmma,
+                   "ptxas": regs[inst], "clocks": clocks.summary()}
             rows.append(row)
             log(row)
+            if what == "ragged" and not bf16:
+                gmm_bwd_sum_order(torch)
             if what == "train_wi" and bf16:
                 # the forward at the training capacity, as the model runs it
                 fname = f"moe_gmm {what}_forward {dtype}"
@@ -2567,12 +2829,13 @@ def train_moe_runs(torch, cfg):
     batch = {k: torch.from_numpy(a) for k, a in next(DataPipeline(
         cfg.vocab_size, b, s, seed=123)).items()}
     walls, losses, auxes = [], [], []
-    for _ in range(10):
-        t0 = time.perf_counter()
-        m = step(batch)
-        losses.append(float(m["loss"]))
-        walls.append(1e3 * (time.perf_counter() - t0))
-        auxes.append(float(m["aux"]))
+    with ClockSampler() as clocks:
+        for _ in range(10):
+            t0 = time.perf_counter()
+            m = step(batch)
+            losses.append(float(m["loss"]))
+            walls.append(1e3 * (time.perf_counter() - t0))
+            auxes.append(float(m["aux"]))
     peak = (torch.cuda.max_memory_allocated() / 1e9,
             torch.cuda.max_memory_reserved() / 1e9)
     kernels, span = _profile_steps(torch, step, batch)
@@ -2600,7 +2863,7 @@ def train_moe_runs(torch, cfg):
          "losses": losses, "aux": auxes, "drop": losses[0] - losses[-1],
          "margin": LEARN_MARGIN, "step_ms_all": walls,
          "step_ms": 1e3 * step_s, "tokens_per_s": tokens / step_s,
-         "model_flops_per_step": model_flops,
+         "clocks": clocks.summary(), "model_flops_per_step": model_flops,
          "mfu": model_flops / step_s / PEAK_FLOPS["torch.bfloat16"],
          "mfu_formula": "(6 N_active tokens + 12 L b hq d s(s+1)/2) / "
                         "(step_s x 989e12); remat's forward not counted",
@@ -2684,7 +2947,15 @@ def main() -> int:
          "device": torch.cuda.get_device_name(0),
          "count": torch.cuda.device_count()})
     t_start = t0 = time.perf_counter()
-    reports = _build.build()
+    part_builds = start_gmm_bwd_part_builds()
+    try:
+        reports = _build.build()
+    except BaseException:
+        for proc, _ in part_builds.values():
+            proc.kill()
+            proc.wait()
+        raise
+    gmm_bwd_parts = gmm_bwd_part_entries(part_builds)
     log({"phase": "build", "seconds": time.perf_counter() - t0,
          "ptxas": {k: [ln.strip() for ln in v.splitlines()
                        if "Used" in ln or "spill" in ln]
@@ -2801,7 +3072,8 @@ def main() -> int:
             dst.param_dtype) != (2048, 16, 128, 64, 6, 1408, 2, 1, 102400,
                                  torch.bfloat16, torch.float32):
         raise AssertionError(f"deepseek-moe-16b is not at full width: {dst}")
-    gmm_bwd, gmm_train = gmm_bwd_cases(torch)
+    gmm_bwd, gmm_train = gmm_bwd_cases(torch, gmm_bwd_parts,
+                                       reports.get("moe_gmm_bwd", ""))
     train_grads_kernel_vs_plain(torch, dst, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2899,9 +3171,14 @@ def main() -> int:
                      "src/repro/models/moe.py:64",
                      lambda x: x["dtype"] == bf16
                      and x["case"] == "train_wi"),
+             **{k: r[k] for r in gmm_bwd
+                if r["dtype"] == bf16 and r["case"] == "train_wi"
+                for k in ("design", "sass_hgmma", "ptxas",
+                          "kernel_split_ms")},
              wo_shape=case(gmm_bwd, lambda x: x["dtype"] == bf16
                            and x["case"] == "train_wo",
-                           ("e", "c", "k", "f", "filled_rows"))),
+                           ("e", "c", "k", "f", "filled_rows",
+                            "kernel_split_ms"))),
         # the static engine's batch-8 prefill of 200 tokens as batch8
         dict(summary(scan, "rglru_scan",
                      "src/repro_torch/kernels/csrc/rglru_scan.cu",

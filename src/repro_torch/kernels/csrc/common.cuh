@@ -12,6 +12,7 @@ constexpr float kNegInf = -1e30f;   // the reference kernels' NEG_INF
 constexpr int kF32 = 0;
 constexpr int kBF16 = 1;
 constexpr int kUnsupported = -1;    // returned for shapes no instance takes
+constexpr int kTensorMapRefused = -2;   // the driver refused a TMA descriptor
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -45,7 +46,9 @@ __device__ __forceinline__ float warp_sum(float v) {
 // Message for a non-zero return code of a kernel's C entry point.  Each
 // kernel is its own shared library, so each carries its own copy.
 extern "C" const char* repro_error_string(int code) {
-  return code == repro::kUnsupported
-             ? "shape or dtype not supported by the kernel"
-             : cudaGetErrorString(static_cast<cudaError_t>(code));
+  if (code == repro::kUnsupported)
+    return "shape or dtype not supported by the kernel";
+  if (code == repro::kTensorMapRefused)
+    return "cuTensorMapEncodeTiled refused an operand's tensor map";
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -11,7 +11,8 @@ a fallback: nothing is caught or retried.
 
 ``LAUNCHES`` counts the forward's launches (either instance),
 ``LAUNCHES_TC`` those of its tensor-core instance, ``LAUNCHES_BWD`` the
-backward's (one per call, which runs its two kernels) and
+backward's (one per call: the CUDA-core instance runs two kernels, the
+tensor-core one a single persistent launch over dX's and dW's tiles) and
 ``LAUNCHES_BWD_TC`` those of the backward's tensor-core instance: each
 wrapper adds one where it launches and nowhere else.
 """
