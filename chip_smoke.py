@@ -8,7 +8,7 @@ checkout's ``src/``; imports nothing of JAX or of the JAX package.  Phases,
 each of which raises on failure (nothing is caught):
 
 1. the card's name and power limit, the torch/CUDA versions, and the
-   build of all seven kernels from ``src/repro_torch/kernels/csrc``
+   build of all seven kernel sources from ``src/repro_torch/kernels/csrc``
    (nvcc, sm_90a, one process per source, all at once);
 2. the launch floor (the graph-replay time of one in-place add on a
    one-element tensor), then each kernel against its plain PyTorch
@@ -111,7 +111,29 @@ each of which raises on failure (nothing is caught):
    capture seconds and pool bytes, a 2-step profile; (d) ``train_moe_graph_vs_eager``: a
    captured and a direct-call step from the same host state over the
    same 3 batches, one after the other, bit-identical metrics and final
-   params, m, v and step.
+   params, m, v and step;
+8. training recurrentgemma-2b at its published widths with the depth cut
+   26 -> 6 (layers 0-5: RG-LRU, RG-LRU, attention, twice; bf16 compute,
+   fp32 master params, one 4,096-token sequence, so the 2048 window masks
+   keys), each part freeing its memory before the next: (a) the RG-LRU
+   reverse scan (``rglru_scan_bwd``) against its plain version at (1,
+   4096, 2560) from zeros and from a nonzero h0 and at a ragged (1, 37,
+   40), fp32 and bf16, bit-exact, with its time, the plain version's and
+   its bound; the flash backward at the training shape (q (1, 4096, 10,
+   256), k, v (1, 4096, 1, 256), causal, window 2048), fp32 on the CUDA
+   cores and bf16 on the tensor cores as in phase 6, beside SDPA's
+   backward with the window as a boolean mask and the kv head expanded
+   (its backend named); (b) the full model's loss and gradients with the
+   kernels (flash and the RG-LRU scan, forward and backward) and with
+   the plain versions, as in phase 6, every ``lru_*``, ``w_y`` and
+   ``conv_*`` leaf with a nonzero gradient; (c) a captured ``TrainStep``
+   built from a state held on the host, 10 steps on one fixed batch (the
+   loss must fall): step ms, tokens/s, MFU over the window's visible
+   pairs, the card's clocks, peak memory, capture seconds and pool
+   bytes, a 2-step profile; (d) ``train_hybrid_graph_vs_eager``: a
+   captured and a direct-call step from the same host state over the
+   same 3 batches, bit-identical metrics and final params, m, v and
+   step.
 
 Every serving run goes through the executor's ``serving_params`` (the
 weights cast to the compute dtype once) and runs each decode step as a
@@ -168,11 +190,15 @@ fp32-compute logit checks run the CUDA-core ones.
 The training runs' counters are zeroed before each run and must read,
 per direct call of the train step (its 2 warm-ups and its capture, on a
 cold ``AotCache`` only; a replay makes no Python call), one flash
-forward per layer, again in remat's recompute, and one flash backward
-per layer, and for the MoE 3 grouped-matmul forwards per MoE layer,
-again in remat's recompute, and 3 backward calls (``LAUNCHES_BWD``, each
-dX and dW), all on the tensor cores; the launches a run reports add one
-step's per replay, and the replays must equal the steps.
+forward per attention layer, again in remat's recompute, and one flash
+backward per attention layer, for the MoE 3 grouped-matmul forwards per
+MoE layer, again in remat's recompute, and 3 backward calls
+(``LAUNCHES_BWD``, each dX and dW), and for the hybrid one RG-LRU scan
+per recurrent layer, again in remat's recompute, and one reverse scan
+(``LAUNCHES_BWD``): flash 2 x 2 + 2, the scan 4 x 2 + 4 at depth 6;
+every flash and grouped-matmul launch on the tensor cores; the launches
+a run reports add one step's per replay, and the replays must equal the
+steps.
 
 Prints one JSON line per measured case, then the kernels' summary line,
 and as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
@@ -316,9 +342,10 @@ def check_close(torch, name, out, ref, tol) -> float:
 def run_counted(torch, mod, name, fn, counter="LAUNCHES",
                 tc_counter="LAUNCHES_TC"):
     """One call of a kernel wrapper: its output (a tensor or a tuple of
-    them) and the instance it ran ("tc" or "cuda_core", read from the
-    module's counters; kernels with one instance run on the CUDA cores),
-    after a second call has given bit-identical output.  ``counter`` is
+    them, None where the wrapper gives none) and the instance it ran
+    ("tc" or "cuda_core", read from the module's counters; kernels with
+    one instance run on the CUDA cores), after a second call has given
+    bit-identical output.  ``counter`` is
     the module's count of this wrapper's launches, ``tc_counter`` that of
     its tensor-core instance's."""
     n0, tc0 = getattr(mod, counter), getattr(mod, tc_counter, 0)
@@ -329,7 +356,7 @@ def run_counted(torch, mod, name, fn, counter="LAUNCHES",
         raise AssertionError(f"{name}: the kernel was not launched")
     outs, agains = ((out, again) if isinstance(out, tuple)
                     else ((out,), (again,)))
-    if not all(torch.equal(a, b) for a, b in zip(outs, agains)):
+    if not all(a is b or torch.equal(a, b) for a, b in zip(outs, agains)):
         raise AssertionError(f"{name}: two calls differ")
     tc = getattr(mod, tc_counter, 0) == tc0 + 2
     return out, "tc" if tc else "cuda_core"
@@ -698,6 +725,7 @@ def reset_counts():
     for name in ("flash_attention", "moe_gmm"):
         mods[name].LAUNCHES_BWD = 0
         mods[name].LAUNCHES_BWD_TC = 0
+    mods["rglru_scan"].LAUNCHES_BWD = 0
 
 
 def read_counts():
@@ -1737,30 +1765,47 @@ def flash_train_fwd_cases(torch):
     return rows
 
 
-def flash_bwd_cases(torch):
+# (name, b, hq, hkv, sq, d, window), all causal: smollm's training shape,
+# d 128 with g 1 at 1024 tokens, a window, and a ragged length
+FLASH_BWD_CASES = [("smollm_train", 8, 9, 3, 2048, 64, 0),
+                   ("d128_g1", 2, 16, 16, 1024, 128, 0),
+                   ("window", 4, 9, 3, 1024, 64, 256),
+                   ("ragged", 2, 9, 3, 1000, 64, 0)]
+
+
+def _sdpa_backend(torch, q, k, v, **kw) -> str:
+    """The backend PyTorch's dispatcher picks for this SDPA call."""
+    from torch.nn.attention import SDPBackend
+
+    choice = getattr(torch, "_fused_sdp_choice", None)
+    if choice is None:
+        return "not reported by this torch"
+    names = {int(b): n for n, b in SDPBackend.__members__.items()}
+    return names.get(int(choice(q, k, v, **kw)), "unknown")
+
+
+def flash_bwd_cases(torch, cases=FLASH_BWD_CASES, expand_kv=False):
     """The flash backward against ``attention_bwd_ref`` on the same
-    (q, k, v, o, lse, dO) (o and lse from the plain forward): smollm's
-    training shape, d 128 with g 1 at 1024 tokens, a window, and a ragged
-    length; fp32 on the CUDA cores, bf16 on the tensor cores (the
+    (q, k, v, o, lse, dO) (o and lse from the plain forward) at each of
+    ``cases``; fp32 on the CUDA cores, bf16 on the tensor cores (the
     instance read from the counters); two calls bit-identical.  bf16 is
     held to the rounding model and to DS_BF16_FLOOR_FACTOR times its
     distance from the fp32 plain backward (both distances logged).  Each
     line has the kernel's device time (bf16 lines also the same case's
     fp32 CUDA-core time, which the tensor-core one must beat), the plain
     version's, the SDPA backward's (the library call: its autograd
-    backward alone, timed eagerly), and the bound: 2.5x the forward's
-    matmul flops over the unmasked pairs at the dtype's peak, or the
-    bytes of q, k, v, o, dO, lse read once and dq, dk, dv written once."""
+    backward alone, timed eagerly, a window as a boolean mask; with
+    ``expand_kv`` on k and v expanded to the query heads, else with
+    ``enable_gqa``; the backend the dispatcher picks is named), and the
+    bound: 2.5x the forward's matmul flops over the unmasked pairs at the
+    dtype's peak, or the bytes of q, k, v, o, dO, lse read once and dq,
+    dk, dv written once."""
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                          attention_ref)
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
-    cases = [("smollm_train", 8, 9, 3, 2048, 64, 0),
-             ("d128_g1", 2, 16, 16, 1024, 128, 0),
-             ("window", 4, 9, 3, 1024, 64, 256),
-             ("ragged", 2, 9, 3, 1000, 64, 0)]
     rows, fp32_ms = [], {}
     for dtype in (torch.float32, torch.bfloat16):
         bf16 = dtype == torch.bfloat16
@@ -1807,11 +1852,17 @@ def flash_bwd_cases(torch):
                       + es * d * (b * hq * sq + 2 * b * hkv * sq))
             flops = 2.5 * 4.0 * d * b * hq * pairs
             bound_ms, bound_by = bound(flops, nbytes, dtype)
-            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-            sdpa_kw = ({"attn_mask": mask} if window
-                       else {"is_causal": True})
-            so = F.scaled_dot_product_attention(*leaves, enable_gqa=True,
-                                                **sdpa_kw)
+            if expand_kv:
+                kv = [t.repeat_interleave(hq // hkv, dim=1) for t in (k, v)]
+                sdpa_kw = {}
+            else:
+                kv = [k, v]
+                sdpa_kw = {"enable_gqa": True}
+            leaves = [t.detach().requires_grad_() for t in (q, *kv)]
+            sdpa_kw.update({"attn_mask": mask} if window
+                           else {"is_causal": True})
+            backend = _sdpa_backend(torch, *leaves, **sdpa_kw)
+            so = F.scaled_dot_product_attention(*leaves, **sdpa_kw)
             big = b * hq * sq * sq >= 2 ** 28
             row = {
                 "kernel": "flash_attention_bwd", "case": what,
@@ -1828,6 +1879,8 @@ def flash_bwd_cases(torch):
                     *args, window=window), reps=2, replays=3),
                 "library_ms": cuda_ms(torch, lambda: torch.autograd.grad(
                     so, leaves, do, retain_graph=True), 10, 2),
+                "library": f"SDPA backward ({backend}"
+                           f"{', kv expanded' if expand_kv else ''})",
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "pairs": pairs, "flops": flops}
             row["tflops"] = flops / row["kernel_ms"] / 1e9
@@ -1843,7 +1896,7 @@ def flash_bwd_cases(torch):
                 fp32_ms[what] = row["kernel_ms"]
             rows.append(row)
             log(row)
-            del so, leaves, args, o, lse, q, k, v, do
+            del so, leaves, kv, args, o, lse, q, k, v, do
             gc.collect()
             torch.cuda.empty_cache()
     return rows
@@ -1874,19 +1927,22 @@ def _record_routing(store):
 
 
 def train_grads_kernel_vs_plain(torch, cfg, batch_size=TRAIN_BATCH,
-                                seq=TRAIN_SEQ):
+                                seq=TRAIN_SEQ, must_move=()):
     """One loss and gradient of the full-width model (random weights
     from seed 0, one DataPipeline batch of ``batch_size`` x ``seq``
-    tokens) with the kernels (attention, and the experts' grouped
-    matmul for a MoE, forward and backward) and with their plain
-    versions, through the train step's mixed-precision
+    tokens) with the kernels (attention, the experts' grouped matmul for
+    a MoE and the RG-LRU scan for a hybrid, forward and backward) and
+    with their plain versions, through the train step's mixed-precision
     ``value_and_grad``: fp32 compute held leaf by leaf to the plain
     gradients, bf16 compute held to the plain bf16 model's own distance
-    from the fp32 plain gradients (the module note).  For a MoE the two
-    fp32 runs must route every token alike first (each MoE layer's
-    expert ids, recorded from the router): a near-tie tipped by the
-    kernels' summation order would show as such, not as a gradient
-    off."""
+    from the fp32 plain gradients (the module note).  No leaf's kernel
+    gradient may be all zero where the plain one is not, and every leaf
+    whose name ends in one of ``must_move`` must have a nonzero gradient
+    in every run (a kernel output without a gradient would leave the
+    leaves behind it at zero).  For a MoE the two fp32 runs must route
+    every token alike first (each MoE layer's expert ids, recorded from
+    the router): a near-tie tipped by the kernels' summation order would
+    show as such, not as a gradient off."""
     from repro_torch.data.pipeline import DataPipeline
     from repro_torch.launch.strategy import value_and_grad
     from repro_torch.models.init import init_params
@@ -1906,8 +1962,8 @@ def train_grads_kernel_vs_plain(torch, cfg, batch_size=TRAIN_BATCH,
             undo = _record_routing(routes[(dt, impl)])
             try:
                 t0 = time.perf_counter()
-                loss, metrics, grads = value_and_grad(c, impl, impl)(params,
-                                                                     batch)
+                loss, metrics, grads = value_and_grad(c, impl, impl, impl)(
+                    params, batch)
                 torch.cuda.synchronize()
             finally:
                 undo()
@@ -1920,8 +1976,13 @@ def train_grads_kernel_vs_plain(torch, cfg, batch_size=TRAIN_BATCH,
     tipped = [int((a != b).any(dim=-1).sum()) for a, b in zip(
         routes[(f32, "kernel")][:n_moe], routes[(f32, "ref")][:n_moe])]
     worst32, worst16, control = 0.0, 0.0, float("inf")
-    failed = []
+    failed, still = [], []
     for i, name in enumerate(names):
+        moved = {key: bool(v[1][i].any()) for key, v in res.items()}
+        if ((moved[(f32, "ref")] and not moved[(f32, "kernel")])
+                or (moved[(b16, "ref")] and not moved[(b16, "kernel")])
+                or (name.endswith(must_move) and not all(moved.values()))):
+            still.append(name)
         p32 = res[(f32, "ref")][1][i]
         d32 = _rel_dist(torch, res[(f32, "kernel")][1][i], p32)
         floor = _rel_dist(torch, res[(b16, "ref")][1][i], p32)
@@ -1940,12 +2001,19 @@ def train_grads_kernel_vs_plain(torch, cfg, batch_size=TRAIN_BATCH,
          "seconds": {f"{str(dt)}_{impl}": v[2]
                      for (dt, impl), v in res.items()},
          "fp32_tokens_routed_apart": tipped,
+         "leaves_that_must_move": sum(n.endswith(must_move) for n in names)
+         if must_move else 0,
+         "leaves_without_gradient": still,
          "fp32_loss_abs_err": loss_err,
          "fp32_worst_leaf_rel": worst32, "fp32_rtol": TRAIN_FP32_GRAD_RTOL,
          "bf16_floor_min_leaf_rel": control,
          "bf16_worst_leaf_ratio": worst16,
          "bf16_factor": DS_BF16_FLOOR_FACTOR})
     del res, routes, params, batch
+    if still:
+        raise AssertionError(f"{cfg.name}: leaves without a gradient (all "
+                             f"zero with the kernels, or where they must "
+                             f"move): {still}")
     if any(tipped):
         raise AssertionError(f"{cfg.name}: the fp32 kernel and plain runs "
                              f"route {tipped} tokens apart (per MoE layer): "
@@ -1968,24 +2036,31 @@ def _leaf_names(tree, prefix=""):
 
 
 def train_counts_per_call(cfg):
-    """Kernel launches of one train step: one flash forward per attention
-    layer, again under remat's recompute, and one flash backward per
-    attention layer; for a MoE, 3 grouped-matmul forwards per MoE layer
-    (again under remat) and 3 backward calls (dX and dW each)."""
+    """Kernel launches of one train step, by layer kind: one flash
+    forward per attention layer, again under remat's recompute, and one
+    flash backward per attention layer; 3 grouped-matmul forwards per
+    MoE layer (again under remat) and 3 backward calls (dX and dW each);
+    one RG-LRU scan per recurrent layer of a hybrid (again under remat)
+    and one reverse scan."""
     n_fwd = 1 + int(cfg.remat)
-    n_moe = cfg.num_layers - cfg.first_k_dense if cfg.num_experts else 0
-    return {"flash_attention": cfg.num_layers * n_fwd,
-            "flash_attention_bwd": cfg.num_layers,
-            "moe_gmm": 3 * n_moe * n_fwd, "moe_gmm_bwd": 3 * n_moe}
+    layers = range(cfg.num_layers)
+    n_attn = sum(cfg.is_attention_layer(i) for i in layers)
+    n_moe = sum(cfg.is_moe_layer(i) for i in layers)
+    n_scan = cfg.num_layers - n_attn if cfg.family == "hybrid" else 0
+    return {"flash_attention": n_attn * n_fwd,
+            "flash_attention_bwd": n_attn,
+            "moe_gmm": 3 * n_moe * n_fwd, "moe_gmm_bwd": 3 * n_moe,
+            "rglru_scan": n_scan * n_fwd, "rglru_scan_bwd": n_scan}
 
 
 def check_train_counts(cfg, what, calls: int, replays: int):
     """The launches counted since ``reset_counts``, which must be
     ``train_counts_per_call``'s times ``calls``, the direct calls of the
     train step (its warm-ups and capture on the graph path; a replay
-    launches from no Python call), every forward and every backward on
-    the tensor cores (the runs compute in bf16).  Returns the launches
-    the run made: ``calls`` plus ``replays`` times one step's."""
+    launches from no Python call), every forward and every backward of
+    the kernels with two instances on the tensor cores (the runs compute
+    in bf16).  Returns the launches the run made: ``calls`` plus
+    ``replays`` times one step's."""
     mods = _kernel_modules()
     counts, tc = {}, {}
     for name in ("flash_attention", "moe_gmm"):
@@ -1993,9 +2068,12 @@ def check_train_counts(cfg, what, calls: int, replays: int):
         counts[name], tc[name] = mod.LAUNCHES, mod.LAUNCHES_TC
         counts[name + "_bwd"] = mod.LAUNCHES_BWD
         tc[name + "_bwd"] = mod.LAUNCHES_BWD_TC
+    scan = mods["rglru_scan"]
+    counts["rglru_scan"] = scan.LAUNCHES
+    counts["rglru_scan_bwd"] = scan.LAUNCHES_BWD
     per = train_counts_per_call(cfg)
     want = {k: n * calls for k, n in per.items()}
-    if counts != want or tc != counts:
+    if counts != want or any(tc[k] != counts[k] for k in tc):
         raise AssertionError(
             f"{what}: launches {counts} ({tc} on the tensor cores), "
             f"expected {want} for {calls} direct calls of the step, every "
@@ -2785,22 +2863,32 @@ def _host(tree):
     return tree_map(lambda t: t.detach().cpu(), tree)
 
 
-def train_moe_runs(torch, cfg):
-    """The MoE training path at full published width, depth
-    ``cfg.num_layers`` (batch 4 x 2048, bf16 compute, fp32 master
-    params, random weights from seed 0, the initial state held on the
-    host so that the card holds only the step's own): (a) a captured
+def _visible_pairs(s: int, window: int) -> int:
+    """(query, key) pairs a causal attention over ``s`` tokens computes,
+    with keys older than ``window`` masked (0: no window)."""
+    if window <= 0 or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def train_cut_runs(torch, cfg, b: int, s: int, phase: str):
+    """A training path at full published width with its depth cut to
+    ``cfg.num_layers`` (batch b x s, bf16 compute, fp32 master params,
+    random weights from seed 0, the initial state held on the host so
+    that the card holds only the step's own): (a) a captured
     ``TrainStep``, 10 steps on one fixed batch, whose loss must fall by
-    LEARN_MARGIN with a finite aux above 0 at every step: step ms (mean
-    of the steady steps), tokens/s, MFU by active parameters, peak
-    memory, capture seconds and pool bytes, and a 2-step profile for the
-    device busy share and the top kernels; (b) ``train_moe_graph_vs_
-    eager``: a captured and a direct-call step from the same state over
-    the same 3 batches, one after the other (two steps do not fit the
-    card at once), the first's metrics and final state held on the host:
-    bit-identical params, m, v, step and metrics.  Launches counted
-    exactly, per direct call, all on the tensor cores.  Returns the
-    launches made, replays counted."""
+    LEARN_MARGIN (for a MoE with a finite aux above 0 at every step):
+    step ms (mean of the steady steps), tokens/s, MFU (by active
+    parameters for a MoE; attention over the pairs its mask leaves),
+    peak memory, capture seconds and pool bytes, the card's clocks, and
+    a 2-step profile for the device busy share and the top kernels
+    (line ``phase``); (b) ``<phase>_graph_vs_eager``: a captured and a
+    direct-call step from the same state over the same 3 batches, one
+    after the other (two steps do not fit the card at once), the
+    first's metrics and final state held on the host: bit-identical
+    params, m, v, step and metrics.  Launches counted exactly, per
+    direct call, those of the kernels with two instances all on the
+    tensor cores.  Returns the launches made, replays counted."""
     import numpy as np
 
     from repro_torch.data.pipeline import DataPipeline
@@ -2808,7 +2896,6 @@ def train_moe_runs(torch, cfg):
     from repro_torch.optim import AdamWConfig
     from repro_torch.tree import flatten
 
-    b, s = MOE_TRAIN_BATCH, MOE_TRAIN_SEQ
     opt = AdamWConfig(lr=1e-3)
     s0 = _host(init_train_state(
         cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"))
@@ -2845,28 +2932,32 @@ def train_moe_runs(torch, cfg):
         by_name[key] = by_name.get(key, 0.0) + e.self_device_time_total / 2e3
     g = step.graph
     if g.replays != 10 + 2:
-        raise AssertionError(f"train_moe: {g.replays} replays for 10 + 2 "
+        raise AssertionError(f"{phase}: {g.replays} replays for 10 + 2 "
                              f"(profiled) steps")
-    add(check_train_counts(cfg, "train_moe", g.calls, g.replays))
+    add(check_train_counts(cfg, phase, g.calls, g.replays))
     dev_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:16]
     step_s = float(np.mean(walls[1:])) / 1e3
     tokens = b * s
     n_active = cfg.num_active_params()
-    pairs = s * (s + 1) // 2
-    attn_flops = (12.0 * cfg.num_layers * b * cfg.num_heads * cfg.head_dim
+    n_attn = sum(cfg.is_attention_layer(i) for i in range(cfg.num_layers))
+    pairs = _visible_pairs(s, cfg.attention_window)
+    attn_flops = (12.0 * n_attn * b * cfg.num_heads * cfg.head_dim
                   * pairs)
     model_flops = 6.0 * n_active * tokens + attn_flops
-    log({"phase": "train_moe", "arch": cfg.name,
-         "num_layers": cfg.num_layers, "batch": b, "seq": s,
+    log({"phase": phase, "arch": cfg.name,
+         "num_layers": cfg.num_layers, "attention_layers": n_attn,
+         "batch": b, "seq": s, "visible_pairs": pairs,
          "n_params": cfg.num_params(), "n_active_params": n_active,
          "losses": losses, "aux": auxes, "drop": losses[0] - losses[-1],
          "margin": LEARN_MARGIN, "step_ms_all": walls,
          "step_ms": 1e3 * step_s, "tokens_per_s": tokens / step_s,
          "clocks": clocks.summary(), "model_flops_per_step": model_flops,
          "mfu": model_flops / step_s / PEAK_FLOPS["torch.bfloat16"],
-         "mfu_formula": "(6 N_active tokens + 12 L b hq d s(s+1)/2) / "
-                        "(step_s x 989e12); remat's forward not counted",
+         "mfu_formula": "(6 N_active tokens + 12 L_attn b hq d pairs) / "
+                        "(step_s x 989e12), pairs the causal (and "
+                        "windowed) visible pairs; remat's forward not "
+                        "counted",
          "peak_mem_gb": peak[0], "peak_reserved_gb": peak[1],
          "build_s": build_s, "capture_s": g.capture_s,
          "capture_gb": g.capture_bytes / 1e9, "step_calls": g.calls,
@@ -2879,10 +2970,10 @@ def train_moe_runs(torch, cfg):
                          k: v * 2e3 / dev_us for k, v in top}}})
     if not (all(np.isfinite(losses))
             and losses[-1] < losses[0] - LEARN_MARGIN):
-        raise AssertionError(f"train_moe: losses {losses} did not fall by "
+        raise AssertionError(f"{phase}: losses {losses} did not fall by "
                              f"{LEARN_MARGIN}")
-    if not all(np.isfinite(a) and a > 0 for a in auxes):
-        raise AssertionError(f"train_moe: aux losses {auxes}")
+    if cfg.num_experts and not all(np.isfinite(a) and a > 0 for a in auxes):
+        raise AssertionError(f"{phase}: aux losses {auxes}")
     del step, g, m, kernels, top, by_name
     gc.collect()
     torch.cuda.empty_cache()
@@ -2900,9 +2991,9 @@ def train_moe_runs(torch, cfg):
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         calls, replays = st.graph.calls, st.graph.replays
         if (calls, replays) != ((3, 3) if mode == "graph" else (4, 0)):
-            raise AssertionError(f"train_moe_graph_vs_eager {mode}: "
+            raise AssertionError(f"{phase}_graph_vs_eager {mode}: "
                                  f"{calls} calls, {replays} replays")
-        add(check_train_counts(cfg, f"train_moe_graph_vs_eager {mode}",
+        add(check_train_counts(cfg, f"{phase}_graph_vs_eager {mode}",
                                calls, replays))
         seen[mode] = (metrics, st.state if mode == "eager"
                       else _host(st.state), peak_gb)
@@ -2916,16 +3007,100 @@ def train_moe_runs(torch, cfg):
               if not torch.equal(mg[i][k], me[i][k])]
     differ += [n for n, a, e in zip(names, flatten(sg)[0], flatten(se)[0])
                if not torch.equal(a, e.cpu())]
-    log({"phase": "train_moe_graph_vs_eager", "steps": 3,
+    log({"phase": f"{phase}_graph_vs_eager", "steps": 3,
          "leaves": len(names), "losses": [float(x["loss"]) for x in mg],
          "aux": [float(x["aux"]) for x in mg], "identical": not differ,
          "differ": differ[:20], "peak_mem_gb": {"graph": peak_g,
                                                 "eager": peak_e}})
     if differ:
-        raise AssertionError(f"train_moe graph vs eager: {len(differ)} "
+        raise AssertionError(f"{phase} graph vs eager: {len(differ)} "
                              f"leaves or metrics differ: {differ[:20]}")
     del seen, se, sg, s0
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 8: training recurrentgemma-2b at its published widths, depth 6
+# ---------------------------------------------------------------------------
+
+# one 4,096-token sequence (the reference's train_4k length): past token
+# 2,048 the 2048 window masks keys
+HYBRID_TRAIN_BATCH, HYBRID_TRAIN_SEQ = 1, 4096
+# layers 0-5: RG-LRU, RG-LRU, attention, RG-LRU, RG-LRU, attention (two
+# periods of the 1:2 pattern); 26 layers' train state (~30 B a parameter
+# with the step's new copy, gradients and casts) would not fit 80 GB
+HYBRID_TRAIN_LAYERS = 6
+# the hybrid's leaves whose gradient comes through the RG-LRU scan alone
+SCAN_LEAVES = ("lru_wa", "lru_ba", "lru_wx", "lru_bx", "lru_a", "w_y",
+               "conv_w", "conv_b")
+# the flash backward at the hybrid's training shape: q (1, 4096, 10, 256),
+# k, v (1, 4096, 1, 256), causal with the 2048 window
+FLASH_BWD_HYBRID_CASES = [("recurrentgemma_train", HYBRID_TRAIN_BATCH, 10,
+                           1, HYBRID_TRAIN_SEQ, 256, 2048)]
+
+
+def rglru_bwd_cases(torch):
+    """The RG-LRU reverse scan (``rglru_scan_bwd``) against its plain
+    version at the hybrid's training shape (1, 4096, 2560), from zeros
+    and from a nonzero h0, and at a ragged shape (seq 37, 40 channels)
+    from an h0; fp32 and bf16, each bit-exact (both round the same two
+    ops and each output once) with two calls ``torch.equal``; the inputs
+    a in the model's decay range, h from the plain forward scan.  Each
+    line: the kernel's device time, the plain version's, and the bound
+    (a, h, dh read once and da, db written once, plus h0 and dh0; 3
+    flops an element).  No one PyTorch call computes it."""
+    from repro_torch.kernels.rglru_scan import rglru_scan as rs
+    from repro_torch.kernels.rglru_scan.ref import (rglru_scan_bwd_ref,
+                                                    rglru_scan_ref)
+
+    dev = torch.device("cuda")
+    shapes = [(1, HYBRID_TRAIN_SEQ, 2560, False),
+              (1, HYBRID_TRAIN_SEQ, 2560, True), (1, 37, 40, True)]
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, s, w, with_h0 in shapes:
+            g = torch.Generator(device=dev).manual_seed(s + w + with_h0)
+            a = (0.85 + 0.149 * torch.rand((b, s, w), generator=g,
+                                           device=dev)).to(dtype)
+            x = (0.1 * torch.randn((b, s, w), generator=g,
+                                   device=dev)).to(dtype)
+            dh = torch.randn((b, s, w), generator=g, device=dev).to(dtype)
+            h0 = (torch.randn((b, w), generator=g, device=dev)
+                  if with_h0 else None)
+            h = rglru_scan_ref(a, x, h0)
+            what = f"rglru_scan_bwd {(b, s, w)} h0={with_h0} {dtype}"
+            out, _ = run_counted(torch, rs, what,
+                                 lambda: rs.rglru_scan_bwd(a, h, dh, h0),
+                                 counter="LAUNCHES_BWD")
+            ref = rglru_scan_bwd_ref(a, h, dh, h0)
+            torch.cuda.synchronize()
+            for name, o, r in zip(("da", "db", "dh0"), out, ref):
+                if (o is None) != (r is None) or (
+                        r is not None and not torch.equal(o, r)):
+                    raise AssertionError(f"{what} {name}: not bit-exact "
+                                         f"against the plain version")
+            es = a.element_size()
+            nbytes = es * 5 * b * s * w + (8 * b * w if with_h0 else 0)
+            bound_ms, bound_by = bound(3.0 * b * s * w, nbytes, dtype)
+            kernel_ms = graph_ms(torch,
+                                 lambda: rs.rglru_scan_bwd(a, h, dh, h0))
+            rows.append({
+                "kernel": "rglru_scan_bwd", "dtype": str(dtype), "b": b,
+                "s": s, "w": w, "h0": with_h0, "bit_exact": True,
+                "max_abs_err": 0.0, "kernel_ms": kernel_ms,
+                "kernel_call_ms": cuda_ms(
+                    torch, lambda: rs.rglru_scan_bwd(a, h, dh, h0)),
+                "plain_ms": graph_ms(
+                    torch, lambda: rglru_scan_bwd_ref(a, h, dh, h0),
+                    reps=1, replays=2),
+                "library_ms": None,    # no one PyTorch call computes it
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "bound_ratio": kernel_ms / bound_ms})
+            log(rows[-1])
+            del out, ref, a, x, dh, h, h0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
 
 
 def main() -> int:
@@ -3077,7 +3252,31 @@ def main() -> int:
     train_grads_kernel_vs_plain(torch, dst, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ)
     gc.collect()
     torch.cuda.empty_cache()
-    c_train_moe = train_moe_runs(torch, dst)
+    c_train_moe = train_cut_runs(torch, dst, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ,
+                                 "train_moe")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 8: training recurrentgemma-2b at its published widths, depth
+    # cut 26 -> 6 (layers 0-5: two periods of RG-LRU, RG-LRU, attention)
+    hyb = dataclasses.replace(get_config("recurrentgemma-2b"),
+                              num_layers=HYBRID_TRAIN_LAYERS)
+    if (hyb.d_model, hyb.num_heads, hyb.num_kv_heads, hyb.head_dim,
+            hyb.d_ff, hyb.lru_width, hyb.attention_window, hyb.vocab_size,
+            hyb.compute_dtype, hyb.param_dtype, hyb.remat) != (
+            2560, 10, 1, 256, 7680, 2560, 2048, 256000, torch.bfloat16,
+            torch.float32, True):
+        raise AssertionError(f"recurrentgemma-2b is not at full width: "
+                             f"{hyb}")
+    scan_bwd = rglru_bwd_cases(torch)
+    flash_bwd_hyb = flash_bwd_cases(torch, FLASH_BWD_HYBRID_CASES,
+                                    expand_kv=True)
+    train_grads_kernel_vs_plain(torch, hyb, HYBRID_TRAIN_BATCH,
+                                HYBRID_TRAIN_SEQ, must_move=SCAN_LEAVES)
+    gc.collect()
+    torch.cuda.empty_cache()
+    c_train_hyb = train_cut_runs(torch, hyb, HYBRID_TRAIN_BATCH,
+                                 HYBRID_TRAIN_SEQ, "train_hybrid")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3088,7 +3287,7 @@ def main() -> int:
     # 300-token prefill) with the launches of every serving and training
     # run
     runs = (c_cli, c_eng, c_static, c_arrival, c_ds, c_gr, c_rg, c_rw,
-            c_train, c_train_moe)
+            c_train, c_train_moe, c_train_hyb)
 
     def summary(rows, name, source, replaces, pick):
         r = [x for x in rows if pick(x)][0]
@@ -3150,11 +3349,16 @@ def main() -> int:
                       ("b", "hq", "hkv", "d", "sq", "window", "instance"))
                  for hq in (9, 10)]),
         # no Pallas kernel: the reference differentiates its XLA
-        # attention; the line is the smollm training shape
-        summary(flash_bwd, "flash_attention_bwd",
-                "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-                "src/repro/models/attention.py:52",
-                lambda x: x["dtype"] == bf16 and x["case"] == "smollm_train"),
+        # attention; the line is the smollm training shape, with
+        # recurrentgemma-2b's (d 256, group 10, window 2048) beside it
+        dict(summary(flash_bwd, "flash_attention_bwd",
+                     "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                     "src/repro/models/attention.py:52",
+                     lambda x: x["dtype"] == bf16
+                     and x["case"] == "smollm_train"),
+             d256_shape=case(flash_bwd_hyb, lambda x: x["dtype"] == bf16,
+                             ("b", "hq", "hkv", "d", "sq", "window",
+                              "instance", "library"))),
         dict(summary(gmm, "moe_gmm",
                      "src/repro_torch/kernels/csrc/moe_gmm.cu",
                      "src/repro/kernels/moe_gmm/moe_gmm.py:39",
@@ -3187,6 +3391,13 @@ def main() -> int:
                      and not x["h0"]),
              batch8=case(scan, lambda x: x["dtype"] == fp32
                          and x["b"] == 8, ("b", "s", "w"))),
+        # no Pallas kernel: the reference differentiates its associative
+        # scan; the line is the hybrid's training shape, fp32, from zeros
+        summary(scan_bwd, "rglru_scan_bwd",
+                "src/repro_torch/kernels/csrc/rglru_scan.cu",
+                "src/repro/models/rglru.py:55",
+                lambda x: x["dtype"] == fp32 and x["s"] == HYBRID_TRAIN_SEQ
+                and not x["h0"]),
         dict(summary(wkv, "rwkv6_wkv",
                      "src/repro_torch/kernels/csrc/rwkv6_wkv.cu",
                      "src/repro/kernels/rwkv6_wkv/rwkv6_wkv.py:69",

@@ -19,7 +19,10 @@
 // tokens, hq 9, hkv 3, d 64, causal) one call does ~2.5x the forward's
 // matmul flops over the causal half (~1e11; the 7 products the kernels
 // run, S and dP recomputed in both, 1.35e11) and moves ~0.1 GB: far above
-// the ridge, so operations bound it.  Both instances keep the same form:
+// the ridge, so operations bound it; so at recurrentgemma-2b's (1 x 4096
+// tokens, hq 10, hkv 1, d 256, causal with a 2048 window: 6,292,480
+// visible pairs), 1.61e11 flops, 0.163 ms at 989 TFLOP/s.  Both
+// instances keep the same form:
 // two kernels, no atomics, so the result is the same bit for bit on every
 // call.  The dQ kernel, one block per (64-row q tile, query head, batch
 // row), runs first: it computes D for its rows (and writes it to a
@@ -32,7 +35,7 @@
 // diagonal to the window's last row), accumulating dV += P^T dO and
 // dK += dS^T Q.
 //
-// * `flash_bwd_dq_tc` / `flash_bwd_dkdv_tc`, bf16 at d 64 and 128
+// * `flash_bwd_dq_tc` / `flash_bwd_dkdv_tc`, bf16 at d 64, 128 and 256
 //   (FlashAttention-2's backward on mma.sync): every product runs on the
 //   tensor cores (m16n8k16, bf16 operands, fp32 accumulators), so the
 //   limit is the tensor pipe and the shared-memory reads that feed it
@@ -45,6 +48,15 @@
 //   measured faster than two blocks holding the fragments in registers.
 //   At d 128 dK and dV take 128 accumulator registers a lane, so the
 //   dK / dV kernel streams 32-row q tiles to keep S^T and dP^T at 32.
+//   At d 256 (recurrentgemma-2b's MQA: 10 query heads on one kv head)
+//   a lane's dQ alone takes 128 accumulator registers, so the dQ kernel
+//   streams 32-key tiles (its shared memory 160 KB: one block an SM);
+//   dK and dV over 256 columns would take 256, so the dK / dV block has
+//   two warpgroups (256 threads) that load each Q and dO tile once, each
+//   recomputing S^T and dP^T of its 64 keys over the whole head dim and
+//   accumulating dK and dV for one half of the columns (1.5x the
+//   kernel's products, against the two blocks a split over the grid
+//   would take, each loading the same tiles); 128 KB of shared memory.
 //   The other operand's tiles (K and V, resp. Q, dO and their rows' LSE
 //   and D) stream into XOR-swizzled shared memory through a
 //   double-buffered cp.async ring, rows past the end zero-filled by the
@@ -70,20 +82,25 @@
 //   it walks; 256 threads as a 16 x 16 grid, thread (tx, ty) owning rows
 //   ty + 16 r and columns tx + 16 s of a 64 x N product (a 4 x N/16
 //   register tile) in fp32 FMAs.  Shared-memory reads bound it (one load
-//   per two FMAs), at ~20 TFLOP/s.
+//   per two FMAs), at ~20 TFLOP/s.  At d 256 the tiles are 32 rows (a
+//   2 x N/16 register tile), 133 / 137 KB of shared memory a block.
 //
 // Inputs are read with any (b, h, s) strides and a contiguous head dim,
 // as the forward reads them; outputs are written with their own strides.
-// head_dim 64 and 128.
+// head_dim 64, 128 and 256.
 #include "common.cuh"
 #include "mma.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;                  // query rows per tile
-constexpr int kBK = 64;                  // keys per tile
 constexpr int kThreads = 256;            // 16 x 16
-constexpr int kLdP = kBK + 1;            // padded row of a (q, k) tile
+
+// query rows and keys a tile: 64, and 32 at d 256, where 64-row fp32
+// tiles of Q, dO, K and V (~263 KB) would not fit shared memory
+template <int D>
+__host__ __device__ constexpr int cc_tile() {
+  return D <= 128 ? 64 : 32;
+}
 
 struct Strides {
   long long b, h, s;                     // in elements; d is contiguous
@@ -113,32 +130,32 @@ __device__ __forceinline__ void stage(float* dst, const T* src, long long ss,
   }
 }
 
-// S = Q K^T and dP = dO V^T for one (q tile, kv tile): thread (tx, ty)
-// gets rows ty + 16 r, keys tx + 16 s
-template <int D>
+// S = Q K^T and dP = dO V^T for one (q tile, kv tile) of 16 R rows and
+// keys: thread (tx, ty) gets rows ty + 16 r, keys tx + 16 s
+template <int D, int R>
 __device__ __forceinline__ void scores(const float* Qs, const float* dOs,
                                        const float* Ks, const float* Vs,
-                                       int tx, int ty, float (&s)[4][4],
-                                       float (&dp)[4][4]) {
+                                       int tx, int ty, float (&s)[R][R],
+                                       float (&dp)[R][R]) {
   constexpr int L = ld<D>();
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int r = 0; r < R; ++r)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) s[r][c] = dp[r][c] = 0.f;
+    for (int c = 0; c < R; ++c) s[r][c] = dp[r][c] = 0.f;
 #pragma unroll 8
   for (int c = 0; c < D; ++c) {
-    float q[4], o[4], k[4], v[4];
+    float q[R], o[R], k[R], v[R];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
+    for (int r = 0; r < R; ++r) {
       q[r] = Qs[(ty + 16 * r) * L + c];
       o[r] = dOs[(ty + 16 * r) * L + c];
       k[r] = Ks[(tx + 16 * r) * L + c];
       v[r] = Vs[(tx + 16 * r) * L + c];
     }
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+    for (int r = 0; r < R; ++r)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         s[r][j] = fmaf(q[r], k[j], s[r][j]);
         dp[r][j] = fmaf(o[r], v[j], dp[r][j]);
       }
@@ -147,16 +164,17 @@ __device__ __forceinline__ void scores(const float* Qs, const float* dOs,
 
 // P and dS of one tile from its scores: P = exp(scale S - LSE) where the
 // key is visible (0 elsewhere), dS = P (dP - D)
-__device__ __forceinline__ void probs(float (&s)[4][4], float (&dp)[4][4],
+template <int R>
+__device__ __forceinline__ void probs(float (&s)[R][R], float (&dp)[R][R],
                                       const float* lse_s, const float* d_s,
                                       int q0, int k0, int tx, int ty, int sq,
                                       int skv, int causal, int window,
                                       float scale) {
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
+  for (int r = 0; r < R; ++r) {
     const int row = ty + 16 * r;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < R; ++j) {
       const bool ok =
           visible(q0 + row, k0 + tx + 16 * j, sq, skv, causal, window);
       const float p = ok ? expf(s[r][j] * scale - lse_s[row]) : 0.f;
@@ -176,6 +194,8 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
              Strides dos, Strides dqs, int causal, int window, float scale) {
   constexpr int L = ld<D>();
   constexpr int DN = D / 16;             // output columns per thread
+  constexpr int kBQ = cc_tile<D>(), kBK = kBQ, R = kBQ / 16;
+  constexpr int kLdP = kBK + 1;          // padded row of a (q, k) tile
   extern __shared__ float smem[];
   float* Qs = smem;                      // kBQ x L
   float* dOs = Qs + kBQ * L;             // kBQ x L
@@ -222,9 +242,9 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   const int t_begin = k_begin / kBK;
   const int t_end = (k_end + kBK - 1) / kBK;
 
-  float acc[4][DN];
+  float acc[R][DN];
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int r = 0; r < R; ++r)
 #pragma unroll
     for (int c = 0; c < DN; ++c) acc[r][c] = 0.f;
 
@@ -234,32 +254,33 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
     stage<T, D>(Ks, kb, ks.s, k0, kBK, skv);
     stage<T, D>(Vs, vb, vs.s, k0, kBK, skv);
     __syncthreads();
-    float s[4][4], dp[4][4];
-    scores<D>(Qs, dOs, Ks, Vs, tx, ty, s, dp);
-    probs(s, dp, lse_s, d_s, q0, k0, tx, ty, sq, skv, causal, window, scale);
+    float s[R][R], dp[R][R];
+    scores<D, R>(Qs, dOs, Ks, Vs, tx, ty, s, dp);
+    probs<R>(s, dp, lse_s, d_s, q0, k0, tx, ty, sq, skv, causal, window,
+             scale);
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+    for (int r = 0; r < R; ++r)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < R; ++j)
         dSs[(ty + 16 * r) * kLdP + tx + 16 * j] = dp[r][j];
     __syncthreads();
     // dQ += dS K
 #pragma unroll 4
     for (int j = 0; j < kBK; ++j) {
-      float a[4], b[DN];
+      float a[R], b[DN];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) a[r] = dSs[(ty + 16 * r) * kLdP + j];
+      for (int r = 0; r < R; ++r) a[r] = dSs[(ty + 16 * r) * kLdP + j];
 #pragma unroll
       for (int c = 0; c < DN; ++c) b[c] = Ks[j * L + tx + 16 * c];
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+      for (int r = 0; r < R; ++r)
 #pragma unroll
         for (int c = 0; c < DN; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
     }
   }
 
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
+  for (int r = 0; r < R; ++r) {
     const int qp = q0 + ty + 16 * r;
     if (qp < sq)
 #pragma unroll
@@ -279,6 +300,8 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
                Strides dvs, int causal, int window, float scale) {
   constexpr int L = ld<D>();
   constexpr int DN = D / 16;
+  constexpr int kBQ = cc_tile<D>(), kBK = kBQ, R = kBQ / 16;
+  constexpr int kLdP = kBQ + 1;          // padded row of a (q, k) tile
   extern __shared__ float smem[];
   float* Ks = smem;                      // kBK x L
   float* Vs = Ks + kBK * L;              // kBK x L
@@ -304,9 +327,9 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
   const int t_begin = q_begin / kBQ;
   const int t_end = q_begin < q_stop ? (q_stop + kBQ - 1) / kBQ : t_begin;
 
-  float ak[4][DN], av[4][DN];            // dK, dV: keys ty + 16 r
+  float ak[R][DN], av[R][DN];            // dK, dV: keys ty + 16 r
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int r = 0; r < R; ++r)
 #pragma unroll
     for (int c = 0; c < DN; ++c) ak[r][c] = av[r][c] = 0.f;
 
@@ -325,14 +348,14 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
         d_s[r] = in ? delta[row0 + q0 + r] : 0.f;
       }
       __syncthreads();
-      float s[4][4], dp[4][4];
-      scores<D>(Qs, dOs, Ks, Vs, tx, ty, s, dp);
-      probs(s, dp, lse_s, d_s, q0, k0, tx, ty, sq, skv, causal, window,
-            scale);
+      float s[R][R], dp[R][R];
+      scores<D, R>(Qs, dOs, Ks, Vs, tx, ty, s, dp);
+      probs<R>(s, dp, lse_s, d_s, q0, k0, tx, ty, sq, skv, causal, window,
+               scale);
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+      for (int r = 0; r < R; ++r)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < R; ++j) {
           Ps[(ty + 16 * r) * kLdP + tx + 16 * j] = s[r][j];
           dSs[(ty + 16 * r) * kLdP + tx + 16 * j] = dp[r][j];
         }
@@ -340,9 +363,9 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
       // dV += P^T dO, dK += dS^T Q (the scale applied at the end)
 #pragma unroll 4
       for (int i = 0; i < kBQ; ++i) {
-        float p[4], ds[4], o[DN], qq[DN];
+        float p[R], ds[R], o[DN], qq[DN];
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
+        for (int r = 0; r < R; ++r) {
           p[r] = Ps[i * kLdP + ty + 16 * r];
           ds[r] = dSs[i * kLdP + ty + 16 * r];
         }
@@ -352,7 +375,7 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
           qq[c] = Qs[i * L + tx + 16 * c];
         }
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
+        for (int r = 0; r < R; ++r)
 #pragma unroll
           for (int c = 0; c < DN; ++c) {
             av[r][c] = fmaf(p[r], o[c], av[r][c]);
@@ -365,7 +388,7 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
   T* dkb = dk + ib * dks.b + hk * dks.h;
   T* dvb = dv + ib * dvs.b + hk * dvs.h;
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
+  for (int r = 0; r < R; ++r) {
     const int kp = k0 + ty + 16 * r;
     if (kp < skv)
 #pragma unroll
@@ -379,15 +402,15 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <int D>
-constexpr int smem_dq() {
-  return (int)sizeof(float) *
-         ((kBQ + kBQ + kBK + kBK) * ld<D>() + kBQ * kLdP + 2 * kBQ);
+constexpr int smem_dq() {                // Q, dO, K, V; dS; LSE, D
+  constexpr int t = cc_tile<D>();
+  return (int)sizeof(float) * (4 * t * ld<D>() + t * (t + 1) + 2 * t);
 }
 
 template <int D>
-constexpr int smem_dkdv() {
-  return (int)sizeof(float) *
-         ((kBK + kBK + kBQ + kBQ) * ld<D>() + 2 * kBQ * kLdP + 2 * kBQ);
+constexpr int smem_dkdv() {              // K, V, Q, dO; P, dS; LSE, D
+  constexpr int t = cc_tile<D>();
+  return (int)sizeof(float) * (4 * t * ld<D>() + 2 * t * (t + 1) + 2 * t);
 }
 
 struct Args {
@@ -404,6 +427,7 @@ struct Args {
 template <typename T, int D>
 int launch(const Args& a, cudaStream_t stream) {
   constexpr int s1 = smem_dq<D>(), s2 = smem_dkdv<D>();
+  constexpr int kBQ = cc_tile<D>(), kBK = kBQ;
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dq<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, s1);
   if (err != cudaSuccess) return (int)err;
@@ -438,6 +462,8 @@ int dispatch_d(int d, const Args& a, cudaStream_t stream) {
       return launch<T, 64>(a, stream);
     case 128:
       return launch<T, 128>(a, stream);
+    case 256:
+      return launch<T, 256>(a, stream);
     default:
       return repro::kUnsupported;
   }
@@ -453,14 +479,30 @@ namespace tc {
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kBQ = 64;                  // dQ kernel: query rows a block
-constexpr int kBK = 64;                  // keys a kv tile (dK / dV: a block)
+constexpr int kBK = 64;                  // dK / dV kernel: keys a block
 constexpr float kLog2e = 1.4426950408889634f;
+
+// the kv tile the dQ kernel streams: at d 256 its dQ accumulators take
+// 128 registers a lane, which leaves room for 32-key S and dP only
+template <int D>
+__host__ __device__ constexpr int dq_k_tile() {
+  return D <= 128 ? 64 : 32;
+}
 
 // the q tile the dK / dV kernel streams: at d 128 its 128 accumulator
 // registers a lane (dK and dV) leave room for 32-row S^T and dP^T only
 template <int D>
 __host__ __device__ constexpr int dkdv_q_tile() {
   return D <= 64 ? 64 : 32;
+}
+
+// the dK / dV kernel's column halves: at d 256 a lane's dK and dV over
+// all 256 columns would be 256 accumulator registers, so the block has
+// two warpgroups, each recomputing S^T and dP^T of its 64 keys over the
+// whole head dim and accumulating dK and dV for its half of the columns
+template <int D>
+__host__ __device__ constexpr int dkdv_halves() {
+  return D <= 128 ? 1 : 2;
 }
 
 // blocks an SM must hold at once: at d 64 three (registers capped at 168
@@ -473,7 +515,7 @@ __host__ __device__ constexpr int min_blocks() {
 
 template <int D>
 constexpr int smem_dq() {                // Q, dO, O; 2 stages of K and V
-  return 2 * D * (3 * kBQ + 2 * 2 * kBK);
+  return 2 * D * (3 * kBQ + 2 * 2 * dq_k_tile<D>());
 }
 
 template <int D>
@@ -482,15 +524,16 @@ constexpr int smem_dkdv() {              // K, V; 2 stages of Q, dO, LSE, D
 }
 
 // `rows` rows from r0 of one head's (s, d) bf16 slice into a swizzled
-// tile by cp.async, 16 bytes a thread; rows past `limit` are zero-filled
-template <int D, int rows>
+// tile by cp.async, 16 bytes a thread of the block's NT; rows past
+// `limit` are zero-filled
+template <int D, int rows, int NT = kThreads>
 __device__ __forceinline__ void load_tile(unsigned char* dst, const bf16* src,
                                           long long ss, int r0, int limit) {
   constexpr int DC = D / 8;
-  static_assert(rows * DC % kThreads == 0, "whole chunks per thread");
+  static_assert(rows * DC % NT == 0, "whole chunks per thread");
 #pragma unroll
-  for (int j = 0; j < rows * DC / kThreads; ++j) {
-    const int i = j * kThreads + threadIdx.x;
+  for (int j = 0; j < rows * DC / NT; ++j) {
+    const int i = j * NT + threadIdx.x;
     const int r = i / DC, c = i % DC;
     const bool in = r0 + r < limit;
     const long long row = in ? r0 + r : 0;
@@ -514,14 +557,15 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 Strides os, Strides dos, Strides dqs, int causal, int window,
                 float scale) {
   using repro::swz_frag;
-  constexpr int BQ = tc::kBQ, BK = tc::kBK;
+  constexpr int BQ = tc::kBQ, BK = tc::dq_k_tile<D>();
   constexpr int DC = D / 8;              // 16-byte chunks per row
   constexpr int KD = D / 16;             // k16 steps of S and dP
   constexpr int NS = BK / 8;             // n8 tiles of S and dP
   constexpr int KB = BK / 16;            // k16 steps of dS K
   constexpr int NO = D / 8;              // n8 tiles of dQ
   constexpr int kTile = BQ * D * 2;      // bytes of a 64-row tile
-  static_assert(BQ == BK && DC % 8 == 0, "tile shapes");
+  constexpr int kKTile = BK * D * 2;     // bytes of a K or V tile
+  static_assert(DC % 8 == 0, "tile shapes");
   extern __shared__ __align__(128) unsigned char smem_dq_tc[];
   unsigned char* Qs = smem_dq_tc;        // BQ x D each
   unsigned char* dOs = Qs + kTile;
@@ -548,8 +592,8 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
   const int t_begin = k_begin / BK;
   const int t_end = (k_end + BK - 1) / BK;
-  auto k_stage = [&](int stage) { return KVs + stage * 2 * kTile; };
-  auto v_stage = [&](int stage) { return k_stage(stage) + kTile; };
+  auto k_stage = [&](int stage) { return KVs + stage * 2 * kKTile; };
+  auto v_stage = [&](int stage) { return k_stage(stage) + kKTile; };
 
   // two cp.async groups: Q, dO and O; then the first K and V tile
   tc::load_tile<D, BQ>(Qs, qb, qs.s, q0, sq);
@@ -688,7 +732,8 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int D>
-__global__ void __launch_bounds__(tc::kThreads, tc::min_blocks<D>())
+__global__ void __launch_bounds__(tc::kThreads * tc::dkdv_halves<D>(),
+                                  tc::min_blocks<D>())
 flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, const float* __restrict__ lse,
                   const float* __restrict__ delta,
@@ -699,11 +744,12 @@ flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   using repro::swz_frag;
   constexpr int BK = tc::kBK;
   constexpr int BQ = tc::dkdv_q_tile<D>();
+  constexpr int NT = tc::kThreads * tc::dkdv_halves<D>();
   constexpr int DC = D / 8;
   constexpr int KD = D / 16;             // k16 steps of S^T and dP^T
   constexpr int NS = BQ / 8;             // n8 tiles of S^T and dP^T
   constexpr int KB = BQ / 16;            // k16 steps of P^T dO, dS^T Q
-  constexpr int NO = D / 8;              // n8 tiles of dK and dV
+  constexpr int NO = D / 8 / tc::dkdv_halves<D>();   // n8 tiles of dK, dV
   constexpr int kKTile = BK * D * 2, kQTile = BQ * D * 2;
   constexpr int kStage = 2 * kQTile + 2 * BQ * 4;   // Q, dO, LSE, D
   static_assert(DC % 8 == 0 && 2 * BQ <= tc::kThreads, "tile shapes");
@@ -715,7 +761,10 @@ flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // z runs slowest: the first kv tiles (causal: the most q tiles) first
   const int hk = blockIdx.x, ib = blockIdx.y, hkv = gridDim.x;
   const int k0 = blockIdx.z * BK;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int warp = (tid >> 5) % tc::kWarps;   // the warp's 16 keys
+  // the warp's columns: pairs of 16-byte chunks cp0 .. cp0 + NO / 2 - 1
+  const int cp0 = (tid >> 5) / tc::kWarps * NO / 2;
   const int gr = lane >> 2, tq = lane & 3;
   const int kw0 = k0 + warp * 16;        // the warp's first key
   const int hq = hkv * g;
@@ -737,10 +786,10 @@ flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   auto load_it = [&](int it, int stage) {
     const int ih = hk * g + it / nt;
     const int q0 = (t_begin + it % nt) * BQ;
-    tc::load_tile<D, BQ>(q_stage(stage), q + ib * qs.b + ih * qs.h, qs.s, q0,
-                         sq);
-    tc::load_tile<D, BQ>(do_stage(stage), dout + ib * dos.b + ih * dos.h,
-                         dos.s, q0, sq);
+    tc::load_tile<D, BQ, NT>(q_stage(stage), q + ib * qs.b + ih * qs.h,
+                             qs.s, q0, sq);
+    tc::load_tile<D, BQ, NT>(do_stage(stage), dout + ib * dos.b + ih * dos.h,
+                             dos.s, q0, sq);
     // the rows' LSE and D, 4 bytes a thread; rows past sq zero-filled
     const long long row0 = ((long long)ib * hq + ih) * sq;
     const int r = tid % BQ;
@@ -752,8 +801,8 @@ flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
       repro::cp_async_4(d_stage(stage) + r, delta + idx, in ? 4 : 0);
   };
 
-  tc::load_tile<D, BK>(Ks, k + ib * ks.b + hk * ks.h, ks.s, k0, skv);
-  tc::load_tile<D, BK>(Vs, v + ib * vs.b + hk * vs.h, vs.s, k0, skv);
+  tc::load_tile<D, BK, NT>(Ks, k + ib * ks.b + hk * ks.h, ks.s, k0, skv);
+  tc::load_tile<D, BK, NT>(Vs, v + ib * vs.b + hk * vs.h, vs.s, k0, skv);
   if (n_it > 0) load_it(0, 0);
   repro::cp_async_commit();
 
@@ -839,10 +888,11 @@ flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int dp2 = 0; dp2 < NO / 2; ++dp2) {
         uint32_t b[4];
-        repro::ldmatrix_x4_trans(b, dot + swz_frag(fa, kk * 16, dp2 * 2, DC));
+        const int cc = 2 * (cp0 + dp2);  // the pair's first chunk
+        repro::ldmatrix_x4_trans(b, dot + swz_frag(fa, kk * 16, cc, DC));
         repro::mma_bf16(av[2 * dp2], pa, b[0], b[1]);
         repro::mma_bf16(av[2 * dp2 + 1], pa, b[2], b[3]);
-        repro::ldmatrix_x4_trans(b, qt + swz_frag(fa, kk * 16, dp2 * 2, DC));
+        repro::ldmatrix_x4_trans(b, qt + swz_frag(fa, kk * 16, cc, DC));
         repro::mma_bf16(ak[2 * dp2], da, b[0], b[1]);
         repro::mma_bf16(ak[2 * dp2 + 1], da, b[2], b[3]);
       }
@@ -858,9 +908,10 @@ flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (kp >= skv) continue;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
-      *reinterpret_cast<uint32_t*>(dkb + kp * dks.s + n * 8 + 2 * tq) =
+      const int col = (2 * cp0 + n) * 8 + 2 * tq;
+      *reinterpret_cast<uint32_t*>(dkb + kp * dks.s + col) =
           repro::pack_bf16x2(ak[n][2 * h] * scale, ak[n][2 * h + 1] * scale);
-      *reinterpret_cast<uint32_t*>(dvb + kp * dvs.s + n * 8 + 2 * tq) =
+      *reinterpret_cast<uint32_t*>(dvb + kp * dvs.s + col) =
           repro::pack_bf16x2(av[n][2 * h], av[n][2 * h + 1]);
     }
   }
@@ -887,7 +938,7 @@ int launch_tc(const Args& a, cudaStream_t stream) {
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   flash_bwd_dkdv_tc<D><<<dim3(a.hkv, a.b, (a.skv + tc::kBK - 1) / tc::kBK),
-                         tc::kThreads, s2, stream>>>(
+                         tc::kThreads * tc::dkdv_halves<D>(), s2, stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), a.lse, a.delta,
       static_cast<const bf16*>(a.dout), static_cast<bf16*>(a.dk),
@@ -908,7 +959,7 @@ bool aligned16(const void* p, Strides s) {
 // contiguous.  lse and delta (b, hq, sq) contiguous fp32: lse from the
 // forward, delta a workspace this call fills with D.  Returns 0, the
 // cudaError_t of a refused launch, or -1 for a head_dim / dtype it does
-// not take (head_dim 64 and 128; fp32 and bf16).
+// not take (head_dim 64, 128 and 256; fp32 and bf16).
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const float* lse, const void* dout, void* dq, void* dk, void* dv,
@@ -931,7 +982,7 @@ extern "C" int repro_flash_attention_bwd(
   return repro::kUnsupported;
 }
 
-// The tensor-core instance: bf16, head_dim 64 or 128, q, k, v, o, dout,
+// The tensor-core instance: bf16, head_dim 64, 128 or 256, q, k, v, o, dout,
 // dq, dk and dv 16-byte aligned with (b, h, s) strides in multiples of 8
 // elements (rows are copied in 16-byte chunks and written in bf16 pairs).
 // Same arguments and returns as above, less the dtype.
@@ -962,6 +1013,8 @@ extern "C" int repro_flash_attention_bwd_tc(
       return launch_tc<64>(a, st);
     case 128:
       return launch_tc<128>(a, st);
+    case 256:
+      return launch_tc<256>(a, st);
     default:
       return repro::kUnsupported;
   }

@@ -6,10 +6,10 @@ forward's output and row log-sum-exp).
 
 Each source has two instances, and :func:`instance` picks one from the
 tensors' dtype, head_dim and layout: ``"tc"`` on the tensor cores (bf16
-at head_dim 64, 128 or 256 for the forward, 64 or 128 for the backward,
-every tensor 16-byte aligned with strides in multiples of 8) or
-``"cuda_core"`` (fp32 FMAs; fp32, and bf16 otherwise).  This is dispatch
-by shape, not a fallback: nothing is caught or retried.
+at head_dim 64, 128 or 256, every tensor 16-byte aligned with strides in
+multiples of 8) or ``"cuda_core"`` (fp32 FMAs; fp32, and bf16
+otherwise).  This is dispatch by shape, not a fallback: nothing is
+caught or retried.
 
 ``LAUNCHES`` counts the forward's launches (either instance),
 ``LAUNCHES_TC`` those of its tensor-core instance, ``LAUNCHES_BWD`` the
@@ -31,9 +31,9 @@ from repro_torch.kernels import _ctypes as C
 BLOCK_K = 128
 HEAD_DIMS = (16, 32, 64, 128, 256)
 TC_HEAD_DIMS = (64, 128, 256)
-# the backward takes smollm-135m's head_dim and the dense configs' 128;
-# 256 (recurrentgemma-2b) comes with hybrid training
-BWD_HEAD_DIMS = (64, 128)
+# the backward takes smollm-135m's head_dim, the dense configs' 128 and
+# recurrentgemma-2b's 256
+BWD_HEAD_DIMS = (64, 128, 256)
 
 LAUNCHES = 0
 LAUNCHES_TC = 0

@@ -6,11 +6,12 @@
 runs the MPG-instrumented orchestrator (checkpoint/restart, async
 checkpoints, step-preparation cache) on the GPU, each step one replay of
 the captured train step with the flash-attention kernels (and, for a
-MoE, the grouped-matmul kernels) forward and backward; add ``--device
-cpu`` (and ``--smoke`` for the reduced config) to run on the host with
-the plain versions.  The flags and the printed JSON keys are the
-reference's, plus ``--device``.  Trains the dense and MoE families
-(``model.loss_fn`` refuses the others).
+MoE, the grouped-matmul kernels; for the hybrid recurrentgemma-2b, the
+RG-LRU scan and its reverse) forward and backward, each chosen by
+``impl="auto"``; add ``--device cpu`` (and ``--smoke`` for the reduced
+config) to run on the host with the plain versions.  The flags and the
+printed JSON keys are the reference's, plus ``--device``.  Trains the
+dense, MoE and hybrid families (``model.loss_fn`` refuses the others).
 """
 from __future__ import annotations
 

@@ -24,12 +24,13 @@ from repro_torch.models.init import (abstract_params,  # noqa: F401
 
 
 def loss_fn(cfg: ModelConfig, attn_impl: str = "auto",
-            gmm_impl: str = "auto") -> Callable:
+            gmm_impl: str = "auto", scan_impl: str = "auto") -> Callable:
     """f(params, batch) -> (mean loss, {"xent", "aux"}); raises
     ``NotImplementedError`` for a family the port does not train yet."""
     transformer.check_trainable(cfg)
     return lambda p, b: transformer.loss_fn(p, b, cfg, attn_impl=attn_impl,
-                                            gmm_impl=gmm_impl)
+                                            gmm_impl=gmm_impl,
+                                            scan_impl=scan_impl)
 
 
 def supports_paged_decode(cfg: ModelConfig, max_len: int) -> bool:

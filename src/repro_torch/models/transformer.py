@@ -1,8 +1,8 @@
 """Decoder-only LM of the port, dense, MoE, hybrid (RG-LRU + local
 attention) and ssm (RWKV-6) families: prefill, the per-request decode
 step, and batched paged decode (the counterparts of
-``repro.models.transformer``), and the training loss of the dense and
-MoE families (``loss_fn``).
+``repro.models.transformer``), and the training loss of the dense, MoE
+and hybrid families (``loss_fn``).
 
 Layer stacks are a Python loop: for dense and MoE the unrolled
 ``dense_layers`` first (``first_k_dense`` of them), then the stacked L dim
@@ -115,7 +115,7 @@ def rwkv_block(x, bp, cfg: ModelConfig, state=None,
 
 
 def _remat(block, cfg: ModelConfig, collect: bool):
-    """``block`` (x, bp) -> (x, kv, aux) as it runs in the stack: under
+    """``block`` (x, bp) -> its outputs as it runs in the stack: under
     ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``) when
     cfg.remat is set, autograd records and no cache is collected, so the
     backward recomputes the block's forward instead of keeping its
@@ -146,11 +146,15 @@ def run_stack(x, params, cfg: ModelConfig, collect_caches: bool = False,
     caches: Dict[str, Any] = {}
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "hybrid":
+        block = _remat(
+            lambda h, bp: hybrid_block(h, bp, cfg,
+                                       collect_state=collect_caches,
+                                       attn_impl=attn_impl,
+                                       scan_impl=scan_impl),
+            cfg, collect_caches)
         states = []
         for i in range(cfg.num_layers):
-            x, st = hybrid_block(x, params["layers"][str(i)], cfg,
-                                 collect_state=collect_caches,
-                                 attn_impl=attn_impl, scan_impl=scan_impl)
+            x, st = block(x, params["layers"][str(i)])
             states.append(st)
         if collect_caches:
             caches["layers"] = states
@@ -251,8 +255,6 @@ def prefill(params, batch, cfg: ModelConfig, max_len: int = 0,
 # (ROADMAP.md, Queue 1: "Training of the other families" and the items
 # after it)
 _TRAIN_TODO = {
-    "hybrid": "hybrid training (a reverse rglru_scan, flash backward at "
-              "head_dim 256)",
     "ssm": "ssm training (a WKV backward)",
     "encdec": "enc-dec and VLM",
     "vlm": "enc-dec and VLM",
@@ -261,9 +263,9 @@ _TRAIN_TODO = {
 
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a family the port cannot train
-    yet, naming the ROADMAP item that adds it: the dense and MoE
+    yet, naming the ROADMAP item that adds it: the dense, MoE and hybrid
     families train so far."""
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: training family {cfg.family!r} is not ported yet; "
             f"ROADMAP.md Queue 1: "
@@ -271,18 +273,20 @@ def check_trainable(cfg: ModelConfig) -> None:
 
 
 def loss_fn(params, batch, cfg: ModelConfig, attn_impl: str = "auto",
-            gmm_impl: str = "auto"):
-    """Causal LM loss of the dense and MoE families
+            gmm_impl: str = "auto", scan_impl: str = "auto"):
+    """Causal LM loss of the dense, MoE and hybrid families
     (``repro.models.transformer.loss_fn``): predict ``tokens[:, 1:]`` from
     positions ``[:-1]``, mean token cross-entropy in fp32; over sequence
     chunks when ``cfg.loss_chunk`` divides the predicted length and is
     shorter.  Returns (loss, {"xent", "aux"}): aux the MoE layers' summed
     load-balancing loss (a zero without them), added to the loss as
-    ``0.01 * aux`` when the config has experts.  ``model.loss_fn``
-    refuses the other families (``check_trainable``)."""
+    ``0.01 * aux`` when the config has experts.  ``attn_impl``,
+    ``gmm_impl`` and ``scan_impl`` pick the attention's, the experts' and
+    the RG-LRU scan's implementations, forward and backward.
+    ``model.loss_fn`` refuses the other families (``check_trainable``)."""
     x = embed_inputs(params, batch, cfg)
     x, aux, _ = run_stack(x, params, cfg, attn_impl=attn_impl,
-                          gmm_impl=gmm_impl)
+                          gmm_impl=gmm_impl, scan_impl=scan_impl)
     x = norm(x, params, "final_norm", cfg)
     h = x[:, :-1]
     labels = batch["tokens"][:, 1:]

@@ -10,8 +10,9 @@ inputs in fp32:
   same saved tensors, layouts and GQA reduction the card's kernels get);
 * torch autograd of the plain forward ``attention_ref``.
 
-Cases: GQA (g 1, 2, 3), causal, windowed and full masks, ragged lengths,
-head_dim 16 to 128.  Tolerance 1e-5 (atol and rtol): the same fp32
+Cases: GQA (g 1, 2, 3, 10), causal, windowed and full masks, ragged
+lengths, head_dim 16 to 256 (recurrentgemma-2b's: MQA with a group of
+10 under a window).  Tolerance 1e-5 (atol and rtol): the same fp32
 arithmetic in another summation order.  Then what the Function and the
 backward kernel's wrapper refuse (``ValueError`` before any launch), and
 exact zeros for rows that see no key.  The CUDA kernel itself is held
@@ -44,6 +45,7 @@ CASES = [
     (2, 4, 2, 50, 16, True, 12),       # sliding window
     (1, 4, 4, 33, 16, False, 0),       # MHA, no mask
     (1, 4, 2, 40, 128, True, 8),       # head_dim 128, window
+    (1, 10, 1, 70, 256, True, 24),     # recurrentgemma-2b's heads, window
 ]
 IDS = [f"b{c[0]}-hq{c[1]}-hkv{c[2]}-s{c[3]}-d{c[4]}-"
        f"{'causal' if c[5] else 'full'}-w{c[6]}" for c in CASES]
@@ -166,12 +168,12 @@ def test_function_refuses_what_the_kernel_refuses(what):
         flash_attention_bshd(q, k, v)
 
 
-@pytest.mark.parametrize("d", [16, 32, 256])
+@pytest.mark.parametrize("d", [16, 32, 96])
 def test_backward_kernel_refuses_other_head_dims(d):
-    """The backward kernel takes head_dim 64 and 128: every other one is
-    refused with a ValueError before anything reaches the card — by the
-    wrapper, by the Function's forward on the kernel path, and by the
-    shared check."""
+    """The backward kernel takes head_dim 64, 128 and 256: every other
+    one is refused with a ValueError before anything reaches the card —
+    by the wrapper, by the Function's forward on the kernel path, and by
+    the shared check."""
     q, k, v, do = (torch.from_numpy(a).transpose(1, 2)
                    for a in _inputs(1, 4, 2, 16, d, 3))
     o, lse = attention_ref(q, k, v, return_lse=True)
@@ -181,7 +183,7 @@ def test_backward_kernel_refuses_other_head_dims(d):
         fmod.flash_attention_bwd(q, k, v, o, lse, do)
     with pytest.raises(ValueError, match="head_dim"):
         FlashAttentionFn.apply(q.requires_grad_(), k, v, True, 0, True)
-    assert fmod.BWD_HEAD_DIMS == (64, 128)
+    assert fmod.BWD_HEAD_DIMS == (64, 128, 256)
 
 
 def test_backward_kernel_wrapper_needs_cuda_tensors():

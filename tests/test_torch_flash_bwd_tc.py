@@ -151,12 +151,12 @@ def _view(d, dtype=torch.bfloat16, offset=0, pad=0, h=3, s=20):
 
 
 def test_bwd_instance_choice():
-    """bf16 at head_dim 64 and 128 with every tensor's rows 16-byte
-    aligned takes the tensor cores; fp32, a view 4 elements into its
-    storage (q, o or do), rows of d + 4 elements, and head_dim 256 (the
-    forward's only) take the CUDA cores."""
-    assert fmod.BWD_HEAD_DIMS == (64, 128)
-    for d in (64, 128):
+    """bf16 at head_dim 64, 128 and 256 (recurrentgemma-2b's) with every
+    tensor's rows 16-byte aligned takes the tensor cores; fp32, a view 4
+    elements into its storage (q, o or do) and rows of d + 4 elements
+    take the CUDA cores."""
+    assert fmod.BWD_HEAD_DIMS == (64, 128, 256)
+    for d in (64, 128, 256):
         five = [_view(d) for _ in range(5)]
         assert fmod.bwd_instance(*five) == "tc"
         assert fmod.bwd_instance(*(_view(d, torch.float32),) * 5) \
@@ -171,7 +171,6 @@ def test_bwd_instance_choice():
         # gradients the caller hands in are held to the same rule
         grads = (_view(d), _view(d), _view(d, offset=4))
         assert fmod.bwd_instance(*five, grads=grads) == "cuda_core"
-    assert fmod.bwd_instance(*(_view(256) for _ in range(5))) == "cuda_core"
     # the forward's instance keeps its own head dims
     assert fmod.instance(*(_view(256) for _ in range(3))) == "tc"
 

@@ -198,6 +198,11 @@ def _check_bwd(out, args, kw, tc):
     # 1024 tokens, a window, a length no tile divides
     (8, 9, 3, 2048, 64, True, 0), (2, 16, 16, 1024, 128, True, 0),
     (4, 9, 3, 1024, 64, True, 256), (2, 9, 3, 1000, 64, True, 0),
+    # head_dim 256, recurrentgemma-2b's MQA (group 10): a ragged length,
+    # a window across tiles one past a tile, no mask with g 1, and its
+    # training shape (4096 tokens, window 2048)
+    (1, 10, 1, 300, 256, True, 0), (1, 10, 1, 129, 256, True, 48),
+    (2, 4, 4, 150, 256, False, 0), (1, 10, 1, 4096, 256, True, 2048),
 ])
 def test_flash_bwd_kernel_matches_plain(card, dtype, b, hq, hkv, sq, d,
                                         causal, window):
@@ -263,7 +268,7 @@ def test_flash_autograd_on_card_matches_plain(card, dtype):
                                    r.float().cpu().numpy(), **tol)
 
 
-@pytest.mark.parametrize("d", [32, 256])
+@pytest.mark.parametrize("d", [32, 96])
 def test_flash_bwd_kernel_refuses_other_head_dims(card, d):
     q, k, v, do = _bwd_inputs(card, torch.bfloat16, 1, 4, 2, 64, d, seed=1)
     o, lse = attention_ref(q, k, v, return_lse=True)

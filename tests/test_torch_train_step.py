@@ -26,7 +26,8 @@ batches (the reference's ``DataPipeline``), SMOKE smollm-135m:
   the activations and the embedding's scatter-add sums at other places:
   the leaves land 1.7-2.5% apart);
 * ``input_specs`` / ``synthetic_batch`` / ``abstract_train_state`` shapes
-  and dtypes, and the families the port does not train yet are refused;
+  and dtypes, and the family the port does not train yet (ssm) is
+  refused;
 * the MoE family, deepseek-moe-16b and mixtral-8x7b SMOKE, through the
   same checks: ``loss_fn`` (xent, the load-balancing aux summed over the
   MoE layers, and ``0.01 * aux`` in the loss) and its gradients within
@@ -38,7 +39,15 @@ batches (the reference's ``DataPipeline``), SMOKE smollm-135m:
   gradient.  In bf16 the frameworks' other rounding tips near-ties, so
   the port's routing is held to the reference's up to near-ties (2^-4
   relative) and then pinned to the reference's ids for the gradients
-  (the test's note says why).
+  (the test's note says why);
+* the hybrid family, recurrentgemma-2b SMOKE (RG-LRU layers and windowed
+  MQA attention, window 16 under 32-token sequences), through the same
+  checks: ``loss_fn`` and its gradients within TOL (every ``lru_*``,
+  ``w_y`` and ``conv_*`` leaf nonzero), 5 steps of ``make_train_step``
+  with the dense tolerances, the bf16 variant against the reference's
+  own bf16 rounding (``HYBRID_BF16_FACTOR``), and the port's gradients
+  with and without remat bit-identical (the checkpoint recomputes the
+  same forward).
 """
 import dataclasses
 
@@ -64,6 +73,7 @@ from repro_torch.launch import strategy as tstrategy  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
+from repro_torch.models import rglru as trglru  # noqa: E402
 from repro_torch.models.config import ShapeConfig  # noqa: E402
 from repro_torch.models.init import params_from_numpy  # noqa: E402
 from repro_torch.optim import adamw as tadamw  # noqa: E402
@@ -334,7 +344,7 @@ def test_abstract_train_state_matches_reference(setup):
         [np.dtype(x.dtype).name for x in j]
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-3b"])
+@pytest.mark.parametrize("arch", ["rwkv6-3b"])
 def test_untrained_families_are_refused(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmodel.loss_fn(tsmoke(arch))
@@ -514,3 +524,126 @@ def test_moe_bf16_compute_grads_near_reference(moe_setup, monkeypatch):
         b = np.asarray(b, dtype=np.float32)
         rel = np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-12)
         assert rel < 0.05, (i, a.shape, rel)
+
+
+# ---------------------------------------------------------------------------
+# the hybrid family
+# ---------------------------------------------------------------------------
+
+HYBRID = "recurrentgemma-2b"
+# the recurrent layers' leaves, whose gradients come through the RG-LRU
+# scan's reverse (the value branch) alone
+SCAN_LEAVES = ("lru_wa", "lru_ba", "lru_wx", "lru_bx", "lru_a", "w_y",
+               "conv_w", "conv_b")
+
+
+@pytest.fixture(scope="module")
+def hybrid_setup():
+    jcfg, tcfg = jsmoke(HYBRID), tsmoke(HYBRID)
+    jparams = jmodel.init_params(jcfg, jax.random.key(0))
+    tparams = params_from_numpy(_np_tree(jparams), device="cpu")
+    return jcfg, tcfg, jparams, tparams
+
+
+def test_hybrid_loss_fn_and_grads_match_reference(hybrid_setup):
+    jcfg, tcfg, jparams, tparams = hybrid_setup
+    batch = _batches(jcfg, 1)[0]
+    (jloss, jmet), jgrads = jax.value_and_grad(
+        jmodel.loss_fn(jcfg), has_aux=True)(
+        jparams, jax.tree.map(jnp.asarray, batch))
+    tloss, tmet, tgrads = tstrategy.value_and_grad(tcfg)(tparams,
+                                                         _tbatch(batch))
+    assert float(tloss) == pytest.approx(float(jloss), rel=1e-5)
+    assert set(tmet) == set(jmet) == {"xent", "aux"}
+    _assert_trees_close(tgrads, jgrads, **TOL)
+    rec = [i for i in range(tcfg.num_layers)
+           if not tcfg.is_attention_layer(i)]
+    assert rec
+    for i in rec:
+        for name in SCAN_LEAVES:
+            g = tgrads["layers"][str(i)]["rec"][name]
+            assert float(g.abs().max()) > 0, (i, name)
+
+
+def test_hybrid_five_train_steps_match_reference(hybrid_setup):
+    jcfg, tcfg, jparams, tparams = hybrid_setup
+    jl, js, tl, ts = _run_steps(jcfg, tcfg, jparams, tparams,
+                                _batches(jcfg, 5))
+    np.testing.assert_allclose(tl, jl, **TOL)
+    _assert_params_close(ts["params"], js["params"])
+    assert int(ts["opt"]["step"]) == 5
+
+
+# the hybrid's bf16 gradients against the reference's: at random SMOKE
+# weights the reference's own bf16 gradients lie 3-6% from its fp32
+# ones (each leaf's norm), so the dense tests' fixed 5% does not
+# separate rounding from a fault here.  Each leaf is held instead to
+# HYBRID_BF16_FACTOR times the reference's own bf16 distance from fp32,
+# on the same batch (the factor chip_smoke.py holds the kernels to; the
+# port lands at up to 1.11x it)
+HYBRID_BF16_FACTOR = 2.0
+
+
+def test_hybrid_bf16_compute_grads_near_reference(hybrid_setup):
+    """The bf16 variant: loss within 2e-2, every gradient leaf within
+    HYBRID_BF16_FACTOR times the reference's bf16 leaf's distance from
+    its fp32 leaf."""
+    jcfg, tcfg, jparams, tparams = hybrid_setup
+    jcfg16 = dataclasses.replace(jcfg, compute_dtype=jnp.bfloat16)
+    tcfg = dataclasses.replace(tcfg, compute_dtype=torch.bfloat16)
+    batch = jax.tree.map(jnp.asarray, _batches(jcfg, 1, seed=3)[0])
+
+    def cast(p):
+        return p.astype(jnp.bfloat16) if p.ndim > 1 else p
+
+    (jloss, _), jgrads = jax.value_and_grad(
+        jmodel.loss_fn(jcfg16), has_aux=True)(
+        jax.tree.map(cast, jparams), batch)
+    _, jgrads32 = jax.value_and_grad(jmodel.loss_fn(jcfg), has_aux=True)(
+        jparams, batch)
+    tloss, _, tgrads = tstrategy.value_and_grad(tcfg)(
+        tparams, jax.tree.map(lambda a: torch.from_numpy(np.asarray(a)),
+                              batch))
+    assert abs(float(tloss) - float(jloss)) < 2e-2
+    for i, (a, b, c) in enumerate(zip(_leaves(tgrads),
+                                      jax.tree.leaves(jgrads),
+                                      jax.tree.leaves(jgrads32))):
+        assert a.dtype == (torch.bfloat16 if b.ndim > 1 else torch.float32)
+        a = a.float().numpy()
+        b, c = (np.asarray(t, dtype=np.float32) for t in (b, c))
+        rel = np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-12)
+        own = np.linalg.norm(b - c) / max(np.linalg.norm(c), 1e-12)
+        assert rel <= HYBRID_BF16_FACTOR * own, (i, a.shape, rel, own)
+
+
+def test_hybrid_remat_and_no_remat_grads_bit_identical(hybrid_setup,
+                                                       monkeypatch):
+    """The hybrid blocks run under the checkpoint (the reference's
+    ``jax.checkpoint``) when cfg.remat is set: the backward recomputes
+    the same forward (each recurrent layer's scan runs twice, once
+    without remat), so the gradients are those without it, bit for
+    bit."""
+    _, tcfg, _, tparams = hybrid_setup
+    assert tcfg.remat
+    batch = _tbatch(_batches(tcfg, 1, seed=4)[0])
+    n_rec = sum(not tcfg.is_attention_layer(i)
+                for i in range(tcfg.num_layers))
+    assert n_rec
+    calls = []
+    scan = trglru._scan
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return scan(*args, **kwargs)
+
+    monkeypatch.setattr(trglru, "_scan", counted)
+    out = {}
+    for remat in (True, False):
+        cfg = dataclasses.replace(tcfg, remat=remat)
+        calls.clear()
+        loss, _, grads = tstrategy.value_and_grad(cfg)(tparams, batch)
+        assert len(calls) == n_rec * (2 if remat else 1), (remat, calls)
+        out[remat] = (loss, _leaves(grads))
+    assert torch.equal(out[True][0], out[False][0])
+    for i, (a, b) in enumerate(zip(out[True][1], out[False][1])):
+        assert torch.equal(a, b), i
