@@ -119,11 +119,16 @@ each of which raises on failure (nothing is caught):
    reverse scan (``rglru_scan_bwd``) against its plain version at (1,
    4096, 2560) from zeros and from a nonzero h0 and at a ragged (1, 37,
    40), fp32 and bf16, bit-exact, with its time, the plain version's and
-   its bound; the flash backward at the training shape (q (1, 4096, 10,
-   256), k, v (1, 4096, 1, 256), causal, window 2048), fp32 on the CUDA
+   its bound; the flash forward with its LSE at the training shape (q
+   (1, 4096, 10, 256), k, v (1, 4096, 1, 256), causal, window 2048)
+   beside SDPA's forward, and the flash backward there, fp32 on the CUDA
    cores and bf16 on the tensor cores as in phase 6, beside SDPA's
-   backward with the window as a boolean mask and the kv head expanded
-   (its backend named); (b) the full model's loss and gradients with the
+   backward, both with the window as a boolean mask and the kv head
+   expanded (their backends named); the backward's line also gives each
+   of its launches timed apart by ``torch.profiler`` (the D pass, dQ,
+   dK / dV and the sum over the group's splits), and the bf16 one its
+   kernels' registers and spills and whether its SASS holds ``HGMMA``;
+   (b) the full model's loss and gradients with the
    kernels (flash and the RG-LRU scan, forward and backward) and with
    the plain versions, as in phase 6, every ``lru_*``, ``w_y`` and
    ``conv_*`` leaf with a nonzero gradient; (c) a captured ``TrainStep``
@@ -1708,58 +1713,80 @@ def _causal_mask(torch, sq: int, window: int):
     return mask
 
 
-def flash_train_fwd_cases(torch):
-    """The flash forward at the shape the train step gives it (smollm,
-    b 8 x 2048, hq 9 / hkv 3, d 64, causal) with its LSE, fp32 (the
-    CUDA-core instance) and bf16 (the tensor-core one, as on the path):
-    output and LSE against ``attention_ref(..., return_lse=True)``, two
-    calls bit-identical; times of the kernel, the plain version and
-    SDPA's forward, and the bound (bytes of q, k, v read once and o, lse
-    written once, or the forward's flops over the unmasked pairs)."""
+# the flash forward with its LSE at a training path's shape: (name, b,
+# hq, hkv, sq, d, window), causal
+FLASH_FWD_SMOLLM_CASE = ("smollm_train_lse", TRAIN_BATCH, 9, 3, TRAIN_SEQ,
+                         64, 0)
+
+
+def flash_train_fwd_cases(torch, case=FLASH_FWD_SMOLLM_CASE,
+                          expand_kv=False):
+    """The flash forward at the shape a train step gives it (``case``:
+    smollm's b 8 x 2048, hq 9 / hkv 3, d 64 by default) with its LSE,
+    fp32 (the CUDA-core instance) and bf16 (the tensor-core one, as on
+    the path): output and LSE against ``attention_ref(...,
+    return_lse=True)``, two calls bit-identical; times of the kernel,
+    the plain version and SDPA's forward (a window as a boolean mask;
+    with ``expand_kv`` on k and v expanded to the query heads, else with
+    ``enable_gqa``; the backend the dispatcher picks is named), and the
+    bound (bytes of q, k, v read once and o, lse written once, or the
+    forward's flops over the unmasked pairs)."""
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention.ref import attention_ref
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
-    b, hq, hkv, sq, d = TRAIN_BATCH, 9, 3, TRAIN_SEQ, 64
+    what, b, hq, hkv, sq, d, window = case
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         g = torch.Generator(device=dev).manual_seed(sq + d + 1)
         q, k, v = (torch.randn((b, sq, h, d), generator=g, device=dev)
                    .to(dtype).transpose(1, 2) for h in (hq, hkv, hkv))
-        name = f"flash train-shape forward with LSE {dtype}"
+        name = f"flash {what} forward with LSE {dtype}"
 
         def call():
-            return fa.flash_attention(q, k, v, return_lse=True)
+            return fa.flash_attention(q, k, v, window=window,
+                                      return_lse=True)
 
         (out, lse), inst = run_counted(torch, fa, name, call)
         if inst != ("tc" if dtype == torch.bfloat16 else "cuda_core"):
             raise AssertionError(f"{name}: ran on the {inst} instance")
-        ref, ref_lse = attention_ref(q, k, v, return_lse=True)
+        ref, ref_lse = attention_ref(q, k, v, window=window,
+                                     return_lse=True)
         err = check_close(torch, name, out, ref, TOL[str(dtype)])
         lse_err = check_close(torch, f"{name} lse", lse, ref_lse,
                               LSE_TOL[str(dtype)])
         del out, lse, ref, ref_lse
-        pairs = int(_causal_mask(torch, sq, 0).sum())
+        mask = _causal_mask(torch, sq, window)
+        pairs = int(mask.sum())
         es = q.element_size()
         nbytes = (es * d * (2 * b * hq * sq + 2 * b * hkv * sq)
                   + 4 * b * hq * sq)
         bound_ms, bound_by = bound(4.0 * d * b * hq * pairs, nbytes, dtype)
-        row = {"kernel": "flash_attention", "case": "smollm_train_lse",
+        kv = ([t.repeat_interleave(hq // hkv, dim=1) for t in (k, v)]
+              if expand_kv else [k, v])
+        sdpa_kw = {} if expand_kv else {"enable_gqa": True}
+        sdpa_kw.update({"attn_mask": mask} if window
+                       else {"is_causal": True})
+        row = {"kernel": "flash_attention", "case": what,
                "dtype": str(dtype), "b": b, "hq": hq, "hkv": hkv, "d": d,
-               "sq": sq, "window": 0, "instance": inst, "max_abs_err": err,
-               "lse_max_abs_err": lse_err, "tol": TOL[str(dtype)],
-               "lse_tol": LSE_TOL[str(dtype)],
+               "sq": sq, "window": window, "instance": inst,
+               "max_abs_err": err, "lse_max_abs_err": lse_err,
+               "tol": TOL[str(dtype)], "lse_tol": LSE_TOL[str(dtype)],
                "kernel_ms": graph_ms(torch, call, reps=5),
                "plain_ms": graph_ms(torch, lambda: attention_ref(
-                   q, k, v, return_lse=True), reps=2, replays=3),
+                   q, k, v, window=window, return_lse=True), reps=2,
+                   replays=3),
                "library_ms": graph_ms(
                    torch, lambda: F.scaled_dot_product_attention(
-                       q, k, v, enable_gqa=True, is_causal=True), reps=5),
-               "bound_ms": bound_ms, "bound_by": bound_by}
+                       q, *kv, **sdpa_kw), reps=5),
+               "library": "SDPA forward ("
+                          f"{_sdpa_backend(torch, q, *kv, **sdpa_kw)}"
+                          f"{', kv expanded' if expand_kv else ''})",
+               "bound_ms": bound_ms, "bound_by": bound_by, "pairs": pairs}
         rows.append(row)
         log(row)
-        del q, k, v
+        del q, k, v, kv, mask
         gc.collect()
         torch.cuda.empty_cache()
     return rows
@@ -1784,7 +1811,30 @@ def _sdpa_backend(torch, q, k, v, **kw) -> str:
     return names.get(int(choice(q, k, v, **kw)), "unknown")
 
 
-def flash_bwd_cases(torch, cases=FLASH_BWD_CASES, expand_kv=False):
+def kernel_split_ms(torch, fn, calls: int = 5):
+    """Each kernel that ``fn`` launches, by name, over ``calls`` calls in
+    a ``torch.profiler`` window (after one call outside it): its mean
+    device ms a launch (``ms``) and the launches the profiler recorded a
+    call (``per_call``: below 1 where it dropped some).  Empty if the
+    profiler saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:80]: {"ms": e.self_device_time_total / 1e3 / e.count,
+                         "per_call": e.count / calls}
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0}
+
+
+def flash_bwd_cases(torch, cases=FLASH_BWD_CASES, expand_kv=False,
+                    ptxas_report: str = ""):
     """The flash backward against ``attention_bwd_ref`` on the same
     (q, k, v, o, lse, dO) (o and lse from the plain forward) at each of
     ``cases``; fp32 on the CUDA cores, bf16 on the tensor cores (the
@@ -1799,7 +1849,12 @@ def flash_bwd_cases(torch, cases=FLASH_BWD_CASES, expand_kv=False):
     ``enable_gqa``; the backend the dispatcher picks is named), and the
     bound: 2.5x the forward's matmul flops over the unmasked pairs at the
     dtype's peak, or the bytes of q, k, v, o, dO, lse read once and dq,
-    dk, dv written once."""
+    dk, dv written once.  Lines at head_dim 256 also give each launch's
+    device time apart (:func:`kernel_split_ms`: the D pass, dQ, dK / dV
+    and the sum over the group's splits), and the bf16 one the registers
+    and spills of the kernels (from ``ptxas_report``, the build's
+    ``-Xptxas -v`` output for the source, when it built in this run) and
+    whether the library's SASS holds ``HGMMA``."""
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                          attention_ref)
@@ -1884,6 +1939,16 @@ def flash_bwd_cases(torch, cases=FLASH_BWD_CASES, expand_kv=False):
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "pairs": pairs, "flops": flops}
             row["tflops"] = flops / row["kernel_ms"] / 1e9
+            if d == 256:
+                row["launch_ms"] = kernel_split_ms(
+                    torch, lambda: fa.flash_attention_bwd(*args,
+                                                          window=window))
+            if bf16 and d == 256:
+                from repro_torch.kernels import _build
+
+                row["ptxas"] = ptxas_entries(ptxas_report, "flash_bwd")
+                row["sass_hgmma"] = sass_has(
+                    _build._artifact("flash_attention_bwd"), "HGMMA")
             if bf16:
                 row["rel_dist_fp32"] = dists
                 row["fp32_cuda_core_ms"] = fp32_ms[what]
@@ -3037,6 +3102,8 @@ SCAN_LEAVES = ("lru_wa", "lru_ba", "lru_wx", "lru_bx", "lru_a", "w_y",
 # k, v (1, 4096, 1, 256), causal with the 2048 window
 FLASH_BWD_HYBRID_CASES = [("recurrentgemma_train", HYBRID_TRAIN_BATCH, 10,
                            1, HYBRID_TRAIN_SEQ, 256, 2048)]
+FLASH_FWD_HYBRID_CASE = ("recurrentgemma_train_lse", HYBRID_TRAIN_BATCH, 10,
+                         1, HYBRID_TRAIN_SEQ, 256, 2048)
 
 
 def rglru_bwd_cases(torch):
@@ -3269,8 +3336,12 @@ def main() -> int:
         raise AssertionError(f"recurrentgemma-2b is not at full width: "
                              f"{hyb}")
     scan_bwd = rglru_bwd_cases(torch)
+    flash_fwd_hyb = flash_train_fwd_cases(torch, FLASH_FWD_HYBRID_CASE,
+                                          expand_kv=True)
     flash_bwd_hyb = flash_bwd_cases(torch, FLASH_BWD_HYBRID_CASES,
-                                    expand_kv=True)
+                                    expand_kv=True,
+                                    ptxas_report=reports.get(
+                                        "flash_attention_bwd", ""))
     train_grads_kernel_vs_plain(torch, hyb, HYBRID_TRAIN_BATCH,
                                 HYBRID_TRAIN_SEQ, must_move=SCAN_LEAVES)
     gc.collect()
@@ -3324,7 +3395,7 @@ def main() -> int:
              # granite-3-8b's decode: 8 rows, d 128, group 4, 3 pages
              granite_shape=case(paged, lambda x: granite(x, 8),
                                 ("b", "hq", "hkv", "d", "nb"))),
-        dict(summary(flash + flash_train, "flash_attention",
+        dict(summary(flash + flash_train + flash_fwd_hyb, "flash_attention",
                      "src/repro_torch/kernels/csrc/flash_attention.cu",
                      "src/repro/kernels/flash_attention/flash_attention.py:70",
                      lambda x: x["dtype"] == bf16 and x["sq"] == 300
@@ -3334,6 +3405,12 @@ def main() -> int:
                  "b", "sq", "lse_max_abs_err", "kernel_ms", "plain_ms",
                  "bound_ms", "bound_by", "library_ms")
                  for r in flash_train if r["dtype"] == bf16},
+             # the hybrid's training forward: bf16, 1 x 4096, d 256,
+             # group 10, window 2048
+             hybrid_train_shape=case(
+                 flash_fwd_hyb, lambda x: x["dtype"] == bf16,
+                 ("b", "hq", "hkv", "d", "sq", "window", "lse_max_abs_err",
+                  "library")),
              # granite-3-8b's prefills: one 300-token prompt (the
              # continuous engine), 8 x 200 (the static engine)
              granite_shape=[
@@ -3358,7 +3435,8 @@ def main() -> int:
                      and x["case"] == "smollm_train"),
              d256_shape=case(flash_bwd_hyb, lambda x: x["dtype"] == bf16,
                              ("b", "hq", "hkv", "d", "sq", "window",
-                              "instance", "library"))),
+                              "instance", "library", "launch_ms",
+                              "ptxas", "sass_hgmma"))),
         dict(summary(gmm, "moe_gmm",
                      "src/repro_torch/kernels/csrc/moe_gmm.cu",
                      "src/repro/kernels/moe_gmm/moe_gmm.py:39",

@@ -6,8 +6,9 @@
 // bulk groups; the `mbarrier`s that count a copy's bytes and the consumers'
 // release of a ring slot; the proxy fence between ordinary shared-memory
 // stores and the asynchronous readers; named barriers; and `setmaxnreg`,
-// which moves registers from a producer warpgroup to the consumers.
-// `mma.cuh` keeps Ampere's `mma.sync` path for the kernels that use it.
+// which moves registers from a producer warpgroup to the consumers; and,
+// on the host, the encoding of the tensor maps TMA reads.  `mma.cuh`
+// keeps Ampere's `mma.sync` path for the kernels that use it.
 //
 // Operand layout (bf16, 128-byte swizzle, the layout TMA writes with
 // CU_TENSOR_MAP_SWIZZLE_128B): a tile is stored as lines of 128 bytes (64
@@ -21,11 +22,21 @@
 //   step r and 64 values of m (or n); SBO = 1024 (the next eight r), LBO =
 //   the distance to the next 64 values of m or n; step kk moves the start
 //   by 16 lines, 2048 bytes.
+// A wide tile (a row of 256 values) is stored as boxes of 64 values side
+// by side, each `rows` lines: a K-major operand's step kk then starts in
+// box kk / 4 at byte 32 (kk % 4); an MN-major one's LBO is the box's size.
+// In the register form (`_rs`) A comes from registers instead, in the
+// accumulator's layout of a 64 x 16 slab: thread l of warp w holds, for
+// row r = 16 w + l / 4 (+ 8) and column c = 2 (l % 4) (+ 8), the pairs
+// {(r, c), (r, c + 1)} as bf16x2 in the order (r, c), (r + 8, c),
+// (r, c + 8), (r + 8, c + 8).
 #pragma once
 
 #include <cstdint>
 
 #include <cuda.h>
+#include <cudaTypedefs.h>
+#include <cuda_runtime.h>
 
 namespace repro {
 namespace sm90 {
@@ -110,6 +121,29 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// The same for a 4-D map, coordinates (c0, c1, c2, c3) innermost first.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// And for a 1-D map, at element c0, which must lie on a 16-byte boundary
+// of the tensor (an unaligned start is an illegal instruction).
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0)
+      : "memory");
+}
+
 // Copy the box at (c0, c1, c2) of `map` from shared memory at `src` to
 // the tensor; the part outside the tensor is not written.  Completes in
 // bulk groups (`bulk_commit`, `bulk_wait_read`, `bulk_wait`).
@@ -154,6 +188,10 @@ __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// Register moves between warpgroups at run time.  They do not raise what
+// ptxas allocates: it holds every thread to the launch bound's share (168
+// registers at 384 threads, and at 288), and a consumer that needs more
+// spills whatever `setmaxnreg` would give it.
 template <int kRegs>
 __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
@@ -199,6 +237,15 @@ template <int N>
 __device__ __forceinline__ void fence_operands(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The same for the A fragments of a register-form wgmma: they are read
+// after the instruction is issued, so their registers must live until the
+// wait.
+template <int N>
+__device__ __forceinline__ void fence_operands(uint32_t (&a)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
 
 // D (64 x 256, fp32) += A (64 x 16) B (16 x 256), bf16 operands in shared
@@ -254,6 +301,173 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128],
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
         "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(a), "l"(b), "r"(1), "n"(kTransA), "n"(kTransB));
+}
+
+// D (64 x 64, resp. 64 x 32) += A B in the same way, bf16 operands in
+// shared memory, d[4j + 2h + c] as above.
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a,
+                                                uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, %35, %36;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1), "n"(kTransA), "n"(kTransB));
+}
+
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t a,
+                                                uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15 "
+      "}, %16, %17, p, 1, 1, %19, %20;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(a), "l"(b), "r"(1), "n"(kTransA), "n"(kTransB));
+}
+
+// D (64 x 256) += A B with A (64 x 16) in registers (the head note's
+// register layout) and B in shared memory; kTransB as above.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n256k16_rs(float (&d)[128],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127 "
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, %134;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
+        "n"(kTransB));
+}
+
+// --- tensor maps (host) -----------------------------------------------------
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point (no
+// link against libcuda), looked up once
+inline PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* sym = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &sym, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &sym, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(sym);
+  }
+  return fn;
+}
+
+// A 4-D map over a bf16 (b, h, s, d) view with a contiguous d and (b, h,
+// s) strides in elements (multiples of 8), as (d, s, h, b) innermost
+// first: boxes of 64 values of d and `box_rows` rows of one head, with
+// the 128-byte swizzle.  Rows past s read as zeros.  A dimension of size
+// 1 takes the packed stride, whatever the view says.
+inline bool encode_bshd(CUtensorMap* map, const void* base, int b, int h,
+                        int s, int d, long long sb, long long sh,
+                        long long ss, int box_rows) {
+  PFN_cuTensorMapEncodeTiled_v12000 fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(h),
+                              static_cast<cuuint64_t>(b)};
+  const long long s_b = s == 1 ? d : ss;
+  const long long h_b = h == 1 ? s_b * s : sh;
+  const long long b_b = b == 1 ? h_b * h : sb;
+  const cuuint64_t strides[3] = {2ull * s_b, 2ull * h_b, 2ull * b_b};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(box_rows), 1, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+            const_cast<void*>(base), dims, strides, box, step,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 1-D map over n contiguous floats, boxes of `box` values, no swizzle;
+// what lies past n reads as zeros.
+inline bool encode_f32_1d(CUtensorMap* map, const float* base, long long n,
+                          int box) {
+  PFN_cuTensorMapEncodeTiled_v12000 fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[1] = {static_cast<cuuint64_t>(n)};
+  const cuuint64_t strides[1] = {4};     // not read for one dimension
+  const cuuint32_t boxes[1] = {static_cast<cuuint32_t>(box)};
+  const cuuint32_t step[1] = {1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1,
+            const_cast<float*>(base), dims, strides, boxes, step,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_NONE,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace sm90

@@ -65,8 +65,6 @@
 #include <algorithm>
 #include <climits>
 
-#include <cudaTypedefs.h>
-
 #include "common.cuh"
 #include "hopper.cuh"
 #include "mma.cuh"
@@ -593,32 +591,12 @@ bool plan_tc(int E, int C, int K, int F, BwdParams* p) {
   return true;
 }
 
-// cuTensorMapEncodeTiled through the runtime's driver entry point (no
-// link against libcuda), looked up once
-PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* sym = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &sym, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &sym, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(sym);
-  }
-  return fn;
-}
-
 // a 3-D map over a contiguous bf16 (E, rows, cols) tensor, boxes of
 // (64 columns, box_rows rows, one expert), 128-byte swizzle; what lies
 // outside the tensor reads as zeros and is not written
 bool encode(CUtensorMap* map, const void* base, int E, int rows, int cols,
             int box_rows) {
-  PFN_cuTensorMapEncodeTiled_v12000 fn = encode_fn();
+  PFN_cuTensorMapEncodeTiled_v12000 fn = repro::sm90::encode_fn();
   if (fn == nullptr) return false;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(rows),

@@ -13,7 +13,8 @@ caught or retried.
 
 ``LAUNCHES`` counts the forward's launches (either instance),
 ``LAUNCHES_TC`` those of its tensor-core instance, ``LAUNCHES_BWD`` the
-backward's (one per call, which runs its two kernels) and
+backward's (one per call, which runs its kernels: two; at head_dim 256
+four on the tensor cores, three on the CUDA cores) and
 ``LAUNCHES_BWD_TC`` those of the backward's tensor-core instance: each
 wrapper adds one where it launches and nowhere else, so a run can show
 that it went through the kernels.
@@ -35,6 +36,15 @@ TC_HEAD_DIMS = (64, 128, 256)
 # recurrentgemma-2b's 256
 BWD_HEAD_DIMS = (64, 128, 256)
 
+# At head_dim 256 the backward's dK / dV kernel splits each kv head's
+# group of query heads over ``bwd_splits`` blocks of each 64-key kv tile
+# (MQA at batch 1 would otherwise give one block a tile: 64 blocks at
+# 4096 keys), each writing fp32 partial dK and dV that a fixed-order sum
+# adds up: enough blocks for two of the H100's 132 SMs each, fixed here
+# so that the count, and with it the bits, depend on the shape alone
+BWD_KV_TILE = 64
+SPLIT_TARGET_BLOCKS = 264
+
 LAUNCHES = 0
 LAUNCHES_TC = 0
 LAUNCHES_BWD = 0
@@ -42,8 +52,8 @@ LAUNCHES_BWD_TC = 0
 
 _ARGS = [C.P] * 5 + [C.I] * 6 + [C.LL] * 12 + [C.I, C.I, C.F, C.I, C.P]
 _ARGS_TC = [C.P] * 5 + [C.I] * 6 + [C.LL] * 12 + [C.I, C.I, C.F, C.P]
-_ARGS_BWD = [C.P] * 10 + [C.I] * 6 + [C.LL] * 24 + [C.I, C.I, C.F, C.I, C.P]
-_ARGS_BWD_TC = [C.P] * 10 + [C.I] * 6 + [C.LL] * 24 + [C.I, C.I, C.F, C.P]
+_ARGS_BWD = [C.P] * 11 + [C.I] * 7 + [C.LL] * 24 + [C.I, C.I, C.F, C.I, C.P]
+_ARGS_BWD_TC = [C.P] * 11 + [C.I] * 7 + [C.LL] * 24 + [C.I, C.I, C.F, C.P]
 
 
 def _rows_aligned(t) -> bool:
@@ -72,6 +82,27 @@ def bwd_instance(q, k, v, o, do, grads=None) -> str:
     dv it writes; by default allocated as the wrapper allocates them)."""
     grads = _bwd_outputs(q, k, v) if grads is None else grads
     return instance(q, k, v, o, do, *grads, head_dims=BWD_HEAD_DIMS)
+
+
+def bwd_splits(b: int, hq: int, hkv: int, skv: int, d: int) -> int:
+    """Blocks over which the backward splits each kv tile's group of
+    query heads: 1 below head_dim 256 (those kernels do not split);
+    else the fewest that bring the grid (b x hkv x the 64-key tiles of
+    skv, times the splits) to ``SPLIT_TARGET_BLOCKS``, at most the group
+    size (so 1 where the unsplit grid reaches it).  The splits need not
+    divide the group (:func:`split_heads`).  The shape alone decides,
+    never the card."""
+    if d != 256:
+        return 1
+    blocks = b * hkv * -(-skv // BWD_KV_TILE)
+    return max(1, min(hq // hkv, -(-SPLIT_TARGET_BLOCKS // blocks)))
+
+
+def split_heads(g: int, splits: int):
+    """The heads of a group of ``g`` (indices within it) that each of
+    ``splits`` blocks takes, as the kernels' ``split_head`` cuts them."""
+    return [range(i * g // splits, (i + 1) * g // splits)
+            for i in range(splits)]
 
 
 def check_inputs(q, k, v, head_dims=HEAD_DIMS) -> None:
@@ -148,7 +179,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
 
     Returns dq, dk, dv in the inputs' dtype, each with its input's memory
     layout; fp32 softmax and accumulation, dk and dv summed over each kv
-    head's group, no atomics (the same bits on every call).  The
+    head's group, no atomics (the same bits on every call).  At head_dim
+    256 the group is split over :func:`bwd_splits` blocks whose fp32
+    partials go through a workspace allocated here.  The
     tensor-core instance (:func:`bwd_instance`) rounds P and dS to bf16
     as the operands of their products, as FlashAttention-2 does
     (``attention_bwd_ref(..., operand_dtype=torch.bfloat16)`` models it).
@@ -168,14 +201,21 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                          f"{tuple(lse.shape)} {lse.dtype} do not match q "
                          f"{tuple(q.shape)} {q.dtype}")
     lse = lse.contiguous()
+    if lse.data_ptr() % 16:                 # read by TMA at head_dim 256
+        lse = lse.clone()
     dq, dk, dv = grads = _bwd_outputs(q, k, v)
     if sq == 0 or skv == 0:
         return dq, dk.zero_(), dv.zero_()
     delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    splits = bwd_splits(b, hq, hkv, skv, d)
+    ws = (torch.empty((2, splits, b, hkv, skv, d), dtype=torch.float32,
+                      device=q.device) if d == 256 else None)
     tc = bwd_instance(q, k, v, o, do, grads) == "tc"
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), delta.data_ptr(), b, hq, hkv, sq, skv, d,
+            dv.data_ptr(), delta.data_ptr(),
+            None if ws is None else ws.data_ptr(), splits,
+            b, hq, hkv, sq, skv, d,
             *(s for t in (q, k, v, o, do, dq, dk, dv)
               for s in t.stride()[:3]),
             int(causal), int(window), d ** -0.5)

@@ -203,6 +203,11 @@ def _check_bwd(out, args, kw, tc):
     # training shape (4096 tokens, window 2048)
     (1, 10, 1, 300, 256, True, 0), (1, 10, 1, 129, 256, True, 48),
     (2, 4, 4, 150, 256, False, 0), (1, 10, 1, 4096, 256, True, 2048),
+    # d 256 groups split unevenly over the dK / dV blocks (g 3 over 2,
+    # g 10 over 7: ``bwd_splits``), and batch 2 with two kv heads at a
+    # ragged length with the window
+    (1, 6, 2, 4480, 256, True, 1024), (1, 10, 1, 2560, 256, True, 512),
+    (2, 4, 2, 333, 256, True, 100),
 ])
 def test_flash_bwd_kernel_matches_plain(card, dtype, b, hq, hkv, sq, d,
                                         causal, window):
@@ -225,6 +230,53 @@ def test_flash_bwd_kernel_matches_plain(card, dtype, b, hq, hkv, sq, d,
     assert all(torch.equal(a, b) for a, b in zip(out, again))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_flash_bwd_d256_graph_replay_equals_direct_call(card, dtype):
+    """At d 256 (four launches on the tensor cores, three on the CUDA
+    cores, a workspace allocated by the wrapper) a CUDA-graph replay of
+    the backward gives the direct call's bits, and two replays agree."""
+    q, k, v, do = _bwd_inputs(card, dtype, 1, 10, 1, 700, 256, seed=5)
+    kw = dict(causal=True, window=300)
+    o, lse = attention_ref(q, k, v, return_lse=True, **kw)
+    direct = fmod.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fmod.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = fmod.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, direct))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_flash_bwd_d256_rows_that_see_no_key(card, dtype):
+    """Query rows past skv + window see no key (causal, 300 queries on
+    100 keys, window 64): their dq is exactly zero and every gradient
+    finite; the rest matches the plain backward (``_check_bwd``)."""
+    b, hq, hkv, sq, skv, d = 1, 10, 1, 300, 100, 256
+    g = torch.Generator(device=card).manual_seed(9)
+    q, do = (torch.randn((b, sq, hq, d), generator=g, device=card)
+             .to(dtype).transpose(1, 2) for _ in range(2))
+    k, v = (torch.randn((b, skv, hkv, d), generator=g, device=card)
+            .to(dtype).transpose(1, 2) for _ in range(2))
+    kw = dict(causal=True, window=64)
+    o, lse = attention_ref(q, k, v, return_lse=True, **kw)
+    out = fmod.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(t.float()).all()) for t in out)
+    blind = skv + 64 - 1                  # the first row that sees no key
+    assert not bool(out[0][:, :, blind:].float().abs().max())
+    assert bool(out[0][:, :, :blind].float().abs().max())
+    _check_bwd(out, (q, k, v, o, lse, do), kw, dtype == torch.bfloat16)
+
+
 def test_flash_bwd_misaligned_bf16_runs_on_cuda_cores(card):
     """A bf16 q whose rows are not 16-byte aligned (a view 4 elements
     into its storage) takes the CUDA-core instance, which matches the
@@ -242,6 +294,25 @@ def test_flash_bwd_misaligned_bf16_runs_on_cuda_cores(card):
     assert (fmod.LAUNCHES_BWD, fmod.LAUNCHES_BWD_TC) == (n0 + 1, tc0)
     _check_bwd(out, (q, k, v, o, lse, do), dict(causal=True, window=0),
                tc=False)
+
+
+def test_flash_bwd_misaligned_bf16_d256_runs_on_cuda_cores(card):
+    """The same at d 256 (the CUDA-core kernels' d-256 tiles and group
+    split with bf16 staged as fp32), a group of 10 over 10 splits."""
+    b, hq, hkv, sq, d = 1, 10, 1, 700, 256
+    _, k, v, do = _bwd_inputs(card, torch.bfloat16, b, hq, hkv, sq, d,
+                              seed=13)
+    g = torch.Generator(device=card).manual_seed(14)
+    flat = torch.randn(b * sq * hq * d + 4, generator=g, device=card)
+    q = flat.to(torch.bfloat16)[4:].view(b, sq, hq, d).transpose(1, 2)
+    kw = dict(causal=True, window=300)
+    o, lse = attention_ref(q, k, v, return_lse=True, **kw)
+    assert fmod.bwd_instance(q, k, v, o, do) == "cuda_core"
+    assert fmod.bwd_splits(b, hq, hkv, sq, d) == 10
+    out = fmod.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = fmod.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    _check_bwd(out, (q, k, v, o, lse, do), kw, tc=False)
+    assert all(torch.equal(x, y) for x, y in zip(out, again))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
