@@ -1,7 +1,9 @@
-"""Plain PyTorch version of the RWKV-6 WKV recurrence: the per-token step
-of the reference's model (``repro.models.rwkv.wkv_step``) in a loop, the
-function of ``repro.kernels.rwkv6_wkv.ref.wkv_ref`` with the state in and
-out."""
+"""Plain PyTorch version of the RWKV-6 WKV recurrence and of its
+gradient: the per-token step of the reference's model
+(``repro.models.rwkv.wkv_step``) in a loop, the function of
+``repro.kernels.rwkv6_wkv.ref.wkv_ref`` with the state in and out, and
+the same recurrence run backwards in time (the reference takes the
+gradient from XLA's autodiff of ``wkv_chunked`` / ``wkv_scan``)."""
 from __future__ import annotations
 
 import torch
@@ -16,18 +18,72 @@ def wkv_step(r, k, v, w, u, state):
     return o, state
 
 
+def _carry_dtype(r):
+    return torch.promote_types(r.dtype, torch.float32)
+
+
 def rwkv6_wkv_ref(r, k, v, logw, u, s0=None):
     """r, k, v, logw: (b, s, h, n); u: (h, n); s0: (b, h, n, n) or None
-    (zeros).  Returns (o (b, s, h, n) in r.dtype, state fp32); the
-    arithmetic is fp32."""
+    (zeros).  Returns (o (b, s, h, n) in r.dtype, state); the arithmetic
+    and the state are fp32 (fp64 for fp64 inputs)."""
     b, s, h, n = r.shape
-    state = (torch.zeros((b, h, n, n), dtype=torch.float32, device=r.device)
-             if s0 is None else s0.float())
-    rf, kf, vf = r.float(), k.float(), v.float()
-    wf = torch.exp(logw.float())
-    uf = u.float()
-    o = torch.empty((b, s, h, n), dtype=torch.float32, device=r.device)
+    acc = _carry_dtype(r)
+    state = (torch.zeros((b, h, n, n), dtype=acc, device=r.device)
+             if s0 is None else s0.to(acc))
+    rf, kf, vf = r.to(acc), k.to(acc), v.to(acc)
+    wf = torch.exp(logw.to(acc))
+    uf = u.to(acc)
+    o = torch.empty((b, s, h, n), dtype=acc, device=r.device)
     for t in range(s):
         o[:, t], state = wkv_step(rf[:, t], kf[:, t], vf[:, t], wf[:, t], uf,
                                   state)
     return o.to(r.dtype), state
+
+
+def rwkv6_wkv_bwd_ref(r, k, v, logw, u, do, s0=None, ds=None):
+    """Gradient of :func:`rwkv6_wkv_ref` from its inputs, the output's
+    gradient ``do`` (b, s, h, n) and the final state's ``ds`` (b, h, n, n)
+    or None (zeros).  The states S_0 .. S_{s-1} before each token are
+    recomputed forward first; then, per (row, head), with G = dL/dS_t
+    from ``ds``, for t = s-1 .. 0:
+
+        dr_t[i]    = sum_j do_t[j] (S_{t-1}[i,j] + u[i] k_t[i] v_t[j])
+        dk_t[i]    = sum_j G[i,j] v_t[j] + u[i] r_t[i] sum_j do_t[j] v_t[j]
+        dv_t[j]    = sum_i G[i,j] k_t[i] + do_t[j] sum_i r_t[i] u[i] k_t[i]
+        dlogw_t[i] = w_t[i] sum_j G[i,j] S_{t-1}[i,j]
+        du[i]     += r_t[i] k_t[i] sum_j do_t[j] v_t[j]   (rows and time)
+        G          = diag(w_t) G + r_t do_t^T
+
+    and ds0 = G.  Returns (dr, dk, dv, dlogw, du, ds0): the first four in
+    r.dtype, du in u's, ds0 fp32 (None without an s0).  Carried in fp32
+    (fp64 for fp64 inputs, so that ``gradcheck`` can run on it)."""
+    b, s, h, n = r.shape
+    acc = _carry_dtype(r)
+    rf, kf, vf, dof = (t.to(acc) for t in (r, k, v, do))
+    wf = torch.exp(logw.to(acc))
+    uf = u.to(acc)
+    state = (torch.zeros((b, h, n, n), dtype=acc, device=r.device)
+             if s0 is None else s0.to(acc))
+    prev = torch.empty((b, s, h, n, n), dtype=acc, device=r.device)
+    for t in range(s):
+        prev[:, t] = state
+        state = wf[:, t, ..., None] * state + torch.einsum(
+            "bhi,bhj->bhij", kf[:, t], vf[:, t])
+    # the terms that need no G, for every token at once
+    dov = (dof * vf).sum(-1, keepdim=True)                  # do_t . v_t
+    dr = torch.einsum("bshij,bshj->bshi", prev, dof) + uf * kf * dov
+    dk = uf * rf * dov
+    dv = dof * (rf * uf * kf).sum(-1, keepdim=True)
+    du = (rf * kf * dov).sum((0, 1))
+    dlogw = torch.empty_like(dr)
+    g = (torch.zeros((b, h, n, n), dtype=acc, device=r.device)
+         if ds is None else ds.to(acc))
+    for t in range(s - 1, -1, -1):
+        dk[:, t] += torch.einsum("bhij,bhj->bhi", g, vf[:, t])
+        dv[:, t] += torch.einsum("bhij,bhi->bhj", g, kf[:, t])
+        dlogw[:, t] = wf[:, t] * (g * prev[:, t]).sum(-1)
+        g = wf[:, t, ..., None] * g + torch.einsum("bhi,bhj->bhij", rf[:, t],
+                                                   dof[:, t])
+    ds0 = None if s0 is None else g.to(s0.dtype)
+    return (dr.to(r.dtype), dk.to(r.dtype), dv.to(r.dtype),
+            dlogw.to(r.dtype), du.to(u.dtype), ds0)

@@ -42,8 +42,8 @@ def value_and_grad(cfg: ModelConfig, attn_impl: str = "auto",
     module note): grads is a tree like params, each leaf in its
     differentiated copy's dtype.  loss and metrics are detached.
     ``attn_impl``, ``gmm_impl`` and ``scan_impl`` pick the attention's,
-    the MoE experts' and the RG-LRU scan's implementations
-    (``repro_torch.kernels``), forward and backward."""
+    the MoE experts' and the recurrences' (RG-LRU scan, RWKV-6 WKV)
+    implementations (``repro_torch.kernels``), forward and backward."""
     lfn = model.loss_fn(cfg, attn_impl, gmm_impl, scan_impl)
 
     def leaf(p):
@@ -139,8 +139,8 @@ class TrainStep:
     :func:`make_train_step`'s step over a static train state and a static
     (batch, seq) token batch on ``state``'s device, run as one captured
     CUDA graph (the forward, remat's recompute and the backward with the
-    flash, grouped-matmul and RG-LRU scan kernels, the global-norm clip
-    and the AdamW update) or called directly.  ``step_impl`` is
+    flash, grouped-matmul, RG-LRU scan and WKV kernels, the global-norm
+    clip and the AdamW update) or called directly.  ``step_impl`` is
     ``repro_torch.step_graph``'s choice: "auto" (the graph on CUDA, a
     direct call on the CPU), "graph" or "eager".
 

@@ -7,11 +7,12 @@ runs the MPG-instrumented orchestrator (checkpoint/restart, async
 checkpoints, step-preparation cache) on the GPU, each step one replay of
 the captured train step with the flash-attention kernels (and, for a
 MoE, the grouped-matmul kernels; for the hybrid recurrentgemma-2b, the
-RG-LRU scan and its reverse) forward and backward, each chosen by
-``impl="auto"``; add ``--device cpu`` (and ``--smoke`` for the reduced
-config) to run on the host with the plain versions.  The flags and the
-printed JSON keys are the reference's, plus ``--device``.  Trains the
-dense, MoE and hybrid families (``model.loss_fn`` refuses the others).
+RG-LRU scan and its reverse; for rwkv6-3b, the WKV and its reverse)
+forward and backward, each chosen by ``impl="auto"``; add ``--device
+cpu`` (and ``--smoke`` for the reduced config) to run on the host with
+the plain versions.  The flags and the printed JSON keys are the
+reference's, plus ``--device``.  Trains the dense, MoE, hybrid and ssm
+families (``model.loss_fn`` refuses the others).
 """
 from __future__ import annotations
 

@@ -1,8 +1,8 @@
 """Decoder-only LM of the port, dense, MoE, hybrid (RG-LRU + local
 attention) and ssm (RWKV-6) families: prefill, the per-request decode
 step, and batched paged decode (the counterparts of
-``repro.models.transformer``), and the training loss of the dense, MoE
-and hybrid families (``loss_fn``).
+``repro.models.transformer``), and the training loss of the dense, MoE,
+hybrid and ssm families (``loss_fn``).
 
 Layer stacks are a Python loop: for dense and MoE the unrolled
 ``dense_layers`` first (``first_k_dense`` of them), then the stacked L dim
@@ -160,11 +160,14 @@ def run_stack(x, params, cfg: ModelConfig, collect_caches: bool = False,
             caches["layers"] = states
         return x, aux_total, caches
     if cfg.family == "ssm":
+        block = _remat(
+            lambda h, bp: rwkv_block(h, bp, cfg,
+                                     collect_state=collect_caches,
+                                     scan_impl=scan_impl),
+            cfg, collect_caches)
         states = []
         for i in range(cfg.num_layers):
-            x, st = rwkv_block(x, _tree_slice(params["blocks"], i), cfg,
-                               collect_state=collect_caches,
-                               scan_impl=scan_impl)
+            x, st = block(x, _tree_slice(params["blocks"], i))
             states.append(st)
         if collect_caches:
             caches["blocks"] = _tree_stack(states)
@@ -255,7 +258,6 @@ def prefill(params, batch, cfg: ModelConfig, max_len: int = 0,
 # (ROADMAP.md, Queue 1: "Training of the other families" and the items
 # after it)
 _TRAIN_TODO = {
-    "ssm": "ssm training (a WKV backward)",
     "encdec": "enc-dec and VLM",
     "vlm": "enc-dec and VLM",
 }
@@ -263,9 +265,9 @@ _TRAIN_TODO = {
 
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a family the port cannot train
-    yet, naming the ROADMAP item that adds it: the dense, MoE and hybrid
-    families train so far."""
-    if cfg.family not in ("dense", "moe", "hybrid"):
+    yet, naming the ROADMAP item that adds it: the dense, MoE, hybrid and
+    ssm families train so far."""
+    if cfg.family not in ("dense", "moe", "hybrid", "ssm"):
         raise NotImplementedError(
             f"{cfg.name}: training family {cfg.family!r} is not ported yet; "
             f"ROADMAP.md Queue 1: "
@@ -274,7 +276,7 @@ def check_trainable(cfg: ModelConfig) -> None:
 
 def loss_fn(params, batch, cfg: ModelConfig, attn_impl: str = "auto",
             gmm_impl: str = "auto", scan_impl: str = "auto"):
-    """Causal LM loss of the dense, MoE and hybrid families
+    """Causal LM loss of the dense, MoE, hybrid and ssm families
     (``repro.models.transformer.loss_fn``): predict ``tokens[:, 1:]`` from
     positions ``[:-1]``, mean token cross-entropy in fp32; over sequence
     chunks when ``cfg.loss_chunk`` divides the predicted length and is
@@ -282,8 +284,9 @@ def loss_fn(params, batch, cfg: ModelConfig, attn_impl: str = "auto",
     load-balancing loss (a zero without them), added to the loss as
     ``0.01 * aux`` when the config has experts.  ``attn_impl``,
     ``gmm_impl`` and ``scan_impl`` pick the attention's, the experts' and
-    the RG-LRU scan's implementations, forward and backward.
-    ``model.loss_fn`` refuses the other families (``check_trainable``)."""
+    the recurrences' (the RG-LRU scan, the RWKV-6 WKV) implementations,
+    forward and backward.  ``model.loss_fn`` refuses the other families
+    (``check_trainable``)."""
     x = embed_inputs(params, batch, cfg)
     x, aux, _ = run_stack(x, params, cfg, attn_impl=attn_impl,
                           gmm_impl=gmm_impl, scan_impl=scan_impl)

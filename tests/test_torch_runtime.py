@@ -520,6 +520,26 @@ def test_hybrid_train_cli_prints_the_reference_keys(tmp_path, capsys):
     assert 0 < printed["runtime_goodput"] <= 1
 
 
+def test_ssm_train_cli_prints_the_reference_keys(tmp_path, capsys):
+    """``--arch rwkv6-3b --smoke --device cpu`` as the MoE case: the
+    reference CLI's keys and steps and a finite loss."""
+    from repro.launch.train import main as jmain
+    from repro_torch.launch.train import main
+
+    args = ["--arch", "rwkv6-3b"] + REF_ARGS
+    jmain(args + ["--ckpt-dir", str(tmp_path / "jax")])
+    ref = json.loads(capsys.readouterr().out)
+    out = main(args + ["--ckpt-dir", str(tmp_path / "torch"),
+                       "--device", "cpu"])
+    printed = json.loads(capsys.readouterr().out)
+    assert printed == out
+    assert set(printed) == set(ref)
+    assert printed["arch"] == ref["arch"] == "rwkv6-3b"
+    assert printed["steps"] == ref["steps"] == [0, 9]
+    assert np.isfinite(printed["final_loss"])
+    assert 0 < printed["runtime_goodput"] <= 1
+
+
 def test_train_cli_raises_without_cuda(tmp_path, monkeypatch):
     from repro_torch.launch.train import main
 

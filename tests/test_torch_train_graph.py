@@ -10,7 +10,8 @@ does not need the card:
   step and metrics of ``make_train_step`` (1 and 2 microbatches, fp32;
   one microbatch in bf16 compute; deepseek-moe-16b SMOKE in fp32 and
   bf16, its aux loss among the metrics; recurrentgemma-2b SMOKE in fp32
-  and bf16, its RG-LRU scans and their reverse inside the step), its
+  and bf16, its RG-LRU scans and their reverse inside the step;
+  rwkv6-3b SMOKE in fp32 and bf16, its WKV and its reverse), its
   state at the same
   addresses, also when built from a state on another device than the
   step's (here the same CPU, named);
@@ -155,6 +156,27 @@ def test_hybrid_step_object_matches_make_train_step_bit_for_bit(dtype):
     # the recurrent layers moved: their gradients came through the scan
     assert not torch.equal(ts.state["params"]["layers"]["0"]["rec"]["lru_a"],
                            state["params"]["layers"]["0"]["rec"]["lru_a"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_ssm_step_object_matches_make_train_step_bit_for_bit(dtype):
+    cfg = dataclasses.replace(get_smoke("rwkv6-3b"), compute_dtype=dtype)
+    state = _state(cfg)
+    ts = TrainStep(cfg, OPT, state, B, S, device="cpu")
+    step = make_train_step(cfg, OPT)
+    want = state
+    for batch in _batches(cfg, 3):
+        want, metrics = step(want, batch)
+        got = ts(batch)
+        assert got.keys() == metrics.keys() >= {"xent", "aux"}
+        for k, v in metrics.items():
+            assert torch.equal(got[k], v), k
+        _assert_identical(ts.state, want)
+    assert int(ts.state["opt"]["step"]) == 3
+    # the time mix moved: its gradients came through the WKV's reverse
+    assert not torch.equal(ts.state["params"]["blocks"]["tm"]["bonus"],
+                           state["params"]["blocks"]["tm"]["bonus"])
 
 
 def test_warm_up_leaves_the_state_it_was_built_from():

@@ -26,8 +26,8 @@ batches (the reference's ``DataPipeline``), SMOKE smollm-135m:
   the activations and the embedding's scatter-add sums at other places:
   the leaves land 1.7-2.5% apart);
 * ``input_specs`` / ``synthetic_batch`` / ``abstract_train_state`` shapes
-  and dtypes, and the family the port does not train yet (ssm) is
-  refused;
+  and dtypes, and the families the port does not train yet (enc-dec and
+  VLM) are refused;
 * the MoE family, deepseek-moe-16b and mixtral-8x7b SMOKE, through the
   same checks: ``loss_fn`` (xent, the load-balancing aux summed over the
   MoE layers, and ``0.01 * aux`` in the loss) and its gradients within
@@ -47,7 +47,16 @@ batches (the reference's ``DataPipeline``), SMOKE smollm-135m:
   with the dense tolerances, the bf16 variant against the reference's
   own bf16 rounding (``HYBRID_BF16_FACTOR``), and the port's gradients
   with and without remat bit-identical (the checkpoint recomputes the
-  same forward).
+  same forward);
+* the ssm family, rwkv6-3b SMOKE (3 RWKV-6 blocks, 4 WKV heads of 16),
+  through the hybrid's checks: ``loss_fn`` and its gradients
+  (``SSM_GRAD_SHARE``: the first token's group norm multiplies fp32
+  rounding, on both sides), every leaf whose gradient comes through the
+  WKV's reverse nonzero, 5 steps of ``make_train_step`` (losses and each
+  leaf's update, ``SSM_LOSS_ATOL`` / ``SSM_UPDATE_RTOL``), the bf16
+  variant against the reference's own bf16 rounding
+  (``SSM_BF16_FACTOR``), and remat against no remat bit for bit, with
+  the WKV called twice a layer under remat and once without.
 """
 import dataclasses
 
@@ -74,6 +83,7 @@ from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models import rglru as trglru  # noqa: E402
+from repro_torch.models import rwkv as trwkv  # noqa: E402
 from repro_torch.models.config import ShapeConfig  # noqa: E402
 from repro_torch.models.init import params_from_numpy  # noqa: E402
 from repro_torch.optim import adamw as tadamw  # noqa: E402
@@ -344,10 +354,13 @@ def test_abstract_train_state_matches_reference(setup):
         [np.dtype(x.dtype).name for x in j]
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-3b"])
-def test_untrained_families_are_refused(arch):
+@pytest.mark.parametrize("family", ["encdec", "vlm"])
+def test_untrained_families_are_refused(family):
+    """The families the port does not train yet (no port config of
+    theirs exists, so smollm's SMOKE config stands in, relabelled)."""
+    cfg = dataclasses.replace(tsmoke(ARCH), family=family)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodel.loss_fn(tsmoke(arch))
+        tmodel.loss_fn(cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -643,6 +656,153 @@ def test_hybrid_remat_and_no_remat_grads_bit_identical(hybrid_setup,
         calls.clear()
         loss, _, grads = tstrategy.value_and_grad(cfg)(tparams, batch)
         assert len(calls) == n_rec * (2 if remat else 1), (remat, calls)
+        out[remat] = (loss, _leaves(grads))
+    assert torch.equal(out[True][0], out[False][0])
+    for i, (a, b) in enumerate(zip(out[True][1], out[False][1])):
+        assert torch.equal(a, b), i
+
+
+# ---------------------------------------------------------------------------
+# the ssm family
+# ---------------------------------------------------------------------------
+
+SSM = "rwkv6-3b"
+# the time-mix leaves whose gradients come through the WKV's reverse
+# alone (the r, k, v projections, the decay's LoRA and base, the bonus).
+# decay_a is not among them: its gradient is decay_b-weighted, and
+# decay_b starts at zero (the reference's init), so it is exactly zero on
+# both sides at the first step
+WKV_LEAVES = ("wr", "wk", "wv", "decay_b", "decay_base", "bonus")
+# the ssm's fp32 gradients against the reference's: each leaf within
+# SSM_GRAD_SHARE of its largest element (plus TOL's relative 1e-5).  At
+# the first token the state is zero, the WKV's output is the bonus term
+# alone and the per-head group norm's variance drops to ~1e-6, below its
+# eps 1e-5, so its backward multiplies the fp32 rounding of its input by
+# up to ~260 and carries it into every leaf behind it: both the port's
+# and the reference's fp32 gradients lie 2-3e-4 of each leaf's largest
+# element from an fp64 run of the port on the same batch, and 0.9-1.9e-4
+# from each other.  A wiring fault moves a leaf by the order of its size
+SSM_GRAD_SHARE = 1e-3
+
+
+@pytest.fixture(scope="module")
+def ssm_setup():
+    jcfg, tcfg = jsmoke(SSM), tsmoke(SSM)
+    jparams = jmodel.init_params(jcfg, jax.random.key(0))
+    tparams = params_from_numpy(_np_tree(jparams), device="cpu")
+    return jcfg, tcfg, jparams, tparams
+
+
+def test_ssm_loss_fn_and_grads_match_reference(ssm_setup):
+    jcfg, tcfg, jparams, tparams = ssm_setup
+    batch = _batches(jcfg, 1)[0]
+    (jloss, jmet), jgrads = jax.value_and_grad(
+        jmodel.loss_fn(jcfg), has_aux=True)(
+        jparams, jax.tree.map(jnp.asarray, batch))
+    tloss, tmet, tgrads = tstrategy.value_and_grad(tcfg)(tparams,
+                                                         _tbatch(batch))
+    assert float(tloss) == pytest.approx(float(jloss), rel=1e-5)
+    assert set(tmet) == set(jmet) == {"xent", "aux"}
+    for i, (a, b) in enumerate(zip(_leaves(tgrads), jax.tree.leaves(jgrads))):
+        b = np.asarray(b)
+        np.testing.assert_allclose(
+            a.numpy(), b, rtol=TOL["rtol"],
+            atol=SSM_GRAD_SHARE * float(np.abs(b).max()), err_msg=f"leaf {i}")
+    tm = tgrads["blocks"]["tm"]
+    for name in WKV_LEAVES:
+        for i in range(tcfg.num_layers):
+            assert float(tm[name][i].abs().max()) > 0, (i, name)
+
+
+# 5 steps of the ssm against the reference's: the first-token rounding
+# above reaches the losses and, through AdamW (which moves an element by
+# ~lr whatever its gradient's size), the params, so they are held by
+# what a fault would move.  Losses within SSM_LOSS_ATOL: 7.3e-5 apart
+# measured, each up to 1.6e-4 from an fp64 run of the port, where a step
+# moves the loss by ~0.05.  Each leaf's update (final minus initial
+# params) within SSM_UPDATE_RTOL of the reference's update, in norm: up
+# to 0.005 measured, each side up to 0.006 from the fp64 run's update;
+# a missing or wrong gradient moves it by the order of its size
+SSM_LOSS_ATOL = 5e-4
+SSM_UPDATE_RTOL = 0.02
+
+
+def test_ssm_five_train_steps_match_reference(ssm_setup):
+    jcfg, tcfg, jparams, tparams = ssm_setup
+    jl, js, tl, ts = _run_steps(jcfg, tcfg, jparams, tparams,
+                                _batches(jcfg, 5))
+    np.testing.assert_allclose(tl, jl, rtol=0, atol=SSM_LOSS_ATOL)
+    for i, (a, b, p0) in enumerate(zip(_leaves(ts["params"]),
+                                       jax.tree.leaves(js["params"]),
+                                       _leaves(tparams))):
+        p0 = p0.numpy()
+        da, db = a.numpy() - p0, np.asarray(b) - p0
+        rel = np.linalg.norm(da - db) / np.linalg.norm(db)
+        assert rel <= SSM_UPDATE_RTOL, (i, rel)
+    assert int(ts["opt"]["step"]) == 5
+
+
+# the ssm's bf16 gradients against the reference's, held as the hybrid's
+# are: each leaf within SSM_BF16_FACTOR times the reference's own bf16
+# distance from its fp32 gradient on the same batch
+SSM_BF16_FACTOR = 2.0
+
+
+def test_ssm_bf16_compute_grads_near_reference(ssm_setup):
+    """The bf16 variant: loss within 2e-2, every gradient leaf within
+    SSM_BF16_FACTOR times the reference's bf16 leaf's distance from its
+    fp32 leaf."""
+    jcfg, tcfg, jparams, tparams = ssm_setup
+    jcfg16 = dataclasses.replace(jcfg, compute_dtype=jnp.bfloat16)
+    tcfg = dataclasses.replace(tcfg, compute_dtype=torch.bfloat16)
+    batch = jax.tree.map(jnp.asarray, _batches(jcfg, 1, seed=3)[0])
+
+    def cast(p):
+        return p.astype(jnp.bfloat16) if p.ndim > 1 else p
+
+    (jloss, _), jgrads = jax.value_and_grad(
+        jmodel.loss_fn(jcfg16), has_aux=True)(
+        jax.tree.map(cast, jparams), batch)
+    _, jgrads32 = jax.value_and_grad(jmodel.loss_fn(jcfg), has_aux=True)(
+        jparams, batch)
+    tloss, _, tgrads = tstrategy.value_and_grad(tcfg)(
+        tparams, jax.tree.map(lambda a: torch.from_numpy(np.asarray(a)),
+                              batch))
+    assert abs(float(tloss) - float(jloss)) < 2e-2
+    for i, (a, b, c) in enumerate(zip(_leaves(tgrads),
+                                      jax.tree.leaves(jgrads),
+                                      jax.tree.leaves(jgrads32))):
+        assert a.dtype == (torch.bfloat16 if b.ndim > 1 else torch.float32)
+        a = a.float().numpy()
+        b, c = (np.asarray(t, dtype=np.float32) for t in (b, c))
+        rel = np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-12)
+        own = np.linalg.norm(b - c) / max(np.linalg.norm(c), 1e-12)
+        assert rel <= SSM_BF16_FACTOR * own, (i, a.shape, rel, own)
+
+
+def test_ssm_remat_and_no_remat_grads_bit_identical(ssm_setup, monkeypatch):
+    """The RWKV-6 blocks run under the checkpoint (the reference's
+    ``jax.checkpoint``) when cfg.remat is set: the backward recomputes
+    the same forward, so each layer's WKV runs twice (once without
+    remat) and the gradients are those without it, bit for bit."""
+    _, tcfg, _, tparams = ssm_setup
+    assert tcfg.remat
+    batch = _tbatch(_batches(tcfg, 1, seed=4)[0])
+    calls = []
+    wkv = trwkv.rwkv6_wkv
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return wkv(*args, **kwargs)
+
+    monkeypatch.setattr(trwkv, "rwkv6_wkv", counted)
+    out = {}
+    for remat in (True, False):
+        cfg = dataclasses.replace(tcfg, remat=remat)
+        calls.clear()
+        loss, _, grads = tstrategy.value_and_grad(cfg)(tparams, batch)
+        assert len(calls) == tcfg.num_layers * (2 if remat else 1), (
+            remat, len(calls))
         out[remat] = (loss, _leaves(grads))
     assert torch.equal(out[True][0], out[False][0])
     for i, (a, b) in enumerate(zip(out[True][1], out[False][1])):
