@@ -142,12 +142,15 @@ each of which raises on failure (nothing is caught):
 9. training rwkv6-3b at its published widths with the depth cut 32 -> 8
    (d 2560, 40 WKV heads of 64, d_ff 8960, vocab 65536; bf16 compute,
    fp32 master params, one 4,096-token sequence), each part freeing its
-   memory before the next: (a) the WKV reverse (``rwkv6_wkv_bwd``)
-   against its plain version at (1, 4096, 40, 64) fp32 from zeros, from
-   a nonzero s0 with a nonzero final-state gradient and at the model's
-   full decay range, and at a ragged (1, 37, 3, 16), every gradient
-   within ``WKV_BWD_RTOL`` of its largest element and two calls
-   bit-identical, with its time, the plain version's and its bound; the
+   memory before the next: (a) the WKV reverse (``rwkv6_wkv_bwd``: the
+   sequence cut into segments, a carry launch, the main launch with two
+   blocks an SM, a finish) against its plain version at (1, 4096, 40,
+   64) fp32 from zeros, from a nonzero s0 with a nonzero final-state
+   gradient and at the model's full decay range, at batch 2 (2, 2048,
+   40, 64) and at a ragged (1, 37, 3, 16), every gradient within
+   ``WKV_BWD_RTOL`` of its largest element and two calls bit-identical,
+   with its time and each launch's, the segments, blocks, registers and
+   blocks an SM, the plain version's time and its bound; the
    forward at (1, 4096, 40, 64) with and without the chunk states the
    reverse reads, beside its bound; (b) the full model's loss and
    gradients with the WKV kernels and with the plain versions, as in
@@ -3278,22 +3281,30 @@ def _wkv_bwd_inputs(torch, b, s, h, n, with_state, decay, seed):
     return r, k, v, logw, u, do, s0, ds
 
 
-def wkv_bwd_cases(torch):
+def wkv_bwd_cases(torch, ptxas_report: str = ""):
     """The reverse WKV (``rwkv6_wkv_bwd``) against its plain version at
     the ssm's training shape (1, 4096, 40, 64) fp32 (what the time mix
     feeds it): from zeros, from a nonzero s0 with a nonzero final-state
     gradient, at the model's full decay range (logw = -exp(d), d in
-    [-20, 10]), and at a ragged (1, 37, 3, 16) from a state; each
-    gradient within WKV_BWD_RTOL, two calls bit-identical, the chunk
-    states from the forward kernel.  Each line: the kernel's device time
-    (a graph replay), the plain version's (one eager call: its two loops
-    of a few small ops a token), and the bound (r, k, v, logw, do and the
-    chunk states read once, dr, dk, dv, dlogw written once, plus u, ds,
-    du, ds0; 14 n^2 flops a token and head: the states recomputed
-    once, G updated, dr, dk, dv, dlogw).  Then the forward at the
-    training shape, with and without its chunk-state output (bound: r, k,
-    v, logw read, o written, and the states; 5 n^2 + 4 n flops a token
-    and head).  No one PyTorch call computes either."""
+    [-20, 10]), at batch 2 (2, 2048, 40, 64) from a state (du summed
+    over rows and segments), and at a ragged (1, 37, 3, 16) from a
+    state; each gradient within WKV_BWD_RTOL, two calls bit-identical,
+    the chunk states from the forward kernel.  Each line: the kernel's
+    device time (a graph replay), each of its launches' (carry, main,
+    finish) by ``torch.profiler`` (:func:`kernel_split_ms`), the
+    segments and the main launch's blocks, the blocks resident on an SM,
+    its registers and local bytes a thread (``bwd_info``: the runtime's
+    figures for the loaded library; at n 64 fewer than two blocks an SM
+    fails), the build's ptxas registers and spills of the three kernels
+    (from ``ptxas_report``, empty if built before this run), the plain
+    version's time (one eager call: its two loops of a few small ops a
+    token), and the bound (r, k, v, logw, do and the chunk states read
+    once, dr, dk, dv, dlogw written once, plus u, ds, du, ds0; 14 n^2
+    flops a token and head: the states recomputed once, G updated, dr,
+    dk, dv, dlogw).  Then the forward at the training shape, with and
+    without its chunk-state output (bound: r, k, v, logw read, o
+    written, and the states; 5 n^2 + 4 n flops a token and head).  No
+    one PyTorch call computes either."""
     from repro_torch.kernels.rwkv6_wkv import rwkv6_wkv as wk
     from repro_torch.kernels.rwkv6_wkv.ref import (rwkv6_wkv_bwd_ref,
                                                    rwkv6_wkv_ref)
@@ -3302,7 +3313,9 @@ def wkv_bwd_cases(torch):
     cases = [("zeros", 1, SSM_TRAIN_SEQ, 40, 64, False, "usual"),
              ("state", 1, SSM_TRAIN_SEQ, 40, 64, True, "usual"),
              ("full_decay", 1, SSM_TRAIN_SEQ, 40, 64, False, "full"),
+             ("batch2", 2, SSM_TRAIN_SEQ // 2, 40, 64, True, "usual"),
              ("ragged", 1, 37, 3, 16, True, "usual")]
+    ptxas = ptxas_entries(ptxas_report, "wkv_bwd")
     rows, fwd_rows = [], []
     f32 = torch.float32
     for case, b, s, h, n, with_state, decay in cases:
@@ -3336,10 +3349,20 @@ def wkv_bwd_cases(torch):
                       + (2 * b * h * n * n if with_state else 0))
         bound_ms, bound_by = bound(float(tokens * 14 * n * n), nbytes, f32)
         kernel_ms = graph_ms(torch, lambda: wk.rwkv6_wkv_bwd(*args))
+        info = wk.bwd_info(b, s, h, n)
+        if n == 64 and info["blocks_per_sm"] < 2:
+            raise AssertionError(f"{what}: the main kernel fits "
+                                 f"{info['blocks_per_sm']} block(s) an SM "
+                                 f"(registers {info['registers']}, local "
+                                 f"bytes {info['local_bytes']})")
         rows.append({
             "kernel": "rwkv6_wkv_bwd", "case": case, "dtype": str(f32),
             "b": b, "s": s, "h": h, "n": n, "state": with_state,
-            "decay": decay, "bit_identical": True,
+            "decay": decay, "bit_identical": True, **info,
+            "launch_ms": kernel_split_ms(
+                torch, lambda: wk.rwkv6_wkv_bwd(*args)),
+            "ptxas": {k: v for k, v in (ptxas or {}).items()
+                      if f"ILi{n}E" in k or "finish" in k},
             "max_abs_err": max(errs.values()), "max_abs_err_by_grad": errs,
             "rtol_of_largest": WKV_BWD_RTOL, "kernel_ms": kernel_ms,
             "kernel_call_ms": cuda_ms(torch,
@@ -3576,7 +3599,7 @@ def main() -> int:
             ssm.remat) != (2560, 40, 64, 8960, 65536, torch.bfloat16,
                            torch.float32, True):
         raise AssertionError(f"rwkv6-3b is not at full width: {ssm}")
-    wkv_bwd, wkv_train = wkv_bwd_cases(torch)
+    wkv_bwd, wkv_train = wkv_bwd_cases(torch, reports.get("rwkv6_wkv", ""))
     train_grads_kernel_vs_plain(torch, ssm, SSM_TRAIN_BATCH, SSM_TRAIN_SEQ,
                                 must_move=WKV_LEAVES)
     gc.collect()
@@ -3725,10 +3748,15 @@ def main() -> int:
                                     "library_ms")}),
         # no Pallas kernel: the reference differentiates its chunked WKV;
         # the line is the ssm's training shape, fp32, from zeros
-        summary(wkv_bwd, "rwkv6_wkv_bwd",
-                "src/repro_torch/kernels/csrc/rwkv6_wkv.cu",
-                "src/repro/models/rwkv.py:75",
-                lambda x: x["case"] == "zeros"),
+        dict(summary(wkv_bwd, "rwkv6_wkv_bwd",
+                     "src/repro_torch/kernels/csrc/rwkv6_wkv.cu",
+                     "src/repro/models/rwkv.py:75",
+                     lambda x: x["case"] == "zeros"),
+             **{k: r[k] for r in wkv_bwd if r["case"] == "zeros"
+                for k in ("segments", "blocks", "blocks_per_sm",
+                          "registers", "local_bytes", "launch_ms")},
+             batch2=case(wkv_bwd, lambda x: x["case"] == "batch2",
+                         ("b", "s", "h", "n", "segments", "blocks"))),
     ]})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,14 +15,18 @@ HEAD_DIMS = (16, 32, 64)
 # the forward keeps the state before every STATE_CHUNK tokens for the
 # reverse (the kernels' staged chunk)
 STATE_CHUNK = 32
-# state columns a block of the kernels owns (n / _COL_BLOCK blocks a head)
-_COL_BLOCK = 32
+# state rows a block of the reverse owns (n / ROW_BLOCK blocks a head)
+ROW_BLOCK = 32
+# the reverse cuts the sequence into segments of whole chunks until its
+# main launch has this many blocks (``bwd_segments``)
+SEG_TARGET_BLOCKS = 1024
 
 LAUNCHES = 0
 LAUNCHES_BWD = 0
 
 _ARGS = [C.P] * 9 + [C.I] * 4 + [C.LL] * 15 + [C.I, C.P]
 _ARGS_BWD = [C.P] * 15 + [C.I] * 4 + [C.LL] * 15 + [C.P]
+_ARGS_BWD_INFO = [C.I] * 4 + [C.P]
 
 
 def _check(name, r, k, v, logw, u, s0, dtypes):
@@ -55,6 +59,46 @@ def _strides(*tensors):
 
 def n_state_chunks(s: int) -> int:
     return -(-s // STATE_CHUNK)
+
+
+def bwd_row_blocks(n: int) -> int:
+    return n // min(n, ROW_BLOCK)
+
+
+def bwd_segments(b: int, s: int, h: int, n: int):
+    """(segments, chunks a segment) of the reverse, as the kernel's
+    ``segments`` cuts them: as many parts as bring the main launch (row
+    blocks x segments x b x h) to SEG_TARGET_BLOCKS, at most one a
+    STATE_CHUNK-token chunk, each rounded up to whole chunks (the last
+    may hold fewer).  The shape alone decides, never the card."""
+    chunks = n_state_chunks(s)
+    blocks = max(1, b * h * bwd_row_blocks(n))
+    want = max(1, min(chunks, -(-SEG_TARGET_BLOCKS // blocks)))
+    per = -(-chunks // want)
+    return -(-chunks // per), per
+
+
+def bwd_workspace_elems(b: int, s: int, h: int, n: int) -> int:
+    """fp32 elements of the reverse's workspace: the carries of segments
+    1 .. P-1 (each b h n x n, and its decay product b h n) and du per
+    segment and batch row (P b h n)."""
+    segs, _ = bwd_segments(b, s, h, n)
+    bhn = b * h * n
+    return (segs - 1) * bhn * (n + 1) + segs * bhn
+
+
+def bwd_info(b: int, s: int, h: int, n: int) -> dict:
+    """What the reverse's main launch gets on the current card for this
+    shape: its segments and blocks, blocks resident on an SM, registers
+    and local (spill) bytes a thread, shared memory a block."""
+    import ctypes
+
+    out = (ctypes.c_int * 7)()
+    fn = C.entry("rwkv6_wkv", "repro_rwkv6_wkv_bwd_info", _ARGS_BWD_INFO)
+    C.check("rwkv6_wkv", fn(b, h, s, n, ctypes.addressof(out)))
+    keys = ("segments", "chunks_per_segment", "blocks", "blocks_per_sm",
+            "registers", "local_bytes", "smem_bytes")
+    return dict(zip(keys, list(out)))
 
 
 def rwkv6_wkv(r, k, v, logw, u, s0=None, states: bool = False):
@@ -98,7 +142,10 @@ def rwkv6_wkv_bwd(r, k, v, logw, u, do, states, s0=None, ds=None):
     states recomputed from ``states``, the forward's chunk states
     (``rwkv6_wkv(..., states=True)``; they start from s0, which the
     reverse itself does not read).  ``ref.rwkv6_wkv_bwd_ref`` states the
-    recurrence.
+    recurrence; the kernel cuts the sequence into :func:`bwd_segments`,
+    each started from the later ones' carried gradient
+    (``ref.rwkv6_wkv_bwd_split_ref`` models it), with a workspace of
+    :func:`bwd_workspace_elems`.
 
     r, k, v, logw and the output's gradient do: fp32 (b, s, h, n) CUDA
     tensors, n in HEAD_DIMS and contiguous, any other strides; u: (h,
@@ -139,8 +186,7 @@ def rwkv6_wkv_bwd(r, k, v, logw, u, do, states, s0=None, ds=None):
         elif ds0 is not None:
             ds0.zero_()
         return dr, dk, dv, dlogw, du.to(u.dtype), ds0
-    splits = n // min(n, _COL_BLOCK)
-    ws = torch.empty(((splits - 1) * 3 * b * s * h * n + b * h * n,),
+    ws = torch.empty((bwd_workspace_elems(b, s, h, n),),
                      dtype=torch.float32, device=r.device)
     uf = u.float().contiguous()
     fn = C.entry("rwkv6_wkv", "repro_rwkv6_wkv_bwd", _ARGS_BWD)

@@ -1,13 +1,17 @@
 """Card-only: the RWKV-6 WKV reverse (``rwkv6_wkv_bwd``, the WKV's
 gradient) against its plain version ``rwkv6_wkv_bwd_ref`` on the card:
-SMOKE widths (n 16), n 32 and rwkv6-3b's n 64 (two column blocks a head,
-summed by the second launch), lengths that are no multiple of the
+SMOKE widths (n 16), n 32 and rwkv6-3b's n 64 (two row blocks a head, a
+cluster summing dv between them), lengths that are no multiple of the
 32-token chunk, from zeros and from a nonzero s0 with a nonzero final
 state gradient, the usual and the model's full decay range, batch rows
-2 and 3 (du summed over them), views no row of which is 16-byte
-aligned; the autograd Function on CUDA tensors against the same Function
-on the plain versions; a CUDA-graph replay; and the serving forward,
-whose chunk-state output stays null, unchanged in bits and launches.
+2 and 3 (du summed over them and over the segments), sequences split
+into segments with a ragged last one ((1, 4096 + 37, 8, 64): 44
+segments of 3 chunks, the last one 5-token chunk; (2, 1000, 4, 32): 32
+of one chunk, the last of 8 tokens), views no row of which is 16-byte
+aligned; the
+autograd Function on CUDA tensors against the same Function on the plain
+versions; a CUDA-graph replay; and the serving forward, whose
+chunk-state output stays null, unchanged in bits and launches.
 
 Tolerance: each gradient within 1e-4 of its largest element plus 1e-4
 relative (``WKV_BWD_RTOL``).  The plain fp32 reverse lies within ~2e-7
@@ -99,7 +103,8 @@ def _check(r, k, v, logw, u, do, s0, ds):
 @pytest.mark.parametrize("b,s,h,n,with_state", [
     (2, 37, 4, 16, True), (2, 64, 4, 16, False), (1, 1, 2, 32, True),
     (3, 77, 4, 32, True), (1, 300, 40, 64, False), (1, 129, 8, 64, True),
-    (2, 33, 40, 64, True)])
+    (2, 33, 40, 64, True), (1, 4096 + 37, 8, 64, True),
+    (2, 1000, 4, 32, True), (2, 300, 8, 64, True)])
 def test_rwkv6_wkv_bwd_kernel_matches_plain(card, b, s, h, n, with_state,
                                             decay):
     _check(*_inputs(card, b, s, h, n, with_state, decay))
