@@ -16,7 +16,11 @@ each of which raises on failure (nothing is caught):
    head_dim 64 / group 3, deepseek-moe-16b's head_dim 128 / group 1,
    granite-3-8b's head_dim 128 / group 4 and recurrentgemma-2b's
    head_dim 256 / group 10; flash also at the static engine's 8 x 200
-   for smollm, granite and recurrentgemma (its 2048 window);
+   for smollm, granite and recurrentgemma (its 2048 window), non-causal
+   at whisper-medium's encoder (16 heads of 64 over 1500 states, batch 1
+   and 8) and cross-attention (1 and 200 queries against 1500 keys),
+   and causal at llava-next-mistral-7b's prefill (1152 patches + 200
+   tokens, 32 / 8 heads of 128);
    paged attention also at 16 pages a row, lengths up to 2048; the
    grouped matmul at deepseek's prefill and decode expert shapes and a
    ragged one; the RG-LRU scan at recurrentgemma's (1, 300, 2560), also
@@ -62,6 +66,21 @@ each of which raises on failure (nothing is caught):
    ``make_executor``, which picks the per-slot executor, (b) with
    kernel-vs-plain logits of the prefill and the first decode step, and
    (c) through the static server at batch 8 (``serve_static``);
+5b. the serving paths of whisper-medium (enc-dec: 24 encoder and 24
+   decoder layers, d 1024, 16 heads of 64, 1500 encoder states, vocab
+   51865) and llava-next-mistral-7b (vlm: 32 layers, d 4096, 32 / 8
+   heads of 128, vocab 32000, 1152 patch embeddings before the prompt)
+   at full published width, fp32 params and bf16 compute, zero frames /
+   patches as the reference's executors feed them, each (a) through
+   ``make_executor``, which picks the per-slot executor
+   (``serve_engine_whisper``: max_len 364; ``serve_engine_llava``:
+   max_len 1152 + 300 + 48 = 1500, so the ring keeps every patch), (b)
+   with kernel-vs-plain logits of the prefill and the first decode step,
+   (c) ``graph_vs_eager`` and ``prefill_graph_vs_eager`` (llava's
+   max_len again holding the patches) and (d) through the static server
+   at batch 8 (``serve_static``, sized as the reference's server sizes
+   it: max_len 232, so llava's ring keeps the newest 232 of its 1352
+   prefill positions);
 6. training smollm-135m at full width (bf16 compute, fp32 master
    params, batch 8 x 2048): (a) the flash forward with its LSE at the
    training shape, and the flash backward against its plain version at
@@ -192,8 +211,9 @@ which writes into the decode graph's static cache; the same requests
 then go through ``decode_impl="eager"`` and ``prefill_impl="eager"`` on
 the same weights, and the tokens must be identical.  Its counted
 launches must be one ``per_call_launches`` prefill per direct call of
-the prefill step (flash 30 / 40 / 8 / 0, ``rglru_scan`` 18,
-``rwkv6_wkv`` 32) and nothing per decode step.
+the prefill step (flash 30 / 40 / 8 / 0 / 72 / 32, ``rglru_scan`` 18,
+``rwkv6_wkv`` 32) and per decode step nothing but whisper's 24 flash
+cross-attentions.
 
 The launch counters are zeroed before each serving run (before its
 executor is built: the batched one captures its decode step then, the
@@ -201,12 +221,15 @@ per-slot one its entries).  They count Python calls of a wrapper, and a
 replay makes none, so they must read, per direct call of the prefill
 step (its warm-up and capture calls on the graph path: ``WARMUP`` + 1
 for an owner's first length, 1 for each later one; every prefill on the
-eager path), one flash launch per attention layer, 3 x (num_layers -
-first_k_dense) grouped-matmul launches (MoE only), one RG-LRU scan per
-recurrent layer (hybrid) and one WKV launch per layer (ssm), and per
-direct call of the decode step (likewise) num_layers paged launches and
-the same grouped-matmul count on the batched path, no launch at all on
-the per-slot path (its decode is plain torch, as the reference's).  The
+eager path), one flash launch per attention layer (enc-dec: one per
+encoder layer and two per decoder layer, self and cross: 72), 3 x
+(num_layers - first_k_dense) grouped-matmul launches (MoE only), one
+RG-LRU scan per recurrent layer (hybrid) and one WKV launch per layer
+(ssm), and per direct call of the decode step (likewise) num_layers
+paged launches and the same grouped-matmul count on the batched path,
+no launch at all on the per-slot path (its decode is plain torch, as the
+reference's) but enc-dec's one flash cross-attention per decoder layer
+(24), whose queries see the 1500 encoder states.  The
 prefill replays must equal the prefills, the decode replays the decode
 steps (batched) or the live requests summed over the steps (per-slot),
 and the launches a run reports add each replay's to the counted ones.
@@ -406,6 +429,11 @@ def launch_floor(torch):
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+# llava-next-mistral-7b's prefill positions: its 1152 patches before a
+# 200-token prompt
+FLASH_LLAVA_SQ = 1152 + 200
+
+
 def flash_cases(torch):
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -430,43 +458,58 @@ def flash_cases(torch):
     # the static engine's batch-8 prefills of 200 for smollm-135m and
     # recurrentgemma-2b (with its 2048 window, as the model passes it)
     cases += [((8, 9, 3, 64), (200, 0)), ((8, 10, 1, 256), (200, 2048))]
+    # whisper-medium (d 64, MHA): the encoder over its 1500 states,
+    # non-causal; cross-attention, one decode query or a 200-token prompt
+    # against the 1500 states; each at batch 1 (the per-slot executor)
+    # and 8 (the static server), and the static server's causal decoder
+    # self-attention over 8 x 200
+    cases += [((b, 16, 16, 64), (sq, 0), 1500, False)
+              for b in (1, 8) for sq in (1500, 1, 200)]
+    cases += [((8, 16, 16, 64), (200, 0))]
+    # llava-next-mistral-7b's prefill, 1152 patches + a 200-token prompt:
+    # one (the per-slot executor) and 8 (the static server)
+    cases += [((b, 32, 8, 128), (FLASH_LLAVA_SQ, 0)) for b in (1, 8)]
     for dtype in (torch.float32, torch.bfloat16):
-        for (b, hq, hkv, d), (sq, window) in cases:
+        for (b, hq, hkv, d), (sq, window), *kv in cases:
+            skv, causal = kv or (sq, True)
             g = torch.Generator(device=dev).manual_seed(sq + window + d)
             # the model's (b, s, h, d) tensors, viewed as (b, h, s, d)
-            q, k, v = (torch.randn((b, sq, h, d), generator=g, device=dev)
+            q, k, v = (torch.randn((b, s, h, d), generator=g, device=dev)
                        .to(dtype).transpose(1, 2)
-                       for h in (hq, hkv, hkv))
-            what = f"flash d={d} hq={hq} hkv={hkv} sq={sq} w={window} {dtype}"
+                       for s, h in ((sq, hq), (skv, hkv), (skv, hkv)))
+            kw = dict(causal=causal, window=window)
+            what = (f"flash d={d} hq={hq} hkv={hkv} sq={sq} skv={skv} "
+                    f"causal={causal} w={window} {dtype}")
             out, inst = run_counted(
-                torch, fa, what,
-                lambda: fa.flash_attention(q, k, v, window=window))
+                torch, fa, what, lambda: fa.flash_attention(q, k, v, **kw))
             if dtype == torch.bfloat16 and inst != "tc":
                 raise AssertionError(f"{what}: ran on the {inst} instance")
-            ref = attention_ref(q, k, v, window=window)
+            ref = attention_ref(q, k, v, **kw)
             err = check_close(torch, what, out, ref, TOL[str(dtype)])
             qpos = torch.arange(sq, device=dev)[:, None]
-            kpos = torch.arange(sq, device=dev)[None, :]
-            mask = kpos <= qpos
+            kpos = torch.arange(skv, device=dev)[None, :]
+            mask = (kpos <= qpos if causal
+                    else torch.ones((sq, skv), dtype=torch.bool, device=dev))
             if window:
                 mask &= kpos > qpos - window
             pairs = int(mask.sum())
             es = q.element_size()
-            nbytes = es * d * (2 * b * hq * sq + 2 * b * hkv * sq)
+            nbytes = es * d * (2 * b * hq * sq + 2 * b * hkv * skv)
             flops = 4.0 * d * b * hq * pairs
             bound_ms, bound_by = bound(flops, nbytes, dtype)
             sdpa_kw = ({"attn_mask": mask} if window
-                       else {"is_causal": True})
+                       else {"is_causal": causal})
             rows.append({
                 "kernel": "flash_attention", "dtype": str(dtype), "b": b,
-                "hq": hq, "hkv": hkv, "d": d, "sq": sq, "window": window,
+                "hq": hq, "hkv": hkv, "d": d, "sq": sq, "skv": skv,
+                "causal": causal, "window": window, "pairs": pairs,
                 "instance": inst, "max_abs_err": err, "tol": TOL[str(dtype)],
                 "kernel_ms": graph_ms(torch, lambda: fa.flash_attention(
-                    q, k, v, window=window)),
+                    q, k, v, **kw)),
                 "kernel_call_ms": cuda_ms(torch, lambda: fa.flash_attention(
-                    q, k, v, window=window)),
+                    q, k, v, **kw)),
                 "plain_ms": graph_ms(torch, lambda: attention_ref(
-                    q, k, v, window=window)),
+                    q, k, v, **kw)),
                 "library_ms": graph_ms(
                     torch, lambda: F.scaled_dot_product_attention(
                         q, k, v, enable_gqa=True, **sdpa_kw)),
@@ -770,9 +813,17 @@ def read_tc_counts():
 
 def per_call_launches(cfg):
     """Launches of each kernel per prefill and per decode step: the
-    batched paged path for dense / MoE, the per-slot path (no kernel in
-    its decode) for hybrid and ssm."""
+    batched paged path for dense / MoE, the per-slot path for the others
+    (no kernel in its decode, but for enc-dec the flash cross-attention
+    of every decoder layer; an enc-dec prefill runs flash in every
+    encoder layer and twice in every decoder layer, self and cross)."""
     none = dict.fromkeys(_kernel_modules(), 0)
+    if cfg.family == "encdec":
+        return ({**none, "flash_attention": cfg.encoder_layers
+                 + 2 * cfg.num_layers},
+                {**none, "flash_attention": cfg.num_layers})
+    if cfg.family == "vlm":
+        return {**none, "flash_attention": cfg.num_layers}, none
     if cfg.family == "hybrid":
         n_attn = sum(cfg.is_attention_layer(i)
                      for i in range(cfg.num_layers))
@@ -1033,8 +1084,9 @@ def check_static(cfg, server, counts, tc_counts, what, mode, shapes):
     step (its warm-up and capture calls on the graph path, every batch on
     the eager one; the batches' prefill ``shapes`` held by
     :func:`check_prefill`), and per direct call of the decode step
-    (likewise) the grouped-matmul launches of a MoE decode step, no other
-    kernel (the decode is plain torch, as the reference's); on a bf16
+    (likewise) the grouped-matmul launches of a MoE decode step and the
+    flash cross-attention of an enc-dec one, no other kernel (the rest
+    of the decode is plain torch, as the reference's); on a bf16
     path every flash and grouped-matmul launch on the tensor cores.  The
     graph path captures the decode once and replays it once per decode
     step; ``mode`` is both graphs' path.  Returns the run's figures, with
@@ -1043,8 +1095,10 @@ def check_static(cfg, server, counts, tc_counts, what, mode, shapes):
 
     from repro_torch.serve.decode_graph import WARMUP
 
-    per_pre = per_call_launches(cfg)[0]
+    per_pre, per_dec = per_call_launches(cfg)
     per_step = {**dict.fromkeys(per_pre, 0), "moe_gmm": per_pre["moe_gmm"]}
+    if cfg.family == "encdec":
+        per_step["flash_attention"] = per_dec["flash_attention"]
     g = server.decode_graph_stats()
     p = check_prefill(server, shapes, what, mode)
     want = {k: per_pre[k] * p["calls"] + per_step[k] * g["calls"]
@@ -1192,12 +1246,14 @@ def serve_static(torch, cfg, params, n_req=8, max_new=32, cli=False):
     return runs["graph"]["launches"]
 
 
-def serve_engine(torch, cfg, n_req: int, max_new_hi: int, phase: str):
+def serve_engine(torch, cfg, n_req: int, max_new_hi: int, phase: str,
+                 max_len: int = 300 + 64):
     """The continuous engine over ``make_executor`` (params drawn on the
     card from seed 0, only their cast tree kept; ``peak_mem_gb`` is the
     run's peak, ``held_mem_gb`` what stays after it): ``n_req`` requests with prompts of 40-300 tokens
     and 16-``max_new_hi`` new tokens through 8 slots, so rows admit and
-    detach while others decode."""
+    detach while others decode; the executor sized for ``max_len``
+    positions a request."""
     import numpy as np
 
     from repro_torch.models.init import init_params
@@ -1206,7 +1262,7 @@ def serve_engine(torch, cfg, n_req: int, max_new_hi: int, phase: str):
                                           ServeRequest)
 
     rng = np.random.default_rng(0)
-    n_slots, max_len = 8, 300 + 64
+    n_slots = 8
     reqs = []
     for i in range(n_req):
         plen = int(rng.integers(40, 301))
@@ -1243,7 +1299,8 @@ def serve_engine(torch, cfg, n_req: int, max_new_hi: int, phase: str):
     admitted_mid, detached_mid = churn(ex, rec, phase)
     log({"phase": phase, "arch": cfg.name,
          "executor": type(ex).__name__, "requests": n_req,
-         "n_slots": n_slots, "prompt_lens": [r.prompt_len for r in reqs],
+         "n_slots": n_slots, "max_len": max_len,
+         "prompt_lens": [r.prompt_len for r in reqs],
          "max_new": [r.max_new for r in reqs], "crossed_page": crossed,
          "admitted_mid_flight": admitted_mid,
          "detached_mid_flight": detached_mid, "init_s": init_s,
@@ -1300,8 +1357,9 @@ def graph_vs_eager(torch, cfg, params):
                                  0, cfg.vocab_size, n).astype(np.int32))
                 for i, (n, m) in enumerate(shapes)]
         reset_counts()
-        ex, kv = make_executor(cfg, 300 + 16, 4, params=params,
-                               decode_impl=mode)
+        # room for the vlm's patches too, so that its ring keeps them
+        ex, kv = make_executor(cfg, 300 + 16 + cfg.num_patches, 4,
+                               params=params, decode_impl=mode)
         rec = instrument(ex)
         ContinuousServeEngine(4, ex, slo=NO_SLO, kv_cache=kv).run(reqs)
         run = check_run(cfg, ex, rec, read_counts(), read_tc_counts(),
@@ -1401,9 +1459,12 @@ def prefill_logits(torch, cfg, serving, max_len: int, n: int = 200):
 
     dev = torch.device("cuda")
     prefill = model.prefill_fn(cfg, max_len=max_len)
+    # the stub front end's zero frames / patches, one static buffer
+    frontend = model.frontend_inputs(cfg, 1, dev)
 
     def step(b):
-        b["logits"].copy_(prefill(serving, {"tokens": b["tokens"]})[0])
+        b["logits"].copy_(prefill(serving, {"tokens": b["tokens"],
+                                            **frontend})[0])
 
     def buffers(shape):
         return {"tokens": torch.zeros(shape, dtype=torch.int64, device=dev),
@@ -1458,7 +1519,7 @@ def prefill_graph_vs_eager(torch, cfg, params):
     rng = np.random.default_rng(7)
     lens = [PREFILL_LENS[i % len(PREFILL_LENS)] for i in range(8)]
     shapes = [(n, int(rng.integers(4, 9))) for n in lens]
-    n_slots, max_len = 4, max(PREFILL_LENS) + 8
+    n_slots, max_len = 4, max(PREFILL_LENS) + 8 + cfg.num_patches
     runs, toks = {}, {}
     for name, impl, bound in (("graph", "graph", 32),
                               ("eager", "eager", 32),
@@ -1523,26 +1584,35 @@ def _full_model_logits(torch, cfg, params, impl, prompts, tok=None):
     decode step feeds ``tok`` (default: the prefill's argmax) and runs at
     the executor's decode config.  Returns (prefill, decode, decode
     inputs)."""
-    from repro_torch.models import model, transformer
+    from repro_torch.models import model, transformer, whisper
     from repro_torch.serve.batched_executor import decode_config
 
     dev = torch.device("cuda")
     bt, nb = PAGE_TOKENS, PAGES_PER_ROW
     if not model.supports_paged_decode(cfg, bt * nb):
-        # the per-slot path: batch-1 prefill, then decode_step on its cache
+        # the per-slot path: batch-1 prefill (with the zero frames /
+        # patches the executors feed; the cache long enough to keep the
+        # patches, whisper's its prompt + 64 ring), then a decode step on
+        # its cache
+        frontend = model.frontend_inputs(cfg, 1, dev)
+        max_len = bt * nb + cfg.num_patches
         pre, caches = [], []
         for p in prompts:
-            logits, cache = transformer.prefill(
-                params, {"tokens": p}, cfg, max_len=bt * nb, attn_impl=impl,
-                gmm_impl=impl, scan_impl=impl)
+            batch = {"tokens": p, **frontend}
+            if cfg.family == "encdec":
+                logits, cache = whisper.prefill(params, batch, cfg,
+                                                attn_impl=impl)
+            else:
+                logits, cache = transformer.prefill(
+                    params, batch, cfg, max_len=max_len, attn_impl=impl,
+                    gmm_impl=impl, scan_impl=impl)
             pre.append(logits[0])
             caches.append(cache)
         pre = torch.stack(pre)
         tok = pre.argmax(-1) if tok is None else tok
-        dec = torch.stack([
-            transformer.decode_step(params, tok[row:row + 1], cache, cfg,
-                                    gmm_impl=impl)[0][0]
-            for row, cache in enumerate(caches)])
+        step = model.decode_fn(cfg, attn_impl=impl, gmm_impl=impl)
+        dec = torch.stack([step(params, tok[row:row + 1], cache)[0][0]
+                           for row, cache in enumerate(caches)])
         return pre, dec, (tok, caches)
     tables = torch.arange(len(prompts) * nb, device=dev, dtype=torch.int32) \
         .reshape(len(prompts), nb)
@@ -1602,7 +1672,7 @@ def logits_kernel_vs_plain(torch, cfg, params, serving, tol):
     holds the kernels' bf16 logits to the fp32 plain ones within
     ``DS_BF16_FLOOR_FACTOR`` times the plain bf16 logits' distance from
     them.  Every comparison is logged, then a failed one raises."""
-    from repro_torch.models import transformer
+    from repro_torch.models import model, transformer
 
     dev = torch.device("cuda")
     paged = cfg.family in ("dense", "moe")
@@ -1652,6 +1722,7 @@ def logits_kernel_vs_plain(torch, cfg, params, serving, tol):
         # the host's wall time of one replay of it as the executors
         # capture it (DecodeGraph), to the end of its work on the card
         p200 = prompts[lens.index(200)]
+        frontend = model.frontend_inputs(cfg, 1, dev)
         step_name = "decode_step_w8" if paged else "decode_step_b1"
         timing = {step_name: {}, "prefill_s200": {}}
         for tree_name, tree in (("raw", params), ("cast", serving)):
@@ -1661,11 +1732,11 @@ def logits_kernel_vs_plain(torch, cfg, params, serving, tol):
                     tree, tok, lengths, kp, vp, tables, cfg_dec)
             else:   # one slot's step (the cache is rewritten in place)
                 tok, caches = kern[2]
-                step = lambda: transformer.decode_step(        # noqa: E731
-                    tree, tok[:1], caches[0], cfg)
-            pre200 = lambda: transformer.prefill(              # noqa: E731
-                tree, {"tokens": p200}, cfg,
-                max_len=PAGE_TOKENS * PAGES_PER_ROW)
+                step = lambda: model.decode_fn(cfg)(           # noqa: E731
+                    tree, tok[:1], caches[0])
+            pre200 = lambda: model.prefill_fn(                 # noqa: E731
+                cfg, max_len=PAGE_TOKENS * PAGES_PER_ROW + cfg.num_patches)(
+                tree, {"tokens": p200, **frontend})
             timing[step_name][tree_name] = {
                 "eager_ms": cuda_ms(torch, step, 20),
                 "device_ms": graph_ms(torch, step, 5),
@@ -1673,6 +1744,12 @@ def logits_kernel_vs_plain(torch, cfg, params, serving, tol):
             timing["prefill_s200"][tree_name] = {
                 "eager_ms": cuda_ms(torch, pre200, 20),
                 "device_ms": graph_ms(torch, pre200, 5)}
+        if cfg.family in ("encdec", "vlm"):
+            # where the cast tree's device time goes, by kernel class
+            # (eager calls: the kernels a graph replay runs)
+            for name, fn in ((step_name, step), ("prefill_s200", pre200)):
+                timing[name]["cast"]["split"] = kernel_class_split(
+                    kernel_split_ms(torch, fn))
     log({"phase": "logits_kernel_vs_plain", "arch": cfg.name,
          "prompt_lens": lens, **res})
     log({"phase": "full_model_timing", "arch": cfg.name, "prompt_lens": lens,
@@ -1857,6 +1934,39 @@ def kernel_split_ms(torch, fn, calls: int = 5):
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
             and e.self_device_time_total > 0}
+
+
+# kernel classes of a full-model call's profile, the first whose
+# substring a kernel's name holds (lower case); the rest are "other"
+KERNEL_CLASSES = (("flash", ("flash",)),
+                  ("matmul", ("gemm", "gemv", "xmma", "cutlass", "cublas",
+                              "wgmma", "splitk", "nvjet")),
+                  ("norm", ("layer_norm", "layernorm", "rms")),
+                  ("softmax_reduce", ("softmax", "reduce")),
+                  ("copy_index", ("copy", "cat", "index", "gather",
+                                  "scatter", "fill")),
+                  ("elementwise", ("elementwise", "vectorized", "unrolled",
+                                   "gelu")))
+
+
+def kernel_class_split(split, top: int = 8):
+    """A :func:`kernel_split_ms` profile summed by ``KERNEL_CLASSES``:
+    each class's device ms a call and launches a call, the profile's
+    total, and its ``top`` kernels by device ms a call."""
+    classes = {}
+    for name, r in split.items():
+        low = name.lower()
+        cls = next((c for c, keys in KERNEL_CLASSES
+                    if any(k in low for k in keys)), "other")
+        row = classes.setdefault(cls, {"ms": 0.0, "launches": 0.0})
+        row["ms"] += r["ms"] * r["per_call"]
+        row["launches"] += r["per_call"]
+    heavy = sorted(split.items(), key=lambda kv: -kv[1]["ms"]
+                   * kv[1]["per_call"])[:top]
+    return {"total_ms": sum(c["ms"] for c in classes.values()),
+            "classes": classes,
+            "top": [{"kernel": n, "ms": r["ms"] * r["per_call"],
+                     "per_call": r["per_call"]} for n, r in heavy]}
 
 
 def flash_bwd_cases(torch, cases=FLASH_BWD_CASES, expand_kv=False,
@@ -3535,6 +3645,53 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # phase 5b: the enc-dec and VLM families at their published widths,
+    # fp32 params and bf16 compute, per-slot path; as for granite, the
+    # logit check runs first and its cast tree is freed before the
+    # executors of graph_vs_eager and the static server cast their own
+    wh = get_config("whisper-medium")
+    if (wh.encoder_layers, wh.num_layers, wh.encoder_positions, wh.d_model,
+            wh.num_heads, wh.num_kv_heads, wh.head_dim, wh.d_ff,
+            wh.vocab_size, wh.compute_dtype, wh.param_dtype) != (
+            24, 24, 1500, 1024, 16, 16, 64, 4096, 51865, torch.bfloat16,
+            torch.float32):
+        raise AssertionError(f"whisper-medium is not at full width: {wh}")
+    c_wh, params, serving = serve_engine(torch, wh, 12, 48,
+                                         "serve_engine_whisper")
+    logits_kernel_vs_plain(torch, wh, params, serving, None)
+    del serving
+    gc.collect()
+    torch.cuda.empty_cache()
+    graph_vs_eager(torch, wh, params)
+    prefill_graph_vs_eager(torch, wh, params)
+    add_counts(c_static, serve_static(torch, wh, params))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    ll = get_config("llava-next-mistral-7b")
+    if (ll.num_layers, ll.d_model, ll.num_heads, ll.num_kv_heads,
+            ll.head_dim, ll.d_ff, ll.vocab_size, ll.num_patches,
+            ll.compute_dtype, ll.param_dtype) != (
+            32, 4096, 32, 8, 128, 14336, 32000, 1152, torch.bfloat16,
+            torch.float32):
+        raise AssertionError(f"llava-next-mistral-7b is not at full width: "
+                             f"{ll}")
+    # max_len holds the patches, the longest prompt and its new tokens,
+    # so the ring keeps every patch
+    c_ll, params, serving = serve_engine(
+        torch, ll, 12, 48, "serve_engine_llava",
+        max_len=ll.num_patches + 300 + 48)
+    logits_kernel_vs_plain(torch, ll, params, serving, None)
+    del serving
+    gc.collect()
+    torch.cuda.empty_cache()
+    graph_vs_eager(torch, ll, params)
+    prefill_graph_vs_eager(torch, ll, params)
+    add_counts(c_static, serve_static(torch, ll, params))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # phase 6: training smollm-135m at full width
     flash_train = flash_train_fwd_cases(torch)
     flash_bwd = flash_bwd_cases(torch)
@@ -3616,7 +3773,7 @@ def main() -> int:
     # 300-token prefill, both reverses at their training shapes) with the
     # launches of every serving and training run
     runs = (c_cli, c_eng, c_static, c_arrival, c_ds, c_gr, c_rg, c_rw,
-            c_train, c_train_moe, c_train_hyb, c_train_ssm)
+            c_wh, c_ll, c_train, c_train_moe, c_train_hyb, c_train_ssm)
 
     def summary(rows, name, source, replaces, pick):
         r = [x for x in rows if pick(x)][0]
@@ -3674,7 +3831,7 @@ def main() -> int:
              granite_shape=[
                  case(flash, lambda x: granite(x, 1) and x["sq"] == 300,
                       ("b", "hq", "hkv", "d", "sq", "instance")),
-                 case(flash, lambda x: granite(x, 8),
+                 case(flash, lambda x: granite(x, 8) and x["sq"] == 200,
                       ("b", "hq", "hkv", "d", "sq", "instance"))],
              # the static engine's batch-8 prefills of smollm-135m and
              # recurrentgemma-2b
@@ -3682,7 +3839,32 @@ def main() -> int:
                  case(flash, lambda x, hq=hq: x["dtype"] == bf16
                       and x["b"] == 8 and x["hq"] == hq,
                       ("b", "hq", "hkv", "d", "sq", "window", "instance"))
-                 for hq in (9, 10)]),
+                 for hq in (9, 10)],
+             # whisper-medium: the encoder and the cross-attention of one
+             # decode query and of a 200-token prompt to the 1500 states,
+             # non-causal, at batch 1 (the per-slot executor) and 8 (the
+             # static server), and the static server's causal 8 x 200
+             whisper_shape=[
+                 case(flash, lambda x, b=b, sq=sq, skv=skv: x["dtype"] == bf16
+                      and x["hq"] == 16 and x["d"] == 64 and x["b"] == b
+                      and x["sq"] == sq and x["skv"] == skv,
+                      ("b", "hq", "hkv", "d", "sq", "skv", "causal",
+                       "instance", "kernel_call_ms"))
+                 for b in (1, 8) for sq, skv in ((1500, 1500), (1, 1500),
+                                                 (200, 1500))]
+             + [case(flash, lambda x: x["dtype"] == bf16 and x["hq"] == 16
+                     and x["d"] == 64 and x["b"] == 8 and x["causal"]
+                     and x["sq"] == 200,
+                     ("b", "hq", "hkv", "d", "sq", "skv", "causal",
+                      "instance", "kernel_call_ms"))],
+             # llava-next-mistral-7b's prefill, 1152 patches + 200, at
+             # batch 1 and 8
+             llava_shape=[
+                 case(flash, lambda x, b=b: x["dtype"] == bf16
+                      and x["sq"] == FLASH_LLAVA_SQ and x["b"] == b,
+                      ("b", "hq", "hkv", "d", "sq", "skv", "causal",
+                       "instance"))
+                 for b in (1, 8)]),
         # no Pallas kernel: the reference differentiates its XLA
         # attention; the line is the smollm training shape, with
         # recurrentgemma-2b's (d 256, group 10, window 2048) beside it

@@ -2,11 +2,8 @@
 
     get_config(arch_id)   -> full published ModelConfig
     get_smoke(arch_id)    -> reduced same-family config for CPU tests
-    ARCH_IDS              -> the architectures ported so far
-
-The reference registers ten architectures (``repro.configs``); the
-remaining two, whisper-medium and llava-next-mistral-7b, come over with
-the enc-dec and VLM slice (ROADMAP.md).
+    ARCH_IDS              -> the architectures ported: all ten of the
+                             reference's (``repro.configs``)
 """
 from __future__ import annotations
 
@@ -21,6 +18,8 @@ ARCH_IDS = (
     "mixtral-8x7b",
     "recurrentgemma-2b",
     "rwkv6-3b",
+    "llava-next-mistral-7b",
+    "whisper-medium",
 )
 
 _MOD = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}

@@ -44,7 +44,6 @@ from repro_torch.core.ledger import GoodputLedger
 from repro_torch.device import resolve_device
 from repro_torch.models import model
 from repro_torch.models.compute_params import serving_params
-from repro_torch.models.init import check_ported
 from repro_torch.serve import ContinuousServeEngine, ServeRequest, ServeSLO
 from repro_torch.serve.decode_graph import DecodeGraph
 from repro_torch.serve.prefill_graph import PrefillGraphs, copy_inputs
@@ -127,7 +126,9 @@ class Server:
     per (batch, prompt length) that takes static tokens and writes the
     cache and the argmax straight into the decode graph's static cache
     and token (``prefill_impl``, "auto" as ``decode_impl``); both capture
-    on one side stream into one memory pool.
+    on one side stream into one memory pool.  The stubbed front ends
+    (enc-dec frames, vlm patches) take zeros at the batch width, as the
+    reference's server builds them: one static buffer made here.
     """
 
     def __init__(self, cfg, batch: int, max_len: int,
@@ -137,7 +138,6 @@ class Server:
                  prefill_impl: str = "auto"):
         if batch <= 0:
             raise ValueError(f"batch must be positive, got {batch}")
-        check_ported(cfg)
         self.cfg = cfg
         self.batch = batch
         self.clock = clock
@@ -150,6 +150,9 @@ class Server:
             stream = torch.cuda.Stream(self.device)
             pool = torch.cuda.graph_pool_handle()
         with torch.inference_mode():
+            # the stub front end's zero frames / patches at the batch
+            # width, one static buffer every group prefill reads
+            self._frontend = model.frontend_inputs(cfg, batch, self.device)
             bufs = {"cache": model.init_cache(cfg, batch, max_len,
                                               self.device),
                     "tok": torch.zeros((batch,), dtype=torch.int64,
@@ -188,6 +191,7 @@ class Server:
     def _prefill_buffers(self, shape):
         return {"tokens": torch.zeros(shape, dtype=torch.int64,
                                       device=self.device),
+                **self._frontend,
                 "cache": self._graph.buffers["cache"],
                 "tok": self._graph.buffers["tok"]}
 

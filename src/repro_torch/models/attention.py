@@ -1,13 +1,13 @@
 """Attention of the port: GQA projections with RoPE, prefill
-self-attention through the flash-attention kernel, and one-token decode
-attention against a (ring-buffer) KV cache.
+self-attention and cross-attention through the flash-attention kernel,
+and one-token decode attention against a (ring-buffer) KV cache.
 
-The reference computes prefill attention with XLA (``repro.models.
-attention.attention``) and names the Pallas flash kernel as its TPU
-implementation; the port runs its own flash-attention kernel there
-(``repro_torch.kernels.flash_attention``), the same function.  Decode
-attention against a per-request cache is plain torch, as the reference
-computes it in XLA and no Pallas kernel covers it.
+The reference computes prefill attention and cross-attention with XLA
+(``repro.models.attention.attention``) and names the Pallas flash kernel
+as its TPU implementation; the port runs its own flash-attention kernel
+there (``repro_torch.kernels.flash_attention``), the same function.
+Decode self-attention against a per-request cache is plain torch, as the
+reference computes it in XLA and no Pallas kernel covers it.
 """
 from __future__ import annotations
 
@@ -52,6 +52,18 @@ def self_attention(x, p, cfg: ModelConfig, *, positions=None, causal=True,
     return merge_heads_out(o, p), (k, v)
 
 
+def cross_attention(x, p, cfg: ModelConfig, k, v, attn_impl: str = "auto"):
+    """Attention of x (b, s, d) to given keys and values k, v (b, t, hkv,
+    hd) (the encoder's states, projected): q from x, every query sees
+    every key (non-causal, no window), through the flash kernel; s and t
+    need not be equal.  Returns (b, s, d)."""
+    b, s, _ = x.shape
+    q = dense(x, p["wq"], p.get("bq")).reshape(b, s, cfg.num_heads,
+                                              cfg.head_dim)
+    o = flash_attention_bshd(q, k, v, causal=False, window=0, impl=attn_impl)
+    return merge_heads_out(o, p)
+
+
 NEG_INF = -1e30
 
 
@@ -82,18 +94,21 @@ def decode_attention(q, k_cache, v_cache, n_valid):
     return out.to(q.dtype).reshape(b, 1, hq, hd)
 
 
-def decode_self_attention(x, p, cfg: ModelConfig, cache, use_rope=True):
+def decode_self_attention(x, p, cfg: ModelConfig, cache, use_rope=True,
+                          ring=None):
     """x: (b, 1, d).  cache: dict with k/v (b, S, hkv, hd) and pos (a
     scalar shared across the batch, or a (b,) per-row vector).
 
-    Writes the new kv at slot pos % S of each row (a ring buffer for
-    windowed caches) and attends over min(pos + 1, S) valid slots.  Unlike
-    the reference, the cache tensors are written in place (no second copy
-    of the cache per step) and returned in the new cache dict.
+    Writes the new kv at slot pos % R of each row (a ring buffer for
+    windowed caches) and attends over min(pos + 1, R) valid slots, R the
+    ring's length: S, or the (b,) tensor ``ring`` of each row's ring in
+    the first R slots of the S (whisper's prompt + 64).  Unlike the
+    reference, the cache tensors are written in place (no second copy of
+    the cache per step) and returned in the new cache dict.
     """
     b = x.shape[0]
     k_cache, v_cache = cache["k"], cache["v"]
-    S = k_cache.shape[1]
+    S = k_cache.shape[1] if ring is None else ring
     pos = torch.as_tensor(cache["pos"], device=x.device)
     rows_pos = pos.expand(b) if pos.dim() == 0 else pos
     q, k, v = project_qkv(x, p, cfg, rows_pos[:, None].long(), use_rope)
@@ -101,5 +116,7 @@ def decode_self_attention(x, p, cfg: ModelConfig, cache, use_rope=True):
     slot = (rows_pos % S).long()
     k_cache[rows, slot] = k[:, 0].to(k_cache.dtype)
     v_cache[rows, slot] = v[:, 0].to(v_cache.dtype)
-    o = decode_attention(q, k_cache, v_cache, torch.clamp(pos + 1, max=S))
+    n_valid = (torch.clamp(pos + 1, max=S) if ring is None
+               else torch.minimum(pos + 1, ring))
+    o = decode_attention(q, k_cache, v_cache, n_valid)
     return merge_heads_out(o, p), {"k": k_cache, "v": v_cache, "pos": pos}

@@ -20,7 +20,8 @@ from repro_torch.models.init import init_params
 PyTree = Any
 
 # Leaves whose every consumer first casts them to the compute dtype:
-# the matrices of ``dense`` (attention wq/wk/wv/wo, MLP and shared-expert
+# the matrices of ``dense`` (attention wq/wk/wv/wo, whisper's
+# cross-attention ``xattn`` ones by the same names, MLP and shared-expert
 # wi/wg/wo, RG-LRU w_y/w_gate/lru_wa/lru_wx/w_out, RWKV time-mix
 # wr/wk/wv/wg/wo and channel-mix wk/wv/wr), the experts' wi/wg/wo
 # (``moe.expert_ffn``) and the embedding table (``layers.embed_tokens``).
@@ -38,8 +39,9 @@ def compute_params(params: PyTree, cfg: ModelConfig,
     Every other leaf is the very tensor of ``params``, because its
     consumer reads it in fp32 or casts only a slice of it:
 
-    * the norm weights and biases (``ln1``, ``ln2``, ``final_norm`` and
-      their ``_b``; RWKV's group norm ``gn``): ``layers.rmsnorm`` /
+    * the norm weights and biases (``ln1``, ``ln2``, whisper's ``ln_x``
+      and ``final_norm_enc``, ``final_norm`` and their ``_b``; RWKV's
+      group norm ``gn``): ``layers.rmsnorm`` /
       ``layernorm`` / ``rwkv._group_norm`` read ``w.float()``;
     * the MoE router: ``moe.router_topk`` multiplies ``x.float()`` by
       ``router_w.float()``;
@@ -50,6 +52,8 @@ def compute_params(params: PyTree, cfg: ModelConfig,
       bias after the product, a vector's worth);
     * RWKV's ``mix`` vectors (``.to(x.dtype)``, a (5, d) row block),
       ``decay_base``, ``decay_a``, ``decay_b`` and ``bonus`` (``.float()``);
+    * whisper's learned decoder positions ``pos_dec`` (32,768 rows):
+      a call casts only the rows it reads, as the reference does;
     * ``lm_head``, which ``lm_logits`` no longer reads once ``head`` is
       there.
 

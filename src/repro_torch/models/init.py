@@ -1,13 +1,15 @@
 """Parameter specification, initialisation and the weight bridge.
 
-The port's counterpart of ``repro.models.init`` for the dense, MoE,
-hybrid (RG-LRU) and ssm (RWKV-6) families: the same nested-dict tree, the
-same keys, shapes, dtypes and init rules, so a tree of the reference's
-params (as numpy arrays) drops straight in through
+The port's counterpart of ``repro.models.init`` for every family of the
+reference (dense, MoE, hybrid (RG-LRU), ssm (RWKV-6), enc-dec (whisper)
+and vlm (a dense decoder behind patch embeddings)): the same nested-dict
+tree, the same keys, shapes, dtypes and init rules, so a tree of the
+reference's params (as numpy arrays) drops straight in through
 :func:`params_from_numpy`.
 
 Parameter tree layout (nested dicts of tensors):
   embed.tok                 (vocab, d)
+  embed.pos_dec             (32768, d) learned decoder positions [enc-dec]
   dense_layers.<i>          the first ``first_k_dense`` layers, unrolled:
                             ln1, ln2, attn.*, mlp.* of width d_ff_dense
   blocks.*                  stacked decoder blocks (leading L dim):
@@ -21,6 +23,11 @@ Parameter tree layout (nested dicts of tensors):
                             tm.{mix (5, d), wr, wk, wv, wg, wo, decay_base,
                             decay_a, decay_b, bonus (h, n), gn},
                             cm.{mix (2, d), wk, wv, wr}
+  enc_blocks.* / dec_blocks.*  enc-dec: stacked encoder blocks (ln1, ln2
+                            and their _b, attn.*, mlp.*) and decoder blocks
+                            (the same plus ln_x, ln_x_b and the
+                            cross-attention xattn.*)
+  final_norm_enc[_b]        (d,) the encoder's final LayerNorm [enc-dec]
   final_norm                (d,)
   lm_head                   (d, vocab)                  [absent when tied]
 """
@@ -167,13 +174,34 @@ def _decoder_block_specs(cfg: ModelConfig, moe: bool) -> Dict[str, Any]:
     return p
 
 
+def _whisper_enc_block(cfg: ModelConfig) -> Dict[str, Any]:
+    d = cfg.d_model
+    return {
+        "ln1": ParamSpec((d,), init="ones"),
+        "ln1_b": ParamSpec((d,), init="zeros"),
+        "ln2": ParamSpec((d,), init="ones"),
+        "ln2_b": ParamSpec((d,), init="zeros"),
+        "attn": _attn_specs(cfg),
+        "mlp": _mlp_specs(cfg),
+    }
+
+
+def _whisper_dec_block(cfg: ModelConfig) -> Dict[str, Any]:
+    """An encoder block plus the cross-attention and its LayerNorm."""
+    d = cfg.d_model
+    return {**_whisper_enc_block(cfg),
+            "ln_x": ParamSpec((d,), init="ones"),
+            "ln_x_b": ParamSpec((d,), init="zeros"),
+            "xattn": _attn_specs(cfg)}
+
+
 def _map_specs(fn, tree):
     if isinstance(tree, ParamSpec):
         return fn(tree)
     return {k: _map_specs(fn, v) for k, v in tree.items()}
 
 
-PORTED_FAMILIES = ("dense", "moe", "hybrid", "ssm")
+PORTED_FAMILIES = ("dense", "moe", "hybrid", "ssm", "encdec", "vlm")
 
 
 def _stack(tree, n: int):
@@ -183,12 +211,12 @@ def _stack(tree, n: int):
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise for a config outside the ported families."""
+    """Raise ``ValueError`` for a family the reference does not know
+    (every family of the reference is ported)."""
     if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (the port "
-            f"covers the dense, MoE, hybrid and ssm decoders; ROADMAP.md "
-            f"Queue 1: enc-dec and VLM)")
+        raise ValueError(
+            f"{cfg.name}: unknown model family {cfg.family!r}; the "
+            f"families are {', '.join(PORTED_FAMILIES)}")
 
 
 def spec_tree(cfg: ModelConfig) -> Dict[str, Any]:
@@ -202,6 +230,14 @@ def spec_tree(cfg: ModelConfig) -> Dict[str, Any]:
         tree["final_norm_b"] = ParamSpec((d,), init="zeros")
     if not cfg.tie_embeddings:
         tree["lm_head"] = ParamSpec((d, cfg.vocab_size))
+    if cfg.family == "encdec":
+        tree["embed"]["pos_dec"] = ParamSpec((32_768, d), init="normal")
+        tree["final_norm_enc"] = ParamSpec((d,), init="ones")
+        tree["final_norm_enc_b"] = ParamSpec((d,), init="zeros")
+        tree["enc_blocks"] = _stack(_whisper_enc_block(cfg),
+                                    cfg.encoder_layers)
+        tree["dec_blocks"] = _stack(_whisper_dec_block(cfg), cfg.num_layers)
+        return _apply_param_dtype(tree, cfg)
     if cfg.family == "hybrid":
         # heterogeneous 1:2 attention:recurrent pattern -> unrolled layers
         tree["layers"] = {str(i): _hybrid_block_specs(cfg, i)

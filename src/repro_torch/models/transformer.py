@@ -1,8 +1,9 @@
 """Decoder-only LM of the port, dense, MoE, hybrid (RG-LRU + local
-attention) and ssm (RWKV-6) families: prefill, the per-request decode
-step, and batched paged decode (the counterparts of
-``repro.models.transformer``), and the training loss of the dense, MoE,
-hybrid and ssm families (``loss_fn``).
+attention), ssm (RWKV-6) and vlm (a dense decoder behind patch
+embeddings) families: prefill, the per-request decode step, and batched
+paged decode (the counterparts of ``repro.models.transformer``), and the
+training loss of the dense, MoE, hybrid and ssm families (``loss_fn``).
+The enc-dec family is ``repro_torch.models.whisper``.
 
 Layer stacks are a Python loop: for dense and MoE the unrolled
 ``dense_layers`` first (``first_k_dense`` of them), then the stacked L dim
@@ -210,9 +211,15 @@ def _embed(tokens, params, cfg: ModelConfig):
 
 
 def embed_inputs(params, batch, cfg: ModelConfig):
-    """Token embedding of a prompt batch. Returns (b, s, d)."""
+    """Token (+ patch) embedding of a prompt batch.  Returns (x (b, s,
+    d), patch_len): the vlm family prepends ``batch["patches"]`` (b, p,
+    d), cast to the compute dtype, and gives p; the others give 0."""
     check_ported(cfg)
-    return _embed(batch["tokens"], params, cfg)
+    x = _embed(batch["tokens"], params, cfg)
+    if cfg.family == "vlm":
+        patches = batch["patches"].to(cfg.compute_dtype)
+        return torch.cat([patches, x], dim=1), patches.shape[1]
+    return x, 0
 
 
 def ring_place(kv, seq_end: int, s_slots: int, seq_axis: int):
@@ -238,8 +245,11 @@ def prefill(params, batch, cfg: ModelConfig, max_len: int = 0,
             attn_impl: str = "auto", gmm_impl: str = "auto",
             scan_impl: str = "auto"):
     """Forward over a prompt; returns (last-token logits (b, V) fp32,
-    decode cache).  ``max_len`` sizes the cache (default prompt + 64)."""
-    x = embed_inputs(params, batch, cfg)
+    decode cache).  ``max_len`` sizes the cache (default prompt + 64);
+    for vlm the prompt is the patches and the tokens, and a ``max_len``
+    below their count keeps the newest positions, as the reference's
+    ring does."""
+    x, _ = embed_inputs(params, batch, cfg)
     b, seq = x.shape[:2]
     max_len = max_len or seq + 64
     x, _, caches = run_stack(x, params, cfg, collect_caches=True,
@@ -255,11 +265,10 @@ def prefill(params, batch, cfg: ModelConfig, max_len: int = 0,
 # ---------------------------------------------------------------------------
 
 # the families the port cannot train yet, and where they wait
-# (ROADMAP.md, Queue 1: "Training of the other families" and the items
-# after it)
+# (ROADMAP.md, Queue 1)
 _TRAIN_TODO = {
-    "encdec": "enc-dec and VLM",
-    "vlm": "enc-dec and VLM",
+    "encdec": "training of enc-dec and VLM",
+    "vlm": "training of enc-dec and VLM",
 }
 
 
@@ -286,8 +295,9 @@ def loss_fn(params, batch, cfg: ModelConfig, attn_impl: str = "auto",
     ``gmm_impl`` and ``scan_impl`` pick the attention's, the experts' and
     the recurrences' (the RG-LRU scan, the RWKV-6 WKV) implementations,
     forward and backward.  ``model.loss_fn`` refuses the other families
-    (``check_trainable``)."""
-    x = embed_inputs(params, batch, cfg)
+    (``check_trainable``), as this function does."""
+    check_trainable(cfg)
+    x, _ = embed_inputs(params, batch, cfg)
     x, aux, _ = run_stack(x, params, cfg, attn_impl=attn_impl,
                           gmm_impl=gmm_impl, scan_impl=scan_impl)
     x = norm(x, params, "final_norm", cfg)

@@ -1,0 +1,211 @@
+"""Whisper-medium backbone of the port (the counterpart of
+``repro.models.whisper``): an encoder-decoder transformer.
+
+The conv1d audio frontend is a stub, as in the reference: the callers
+give precomputed frame embeddings (b, 1500, d), zeros on the serving
+paths.  LayerNorm + GELU MLP, pre-norm blocks, a fixed sinusoid on the
+encoder, learned decoder positions (32,768 of them), tied output
+projection.
+
+Encoder self-attention, the decoder's prefill self-attention and every
+cross-attention (prefill and decode: one query against the encoder's
+1500 keys) run on the flash-attention kernel, where the reference calls
+its ``attention``; decoder self-attention at decode is the plain
+``decode_attention`` against the ring cache, as for every family.  The
+decode step projects the encoder's keys and values again in every layer,
+as the reference's does.
+
+The decode cache: ``pos`` (b,) int32, ``ring`` (b,) int32, ``blocks.k``
+/ ``blocks.v`` (L, b, S, hkv, hd) and ``enc_out`` (b, T, d).  The
+reference's prefill sizes its ring to prompt + ``RING_EXTRA`` slots,
+whatever length the server asked for, and keeps a scalar ``pos``; the
+port keeps that ring length per row in ``ring`` and the ring in the
+first ``ring`` slots of an S-slot buffer (S >= ring), so that every
+cache a server holds has one shape: the same function.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.models.attention import (cross_attention,
+                                          decode_self_attention,
+                                          self_attention)
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (dense, embed_tokens, layernorm,
+                                       lm_logits, mlp)
+from repro_torch.models.transformer import _tree_slice, ring_place
+from repro_torch.tree import copy_tree_
+
+# the reference's prefill ring: prompt + this many slots
+RING_EXTRA = 64
+
+
+def _ln(x, bp, name, cfg: ModelConfig):
+    return layernorm(x, bp[name], bp[f"{name}_b"], cfg.norm_eps)
+
+
+def _sinusoid(positions: int, d: int, device=None):
+    """(positions, d) fp32 [sin | cos] table, the reference's: frequencies
+    exp(-log(10000) i / (d/2 - 1))."""
+    half = d // 2
+    ar = torch.arange(half, dtype=torch.float32, device=device)
+    # a fill on the device, not a host copy (a prefill graph captures it)
+    log_base = torch.full((), math.log(10_000.0), dtype=torch.float32,
+                          device=device)
+    freq = torch.exp(-log_base * ar / (half - 1))
+    t = torch.arange(positions, dtype=torch.float32,
+                     device=device)[:, None] * freq[None, :]
+    return torch.cat([torch.sin(t), torch.cos(t)], dim=1)
+
+
+def encode(params, frames, cfg: ModelConfig, attn_impl: str = "auto"):
+    """frames: (b, T, d) precomputed conv-frontend output (stub) ->
+    encoder states (b, T, d) in the compute dtype."""
+    dt = cfg.compute_dtype
+    x = frames.to(dt)
+    x = x + _sinusoid(x.shape[1], cfg.d_model, x.device).to(dt)
+    for i in range(cfg.encoder_layers):
+        bp = _tree_slice(params["enc_blocks"], i)
+        a, _ = self_attention(_ln(x, bp, "ln1", cfg), bp["attn"], cfg,
+                              causal=False, use_rope=False,
+                              attn_impl=attn_impl)
+        x = x + a
+        x = x + mlp(_ln(x, bp, "ln2", cfg), bp["mlp"], cfg)
+    return layernorm(x, params["final_norm_enc"], params["final_norm_enc_b"],
+                     cfg.norm_eps)
+
+
+def _enc_kv(bp, enc_out, cfg: ModelConfig):
+    """One decoder layer's cross-attention keys and values of the encoder
+    states: (b, T, hkv, hd) each."""
+    b, t, _ = enc_out.shape
+    shape = (b, t, cfg.num_kv_heads, cfg.head_dim)
+    k = dense(enc_out, bp["xattn"]["wk"], bp["xattn"].get("bk"))
+    v = dense(enc_out, bp["xattn"]["wv"], bp["xattn"].get("bv"))
+    return k.reshape(shape), v.reshape(shape)
+
+
+def _dec_block(x, bp, cfg: ModelConfig, enc_kv, attn_impl: str = "auto"):
+    """One decoder block over a prompt: causal self-attention,
+    cross-attention to the encoder, MLP.  Returns (x, (k, v))."""
+    a, kv = self_attention(_ln(x, bp, "ln1", cfg), bp["attn"], cfg,
+                           causal=True, use_rope=False, attn_impl=attn_impl)
+    x = x + a
+    x = x + cross_attention(_ln(x, bp, "ln_x", cfg), bp["xattn"], cfg,
+                            *enc_kv, attn_impl=attn_impl)
+    return x + mlp(_ln(x, bp, "ln2", cfg), bp["mlp"], cfg), kv
+
+
+def decode_train(params, tokens, enc_out, cfg: ModelConfig,
+                 attn_impl: str = "auto"):
+    """The decoder over whole token sequences (b, s) from position 0.
+    Returns (hidden after the final LayerNorm, (k, v) stacked to (L, b,
+    s, hkv, hd))."""
+    s = tokens.shape[1]
+    dt = cfg.compute_dtype
+    x = embed_tokens(tokens, params["embed"]["tok"], dt)
+    x = x + params["embed"]["pos_dec"][:s].to(dt)
+    ks, vs = [], []
+    for i in range(cfg.num_layers):
+        bp = _tree_slice(params["dec_blocks"], i)
+        x, (k, v) = _dec_block(x, bp, cfg, _enc_kv(bp, enc_out, cfg),
+                               attn_impl)
+        ks.append(k)
+        vs.append(v)
+    x = layernorm(x, params["final_norm"], params["final_norm_b"],
+                  cfg.norm_eps)
+    return x, (torch.stack(ks), torch.stack(vs))
+
+
+def prefill(params, batch, cfg: ModelConfig, max_len: int = 0,
+            attn_impl: str = "auto"):
+    """Encode the frames, run the prompt through the decoder and build the
+    decode cache.  batch: tokens (b, s), frames (b, T, d).  Returns
+    (last-token logits (b, V) fp32, cache).
+
+    The ring is the reference's, s + ``RING_EXTRA`` slots; ``max_len``
+    sizes the buffer that holds it (default the ring itself) and must be
+    at least the ring."""
+    enc_out = encode(params, batch["frames"], cfg, attn_impl)
+    tokens = batch["tokens"]
+    b, seq = tokens.shape
+    ring = seq + RING_EXTRA
+    slots = max_len or ring
+    if slots < ring:
+        raise ValueError(f"{cfg.name}: a {slots}-slot cache cannot hold the "
+                         f"{ring}-slot ring of a {seq}-token prompt")
+    x, (k_st, v_st) = decode_train(params, tokens, enc_out, cfg,
+                                   attn_impl)
+    logits = lm_logits(x[:, -1:], params, cfg)[:, 0]
+    dt, dev = cfg.compute_dtype, tokens.device
+    cache = {
+        "pos": torch.full((b,), seq, dtype=torch.int32, device=dev),
+        "ring": torch.full((b,), ring, dtype=torch.int32, device=dev),
+        "blocks": {"k": ring_place(k_st.to(dt), seq, slots, 2),
+                   "v": ring_place(v_st.to(dt), seq, slots, 2)},
+        "enc_out": enc_out,
+    }
+    return logits, cache
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device=None):
+    """Zero decode cache of ``seq_len`` slots, the ring all of them (the
+    reference's ``init_cache``, with the port's ``ring``)."""
+    dt = cfg.compute_dtype
+    kv = (cfg.num_layers, batch, seq_len, cfg.num_kv_heads, cfg.head_dim)
+    return {
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+        "ring": torch.full((batch,), seq_len, dtype=torch.int32,
+                           device=device),
+        "blocks": {"k": torch.zeros(kv, dtype=dt, device=device),
+                   "v": torch.zeros(kv, dtype=dt, device=device)},
+        "enc_out": torch.zeros((batch, cfg.encoder_positions, cfg.d_model),
+                               dtype=dt, device=device),
+    }
+
+
+def decode_step(params, token, cache, cfg: ModelConfig,
+                attn_impl: str = "auto"):
+    """One decoder token per row, token (b,), against the self-attention
+    ring and the encoder states of ``cache``.  Each row writes its KV at
+    slot pos % ring and attends over min(pos + 1, ring) slots; its
+    position embedding is ``pos_dec[pos]``, the index clamped to the
+    table as the reference's dynamic slice clamps it.  Returns (logits
+    (b, V) fp32, cache with pos + 1); the rings are written in place."""
+    dt = cfg.compute_dtype
+    pos, ring = cache["pos"], cache["ring"]
+    pos_dec = params["embed"]["pos_dec"]
+    x = embed_tokens(token[:, None], params["embed"]["tok"], dt)
+    row_pos = torch.clamp(pos.long(), 0, pos_dec.shape[0] - 1)
+    x = x + pos_dec[row_pos][:, None].to(dt)
+    enc_out = cache["enc_out"]
+    ks, vs = cache["blocks"]["k"], cache["blocks"]["v"]
+    for i in range(cfg.num_layers):
+        bp = _tree_slice(params["dec_blocks"], i)
+        a, _ = decode_self_attention(
+            _ln(x, bp, "ln1", cfg), bp["attn"], cfg,
+            {"k": ks[i], "v": vs[i], "pos": pos}, use_rope=False, ring=ring)
+        x = x + a
+        x = x + cross_attention(_ln(x, bp, "ln_x", cfg), bp["xattn"], cfg,
+                                *_enc_kv(bp, enc_out, cfg),
+                                attn_impl=attn_impl)
+        x = x + mlp(_ln(x, bp, "ln2", cfg), bp["mlp"], cfg)
+    x = layernorm(x, params["final_norm"], params["final_norm_b"],
+                  cfg.norm_eps)
+    new_cache: Dict[str, Any] = {"pos": pos + 1, "ring": ring,
+                                 "blocks": {"k": ks, "v": vs},
+                                 "enc_out": enc_out}
+    return lm_logits(x[:, -1], params, cfg), new_cache
+
+
+def decode_step_inplace(params, token, cache, cfg: ModelConfig,
+                        attn_impl: str = "auto"):
+    """:func:`decode_step` that leaves every leaf of ``cache`` at its
+    address (the new ``pos`` copied back into the given tensor); returns
+    the logits (b, V) fp32, bit for bit ``decode_step``'s."""
+    logits, new_cache = decode_step(params, token, cache, cfg, attn_impl)
+    copy_tree_(cache, new_cache, "cache")
+    return logits

@@ -4,9 +4,13 @@
 Each live request owns a batch-1 decode cache of its own, so no row of
 one request's cache couples to another's.  This is the executor of the
 families whose decode state has no place in a block table — the hybrid
-(RG-LRU + local attention) and ssm (RWKV-6) families, and attention
-windows narrower than ``max_len`` — as the reference's
-``run_continuous_server`` decides (``model.supports_paged_decode``).
+(RG-LRU + local attention) and ssm (RWKV-6) families, enc-dec (the
+encoder's states) and vlm, and attention windows narrower than
+``max_len`` — as the reference's ``run_continuous_server`` decides
+(``model.supports_paged_decode``).  The stubbed front ends take zero
+inputs, as the reference's executor builds them: one static batch-1
+buffer of ``frames`` (enc-dec) or ``patches`` (vlm) in the compute
+dtype, made here, outside every capture, that every prefill reads.
 
 The reference compiles the per-slot step once (``jax.jit`` of
 ``decode_fn``).  The port keeps a pool of *entries*, each a static
@@ -68,6 +72,10 @@ from repro_torch.step_graph import graph_stats
 from repro_torch.tree import copy_tree_
 
 
+# the prefill's inputs a buffer set may hold
+FEEDS = ("tokens", "frames", "patches")
+
+
 def slot_kv_cache(max_len: int, n_slots: int) -> PagedKVCache:
     """The engine's allocator beside a per-slot executor, sized as the
     reference's CLI sizes it: blocks of min(128, max_len) tokens, enough
@@ -92,10 +100,11 @@ def greedy_step(decode, params, b) -> None:
 def cache_prefill_step(prefill, params, b) -> None:
     """The captured prefill into a static cache (the per-slot executor's
     landing cache, or the static server's decode cache at its full
-    batch): the tokens ``b["tokens"]`` in, the prefill cache copied into
-    ``b["cache"]`` and the argmax into ``b["tok"]``.  A free function, as
-    :func:`greedy_step` is."""
-    logits, cache = prefill(params, {"tokens": b["tokens"]})
+    batch): the tokens ``b["tokens"]`` (and the stub front end's
+    ``b["frames"]`` or ``b["patches"]``, where the buffers hold one) in,
+    the prefill cache copied into ``b["cache"]`` and the argmax into
+    ``b["tok"]``.  A free function, as :func:`greedy_step` is."""
+    logits, cache = prefill(params, {k: b[k] for k in FEEDS if k in b})
     copy_tree_(b["cache"], cache, "cache")
     b["tok"].copy_(torch.argmax(logits, -1))
 
@@ -141,7 +150,8 @@ class TorchSlotExecutor:
         self._prefill = model.prefill_fn(cfg, max_len=max_len,
                                          attn_impl=attn_impl,
                                          gmm_impl=gmm_impl)
-        self._decode = model.decode_inplace_fn(cfg, gmm_impl=gmm_impl)
+        self._decode = model.decode_inplace_fn(cfg, gmm_impl=gmm_impl,
+                                               attn_impl=attn_impl)
         # the entries: every one made, the free ones, and each live
         # request's entry with its static cache and token
         self._pool: List[DecodeGraph] = []
@@ -157,6 +167,7 @@ class TorchSlotExecutor:
         # the prefill graphs' landing cache and token, shared by every
         # prompt length
         with torch.inference_mode():
+            self._frontend = model.frontend_inputs(cfg, 1, self.device)
             self._landing = {
                 "cache": model.init_cache(cfg, 1, max_len, self.device),
                 "tok": torch.zeros((1,), dtype=torch.int64,
@@ -194,7 +205,8 @@ class TorchSlotExecutor:
 
     def _prefill_buffers(self, shape) -> Dict[str, object]:
         return {"tokens": torch.zeros(shape, dtype=torch.int64,
-                                      device=self.device), **self._landing}
+                                      device=self.device),
+                **self._frontend, **self._landing}
 
     # ---- entries ------------------------------------------------------------
     def _new_entry(self) -> DecodeGraph:

@@ -1,14 +1,17 @@
 """The serving tree of ``compute_params`` against the raw tree, bf16
 compute at SMOKE widths on the CPU, for smollm-135m, deepseek-moe-16b,
-recurrentgemma-2b and rwkv6-3b:
+recurrentgemma-2b, rwkv6-3b, llava-next-mistral-7b and whisper-medium:
 
-* ``prefill``, one ``decode_step`` on its cache and (dense and MoE) one
+* ``prefill`` (with random patches / frames for vlm / enc-dec), one
+  ``decode_step`` on its cache and (dense and MoE) one
   ``paged_decode_step`` over the scattered pages give logits and caches
   that are ``torch.equal`` to the raw tree's: the casts the model would
   make per call are made once, to the same values;
 * the cast leaves are in the compute dtype and every other leaf (the
-  router, the norms, ``lru_a``, conv weights, RWKV's mixing vectors) is
-  the very tensor of the raw tree; the head is the compute-dtype operand
+  router, the norms, ``lru_a``, conv weights, RWKV's mixing vectors,
+  whisper's ``pos_dec``, of which a step casts only its rows, and its
+  biases) is the very tensor of the raw tree; whisper's cross-attention
+  matrices ``xattn.*`` are cast; the head is the compute-dtype operand
   ``lm_logits`` builds, in its layout (tied: a view of the cast table);
 * with fp32 compute nothing is copied;
 * both executors run on the cast tree, and the engine's tokens and
@@ -23,14 +26,15 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_smoke  # noqa: E402
 from repro_torch.launch.serve import TickClock  # noqa: E402
-from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models import model, transformer  # noqa: E402
 from repro_torch.models.compute_params import CAST, compute_params  # noqa: E402,E501
 from repro_torch.models.init import init_params  # noqa: E402
 from repro_torch.serve.batched_executor import make_executor  # noqa: E402
 from repro_torch.serve.engine import (ContinuousServeEngine,  # noqa: E402
                                       ServeRequest, ServeSLO)
 
-ARCHS = ["smollm-135m", "deepseek-moe-16b", "recurrentgemma-2b", "rwkv6-3b"]
+ARCHS = ["smollm-135m", "deepseek-moe-16b", "recurrentgemma-2b", "rwkv6-3b",
+         "llava-next-mistral-7b", "whisper-medium"]
 PAGED = ["smollm-135m", "deepseek-moe-16b"]
 MAX_LEN = 32
 
@@ -72,15 +76,18 @@ def test_cast_tree_prefill_and_decode_are_bit_identical(arch):
     cfg = _cfg(arch)
     raw = _params(cfg)
     cast = compute_params(raw, cfg)
-    batch = {"tokens": _prompt(cfg, 1)}
+    gen = torch.Generator().manual_seed(1)
+    batch = {"tokens": _prompt(cfg, 1),
+             **{k: torch.randn(v.shape, generator=gen).to(v.dtype)
+                for k, v in model.frontend_inputs(cfg, 2).items()}}
+    prefill = model.prefill_fn(cfg, max_len=MAX_LEN)
     with torch.inference_mode():
-        outs = [transformer.prefill(p, batch, cfg, max_len=MAX_LEN)
-                for p in (raw, cast)]
+        outs = [prefill(p, batch) for p in (raw, cast)]
         assert outs[0][0].dtype == torch.float32
         assert torch.equal(outs[0][0], outs[1][0])
         _assert_equal_trees(outs[0][1], outs[1][1])
         tok = outs[0][0].argmax(-1)
-        steps = [transformer.decode_step(p, tok, cache, cfg)
+        steps = [model.decode_fn(cfg)(p, tok, cache)
                  for p, (_, cache) in zip((raw, cast), outs)]
     assert torch.equal(steps[0][0], steps[1][0])
     _assert_equal_trees(steps[0][1], steps[1][1])
@@ -140,6 +147,12 @@ def test_cast_leaves_and_shared_leaves(arch):
     if cfg.family == "ssm":
         kept |= {"blocks.tm.mix", "blocks.cm.mix", "blocks.tm.decay_a",
                  "blocks.ln1"}
+    if cfg.family == "encdec":
+        kept |= {"embed.pos_dec", "final_norm_enc", "final_norm_enc_b",
+                 "dec_blocks.ln_x", "dec_blocks.ln_x_b",
+                 "dec_blocks.xattn.bk", "enc_blocks.attn.bq"}
+        for w in ("wq", "wk", "wv", "wo"):
+            assert lc[f"dec_blocks.xattn.{w}"].dtype == cfg.compute_dtype
     for name in kept:
         assert lr[name].dtype == torch.float32 and lc[name] is lr[name], name
     w = (raw["embed"]["tok"].T if cfg.tie_embeddings else raw["lm_head"])

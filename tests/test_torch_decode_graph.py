@@ -7,12 +7,13 @@ caches — with a direct call of the step in place of a replay
 bookkeeping to what the graph needs, at SMOKE size:
 
 * the in-place decode step gives ``decode_step``'s logits and cache bit
-  for bit, with every cache leaf at its old address, for all four
-  families;
+  for bit, with every cache leaf at its old address, for all six
+  families (enc-dec through ``whisper``, with random frames);
 * the batched executor's buffers and page pools, and every leaf of every
   per-slot entry, keep their addresses across admission and detach;
 * a request admitted into an entry that a longer request left gives the
-  tokens it gets in a fresh executor;
+  tokens it gets in a fresh executor (for whisper the entry's ring
+  length changes too);
 * ``decode_impl`` accepts "auto", "graph" and "eager", and "graph" raises
   without CUDA.
 
@@ -29,7 +30,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_smoke  # noqa: E402
-from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models import model  # noqa: E402
 from repro_torch.models.init import init_params  # noqa: E402
 from repro_torch.serve.batched_executor import (  # noqa: E402
     TorchBatchedExecutor, make_executor)
@@ -41,7 +42,7 @@ from repro_torch.serve.slot_executor import (  # noqa: E402
     TorchSlotExecutor, slot_kv_cache)
 
 FAMILIES = ["smollm-135m", "deepseek-moe-16b", "recurrentgemma-2b",
-            "rwkv6-3b"]
+            "rwkv6-3b", "llava-next-mistral-7b", "whisper-medium"]
 
 
 def _leaves(tree, path=""):
@@ -75,24 +76,26 @@ def test_decode_step_inplace_matches_decode_step(arch):
     cfg = get_smoke(arch)
     params = init_params(cfg, torch.Generator().manual_seed(1), "cpu")
     rng = np.random.default_rng(3)
-    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 9)))
+    gen = torch.Generator().manual_seed(4)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                     (1, 9))),
+             **{k: torch.randn(v.shape, generator=gen)
+                for k, v in model.frontend_inputs(cfg, 1).items()}}
     with torch.inference_mode():
-        logits, cache = transformer.prefill(params, {"tokens": tokens}, cfg,
-                                            max_len=24)
+        logits, cache = model.prefill_fn(cfg, max_len=24)(params, batch)
         ref_cache = copy.deepcopy(cache)
         before = _ptrs(cache)
         tok = torch.argmax(logits, -1)
         for _ in range(3):
-            want, ref_cache = transformer.decode_step(params, tok, ref_cache,
-                                                      cfg)
-            got = transformer.decode_step_inplace(params, tok, cache, cfg)
+            want, ref_cache = model.decode_fn(cfg)(params, tok, ref_cache)
+            got = model.decode_inplace_fn(cfg)(params, tok, cache)
             assert torch.equal(got, want)
             tok = torch.argmax(want, -1)
     assert _ptrs(cache) == before
     ref = dict(_leaves(ref_cache))
     for path, leaf in _leaves(cache):
         assert torch.equal(leaf, ref[path]), path
-    assert int(cache["pos"][0]) == 9 + 3
+    assert int(cache["pos"][0]) == 9 + 3 + cfg.num_patches
 
 
 def _run_engine(ex, kv, reqs, n_slots, on_decode=None):
@@ -134,7 +137,8 @@ def test_batched_buffers_keep_their_addresses():
     assert ex.decode_shape_count() == 1
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-3b"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-3b",
+                                  "llava-next-mistral-7b", "whisper-medium"])
 def test_slot_entries_keep_their_addresses(arch):
     """Every entry's leaves stay where they were made; a live request's
     cache is its entry's; the pool holds the ``n_slots`` entries
@@ -167,7 +171,8 @@ def test_slot_entries_keep_their_addresses(arch):
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-3b",
-                                  "mixtral-8x7b"])
+                                  "mixtral-8x7b", "llava-next-mistral-7b",
+                                  "whisper-medium"])
 def test_reused_entry_gives_a_fresh_executors_tokens(arch):
     """One slot: a 12-token prompt decodes 9 steps, then a 5-token prompt
     takes the entry it left (its pos, states and ring all further on);

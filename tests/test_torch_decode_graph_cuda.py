@@ -1,6 +1,6 @@
 """Card-only: the executors' decode step as a captured CUDA graph.
 
-For the four families at SMOKE size (fp32), on the same weights and the
+For all six families at SMOKE size (fp32), on the same weights and the
 same request stream (rows admitting and detaching mid-flight), the
 executors with ``decode_impl="graph"`` give the per-request tokens of
 the same executors with ``decode_impl="eager"``; the batched executor
@@ -71,7 +71,8 @@ def _serve(cfg, params, decode_impl):
 
 
 @pytest.mark.parametrize("arch", ["smollm-135m", "deepseek-moe-16b",
-                                  "recurrentgemma-2b", "rwkv6-3b"])
+                                  "recurrentgemma-2b", "rwkv6-3b",
+                                  "llava-next-mistral-7b", "whisper-medium"])
 def test_graph_and_eager_executors_give_identical_tokens(card, arch):
     cfg = get_smoke(arch)
     params = init_params(cfg, torch.Generator(card).manual_seed(0), card)
@@ -93,17 +94,20 @@ def test_graph_and_eager_executors_give_identical_tokens(card, arch):
         assert g["calls"] == (WARMUP + 1) * ex_g.decode_graph_count()
 
 
-def test_static_server_graph_and_eager_give_identical_tokens(card):
+@pytest.mark.parametrize("arch", ["smollm-135m", "llava-next-mistral-7b",
+                                  "whisper-medium"])
+def test_static_server_graph_and_eager_give_identical_tokens(card, arch):
     """The static server's decode (one graph at the full batch, captured
     once, replayed for every group after its prefill cache is copied in)
-    gives the tokens of the same server eager, on smollm-135m SMOKE in
-    bf16 at batch 4, six requests (a padded tail group)."""
+    gives the tokens of the same server eager, on SMOKE in bf16 at batch
+    4, six requests (a padded tail group): smollm-135m, llava (patches
+    before the prompt, the ring dropping them) and whisper (flash
+    cross-attention in every decode step)."""
     import dataclasses
 
     from repro_torch.launch.serve import Request, run_static_server
 
-    cfg = dataclasses.replace(get_smoke("smollm-135m"),
-                              compute_dtype=torch.bfloat16)
+    cfg = dataclasses.replace(get_smoke(arch), compute_dtype=torch.bfloat16)
     params = init_params(cfg, torch.Generator(card).manual_seed(0), card)
     rng = np.random.default_rng(2)
     shapes = [(rng.integers(0, cfg.vocab_size, 24).astype(np.int32),

@@ -56,7 +56,10 @@ def test_port_has_modules_and_smoke_script():
             "repro_torch/fleet/scenarios.py",
             "repro_torch/fleet/workload.py",
             "repro_torch/configs/granite_3_8b.py",
-            "repro_torch/configs/qwen2_72b.py"} <= names
+            "repro_torch/configs/qwen2_72b.py",
+            "repro_torch/models/whisper.py",
+            "repro_torch/configs/whisper_medium.py",
+            "repro_torch/configs/llava_next_mistral_7b.py"} <= names
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     assert (csrc / "flash_attention_bwd.cu").exists()
     assert PORT_FILES[-1].exists()

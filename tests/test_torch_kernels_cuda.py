@@ -1,6 +1,8 @@
 """Card-only: each CUDA kernel against its plain version on the card
 (attention also at deepseek-moe-16b's head shape, d 128 with one query
 head per kv head, and recurrentgemma-2b's, d 256 with a group of 10;
+non-causal with fewer or more queries than keys at whisper-medium's
+heads, the encoder's 1500 states and its cross-attention;
 paged attention also at 16 pages a row, where a row's pages are split
 over blocks and merged in the launch, with windows across splits and a
 group of 8; the grouped matmul at ragged and deepseek shapes, also with
@@ -126,6 +128,59 @@ def test_flash_tc_kernel_matches_plain(card, d, hq, hkv, sq, window, causal):
     again = flash_attention_bshd(q, k, v, impl="kernel", **kw)
     assert fmod.LAUNCHES_TC == tc0 + 2
     _close(out, flash_attention_bshd(q, k, v, impl="ref", **kw), dtype)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,sq,skv", [
+    (1, 1, 1500), (1, 200, 1500), (1, 1500, 1500),    # whisper-medium
+    (1, 1, 1499), (1, 200, 1499), (1, 64, 1),          # ragged key counts
+    (8, 1500, 1500), (8, 1, 1500), (8, 200, 1500)])    # the static server
+def test_flash_noncausal_cross_matches_plain(card, dtype, b, sq, skv):
+    """Non-causal attention with sq != skv, at whisper-medium's heads (16
+    of 64, MHA): one decode query or a 200-token prompt against the
+    encoder's 1500 states (cross-attention), the encoder's own 1500, and
+    key counts that end inside a 128-key tile, at batch 1 and at the
+    static server's 8; in both instances (bf16 on the tensor cores), two
+    calls bit-identical."""
+    g = torch.Generator(device=card).manual_seed(sq + skv)
+    q, k, v = (torch.randn((b, s, 16, 64), generator=g, device=card)
+               .to(dtype) for s in (sq, skv, skv))
+    n0, tc0 = fmod.LAUNCHES, fmod.LAUNCHES_TC
+    out = flash_attention_bshd(q, k, v, causal=False, impl="kernel")
+    again = flash_attention_bshd(q, k, v, causal=False, impl="kernel")
+    assert fmod.LAUNCHES == n0 + 2
+    assert fmod.LAUNCHES_TC == tc0 + 2 * (dtype == torch.bfloat16)
+    _close(out, flash_attention_bshd(q, k, v, causal=False, impl="ref"),
+           dtype)
+    assert torch.equal(out, again)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    _close(fmod.flash_attention(qt, kt, vt, causal=False),
+           attention_ref(qt, kt, vt, causal=False), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("hq,hkv,d,sq", [
+    (16, 16, 64, 200),                 # whisper-medium's decoder
+    (32, 8, 128, 1152 + 200)])         # llava: 1152 patches + 200 tokens
+def test_flash_static_batch_causal_matches_plain(card, dtype, hq, hkv, d,
+                                                 sq):
+    """The static server's causal prefills at its batch of 8: whisper-
+    medium's decoder self-attention over 200 tokens and llava-next-
+    mistral-7b's over 1352 positions; in both instances (bf16 on the
+    tensor cores), two calls bit-identical."""
+    g = torch.Generator(device=card).manual_seed(sq + d)
+    q, k, v = (torch.randn((8, sq, h, d), generator=g, device=card)
+               .to(dtype) for h in (hq, hkv, hkv))
+    n0, tc0 = fmod.LAUNCHES, fmod.LAUNCHES_TC
+    out = flash_attention_bshd(q, k, v, causal=True, impl="kernel")
+    again = flash_attention_bshd(q, k, v, causal=True, impl="kernel")
+    assert fmod.LAUNCHES == n0 + 2
+    assert fmod.LAUNCHES_TC == tc0 + 2 * (dtype == torch.bfloat16)
+    _close(out, flash_attention_bshd(q, k, v, causal=True, impl="ref"),
+           dtype)
     assert torch.equal(out, again)
 
 

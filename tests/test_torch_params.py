@@ -18,7 +18,8 @@ from repro_torch import configs as tcfgs  # noqa: E402
 from repro_torch.models import init as tinit  # noqa: E402
 
 ARCHS = ["smollm-135m", "qwen2.5-14b", "granite-3-8b", "qwen2-72b",
-         "deepseek-moe-16b", "mixtral-8x7b", "recurrentgemma-2b", "rwkv6-3b"]
+         "deepseek-moe-16b", "mixtral-8x7b", "recurrentgemma-2b", "rwkv6-3b",
+         "llava-next-mistral-7b", "whisper-medium"]
 
 
 def _flat(tree, prefix=""):
@@ -72,9 +73,20 @@ def test_dense_configs_published_sizes(arch, n):
     assert jcfgs.get_config(arch).num_params() == n
 
 
-def test_unported_family_raises():
-    cfg = dataclasses.replace(tcfgs.get_smoke("smollm-135m"), family="encdec")
-    with pytest.raises(NotImplementedError, match="not ported"):
+@pytest.mark.parametrize("arch,n", [("whisper-medium", 791_778_304),
+                                    ("llava-next-mistral-7b", 7_241_732_096)])
+def test_encdec_and_vlm_configs_published_sizes(arch, n):
+    """The enc-dec and VLM slice's configs at their published widths:
+    the reference's parameter counts, exactly."""
+    assert tcfgs.get_config(arch).num_params() == n
+    assert jcfgs.get_config(arch).num_params() == n
+
+
+def test_unknown_family_raises():
+    """Every family of the reference is ported; a family it does not
+    know is refused."""
+    cfg = dataclasses.replace(tcfgs.get_smoke("smollm-135m"), family="rnn")
+    with pytest.raises(ValueError, match="unknown model family"):
         tinit.spec_tree(cfg)
 
 

@@ -4,14 +4,19 @@ On the CPU ``prefill_impl="auto"`` is "eager": the same static buffers
 as the graph path — one set per prompt shape, filled from host arrays —
 with a direct call of the step in place of a replay.  These tests hold
 that bookkeeping to what the graph needs, at SMOKE size in fp32, for
-smollm-135m, deepseek-moe-16b, recurrentgemma-2b and rwkv6-3b:
+smollm-135m, deepseek-moe-16b, recurrentgemma-2b and rwkv6-3b, and for
+the owners the reference gives them (the per-slot executor, the static
+server) llava-next-mistral-7b and whisper-medium, whose stub front ends
+read the owners' static zero patches / frames:
 
 * each owner's prefill through its static buffers — the batched
   executor's (cache scattered into the page pools), the per-slot
   executor's (landing cache copied into the request's entry) and the
   static ``Server``'s (written into the decode graph's cache) — gives a
-  direct ``transformer.prefill``'s token and cache bit for bit, and the
-  reference's ``transformer.prefill`` (the same weights through
+  direct ``model.prefill_fn``'s token and cache bit for bit, and the
+  reference's prefill (``transformer.prefill``, or ``whisper.prefill``
+  whose prompt + 64 ring fills the first slots of the port's buffer;
+  the same weights through
   ``params_from_numpy``) within ``tests/test_torch_model.py``'s prefill
   tolerance: cache atol/rtol 1e-5, 1e-4 for the ssm family's WKV states
   (hundreds of summed outer products, in another order);
@@ -40,6 +45,7 @@ from repro.configs import get_smoke as jsmoke  # noqa: E402
 from repro.launch import serve as jserve  # noqa: E402
 from repro.models import init as jinit  # noqa: E402
 from repro.models import transformer as jtf  # noqa: E402
+from repro.models import whisper as jw  # noqa: E402
 from repro.serve import engine as jeng  # noqa: E402
 from repro.serve.batched_executor import JaxBatchedExecutor  # noqa: E402
 from repro.serve.jax_executor import JaxSlotExecutor  # noqa: E402
@@ -47,7 +53,7 @@ from repro.serve.kv_cache import PagedKVCache as JPagedKVCache  # noqa: E402
 from repro_torch.configs import get_smoke  # noqa: E402
 from repro_torch.launch.serve import (Request, Server,  # noqa: E402
                                       TickClock, run_static_server)
-from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models import model, transformer  # noqa: E402
 from repro_torch.models.init import params_from_numpy  # noqa: E402
 from repro_torch.serve import engine as teng  # noqa: E402
 from repro_torch.serve.batched_executor import (  # noqa: E402
@@ -59,6 +65,8 @@ from repro_torch.step_graph import StepGraph  # noqa: E402
 
 FAMILIES = ["smollm-135m", "deepseek-moe-16b", "recurrentgemma-2b",
             "rwkv6-3b"]
+# the per-slot and static owners also serve these
+SLOT_FAMILIES = FAMILIES + ["llava-next-mistral-7b", "whisper-medium"]
 PAGED = ["smollm-135m", "deepseek-moe-16b"]
 CACHE_TOL = dict(atol=1e-5, rtol=1e-5)
 SSM_TOL = dict(atol=1e-4, rtol=1e-4)
@@ -81,8 +89,42 @@ def _assert_trees_equal(got, want):
         assert torch.equal(got[path], leaf), path
 
 
+def _direct_prefill(params, cfg, toks):
+    """A direct prefill of the prompts ``toks`` (b, s) with the owners'
+    zero front-end inputs, into a cache of the owners' length."""
+    batch = {"tokens": torch.from_numpy(toks.astype(np.int64)),
+             **model.frontend_inputs(cfg, toks.shape[0])}
+    prefill = model.prefill_fn(cfg, max_len=MAX_LEN)
+    with torch.inference_mode():
+        return prefill(params, batch)
+
+
+def _reference_prefill(jp, jcfg, toks):
+    """The reference's prefill as its executors and static server call
+    it: zero patches / frames; whisper's without ``max_len``."""
+    batch = {"tokens": jnp.asarray(toks)}
+    b, d = toks.shape[0], jcfg.d_model
+    if jcfg.family == "vlm":
+        batch["patches"] = jnp.zeros((b, jcfg.num_patches, d),
+                                     jcfg.compute_dtype)
+    if jcfg.family == "encdec":
+        batch["frames"] = jnp.zeros((b, jcfg.encoder_positions, d),
+                                    jcfg.compute_dtype)
+        return jw.prefill(jp, batch, jcfg)
+    return jtf.prefill(jp, batch, jcfg, max_len=MAX_LEN)
+
+
 def _assert_close_to_reference(got, jwant, cfg):
     tol = SSM_TOL if cfg.family == "ssm" else CACHE_TOL
+    if cfg.family == "encdec":
+        # the reference's ring in the first slots of the port's buffer
+        ring = jwant["blocks"]["k"].shape[2]
+        assert (got["pos"].numpy() == int(jwant["pos"])).all()
+        assert (got["ring"].numpy() == ring).all()
+        got = {"blocks": {k: v[:, :, :ring]
+                          for k, v in got["blocks"].items()},
+               "enc_out": got["enc_out"]}
+        jwant = {"blocks": jwant["blocks"], "enc_out": jwant["enc_out"]}
     got, want = dict(_leaves(got)), dict(_leaves(jwant))
     assert got.keys() == want.keys()
     for path, leaf in want.items():
@@ -159,7 +201,7 @@ def test_batched_prefill_matches_direct_and_reference(arch):
     assert torch.equal(ex._kp, kp) and torch.equal(ex._vp, vp)
 
 
-@pytest.mark.parametrize("arch", FAMILIES)
+@pytest.mark.parametrize("arch", SLOT_FAMILIES)
 def test_slot_prefill_matches_direct_and_reference(arch):
     """Each request's entry holds a direct prefill's cache and token bit
     for bit, and the reference's within the cache tolerance; the landing
@@ -174,21 +216,17 @@ def test_slot_prefill_matches_direct_and_reference(arch):
             _leaves(ex._prefills._graphs[(1, 7)].buffers["cache"]),
             _leaves(ex._prefills._graphs[(1, 12)].buffers["cache"])):
         assert b1 is b2
-    with torch.inference_mode():
-        for r, tok in zip(reqs, toks):
-            tokens = torch.from_numpy(r.prompt[None].astype(np.int64))
-            logits, cache = transformer.prefill(params, {"tokens": tokens},
-                                                cfg, max_len=MAX_LEN)
-            assert tok == int(torch.argmax(logits, -1)[0])
-            assert torch.equal(ex._tok[r.rid], torch.argmax(logits, -1))
-            _assert_trees_equal(ex._caches[r.rid], cache)
-            jl, jc = jtf.prefill(jp, {"tokens": jnp.asarray(r.prompt[None])},
-                                 jcfg, max_len=MAX_LEN)
-            assert tok == int(jnp.argmax(jl, -1)[0])
-            _assert_close_to_reference(ex._caches[r.rid], jc, cfg)
+    for r, tok in zip(reqs, toks):
+        logits, cache = _direct_prefill(params, cfg, r.prompt[None])
+        assert tok == int(torch.argmax(logits, -1)[0])
+        assert torch.equal(ex._tok[r.rid], torch.argmax(logits, -1))
+        _assert_trees_equal(ex._caches[r.rid], cache)
+        jl, jc = _reference_prefill(jp, jcfg, r.prompt[None])
+        assert tok == int(jnp.argmax(jl, -1)[0])
+        _assert_close_to_reference(ex._caches[r.rid], jc, cfg)
 
 
-@pytest.mark.parametrize("arch", FAMILIES)
+@pytest.mark.parametrize("arch", SLOT_FAMILIES)
 def test_static_server_prefill_matches_direct_and_reference(arch):
     """The group prefill at batch 3 writes a direct batch-3 prefill's
     cache and tokens into the decode graph's static buffers, bit for
@@ -198,15 +236,12 @@ def test_static_server_prefill_matches_direct_and_reference(arch):
     toks = np.stack(_prompts(cfg, [10, 10, 10]))
     with torch.inference_mode():
         first = server._prefill_batch(toks)
-        logits, cache = transformer.prefill(
-            params, {"tokens": torch.from_numpy(toks.astype(np.int64))},
-            cfg, max_len=MAX_LEN)
+    logits, cache = _direct_prefill(params, cfg, toks)
     bufs = server._graph.buffers
     assert first.tolist() == torch.argmax(logits, -1).tolist()
     assert torch.equal(bufs["tok"], torch.argmax(logits, -1))
     _assert_trees_equal(bufs["cache"], cache)
-    jl, jc = jtf.prefill(jp, {"tokens": jnp.asarray(toks)}, jcfg,
-                         max_len=MAX_LEN)
+    jl, jc = _reference_prefill(jp, jcfg, toks)
     assert first.tolist() == np.asarray(jnp.argmax(jl, -1)).tolist()
     _assert_close_to_reference(bufs["cache"], jc, cfg)
     assert server.prefill_graph_stats()["calls"] == 1
@@ -218,7 +253,7 @@ def test_static_server_prefill_matches_direct_and_reference(arch):
 ENGINE_LENS = [7, 12, 9, 7, 12, 9, 7]
 
 
-@pytest.mark.parametrize("arch", FAMILIES)
+@pytest.mark.parametrize("arch", SLOT_FAMILIES)
 def test_engine_with_bounded_prefill_graphs_matches_reference(arch):
     jcfg, cfg = jsmoke(arch), get_smoke(arch)
     n_slots, max_len = 3, 20

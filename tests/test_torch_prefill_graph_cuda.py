@@ -1,7 +1,9 @@
 """Card-only: the prefill as a captured CUDA graph, one per prompt shape.
 
 At SMOKE size (fp32) for smollm-135m, deepseek-moe-16b,
-recurrentgemma-2b and rwkv6-3b:
+recurrentgemma-2b, rwkv6-3b, llava-next-mistral-7b and whisper-medium
+(their zero patches / frames in static buffers, as the owners hold
+them):
 
 * a prefill captured by ``PrefillGraphs`` gives the logits of the same
   step called directly, ``torch.equal``, at a first length (captured
@@ -50,7 +52,7 @@ from repro_torch.step_graph import WARMUP, StepGraph  # noqa: E402
 pytestmark = pytest.mark.cuda
 
 FAMILIES = ["smollm-135m", "deepseek-moe-16b", "recurrentgemma-2b",
-            "rwkv6-3b"]
+            "rwkv6-3b", "llava-next-mistral-7b", "whisper-medium"]
 MODULES = {"flash_fwd": fa, "grouped_matmul": mg, "rglru_scan_fwd": rs,
            "wkv_fwd": wk}
 
@@ -77,6 +79,8 @@ def _per_prefill(cfg):
                 "rglru_scan_fwd": cfg.num_layers - n_attn}
     if cfg.family == "ssm":
         return {"wkv_fwd": cfg.num_layers}
+    if cfg.family == "encdec":     # encoder, decoder self, cross
+        return {"flash_fwd": cfg.encoder_layers + 2 * cfg.num_layers}
     out = {"flash_fwd": cfg.num_layers}
     if cfg.num_experts:
         out["grouped_matmul"] = 3 * (cfg.num_layers - cfg.first_k_dense)
@@ -89,9 +93,11 @@ def _counts():
 
 def _logit_graphs(cfg, params, device, impl):
     prefill = model.prefill_fn(cfg, max_len=40)
+    frontend = model.frontend_inputs(cfg, 1, device)
 
     def step(b):
-        b["logits"].copy_(prefill(params, {"tokens": b["tokens"]})[0])
+        b["logits"].copy_(prefill(params, {"tokens": b["tokens"],
+                                           **frontend})[0])
 
     def buffers(shape):
         return {"tokens": torch.zeros(shape, dtype=torch.int64,

@@ -144,7 +144,7 @@ def test_cli_smoke_on_cpu_matches_reference_cli(capsys, arch):
     assert out["tokens"] == 9 * 6
 
 
-def test_make_executor_raises_for_unported_families():
+def test_make_executor_picks_as_the_reference():
     """make_executor follows the reference's rule and substitutes nothing:
     paged-decode families get the batched executor, the others (and
     windows narrower than max_len) the per-slot one; the batched executor
@@ -165,9 +165,13 @@ def test_make_executor_raises_for_unported_families():
     assert (kv.block_tokens, kv.n_blocks) == (32, 2)
     ex, kv = make_executor(tsmoke("smollm-135m"), 32, 2, device="cpu")
     assert isinstance(ex, TorchBatchedExecutor) and kv is ex.kv
-    enc = dataclasses.replace(tsmoke("smollm-135m"), family="encdec")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        make_executor(enc, 32, 2, device="cpu")
+    # enc-dec and vlm take the per-slot executor, as the reference's
+    for arch in ("whisper-medium", "llava-next-mistral-7b"):
+        ex, kv = make_executor(tsmoke(arch), 32, 2, device="cpu")
+        assert isinstance(ex, TorchSlotExecutor)
+    unknown = dataclasses.replace(tsmoke("smollm-135m"), family="rnn")
+    with pytest.raises(ValueError, match="unknown model family"):
+        make_executor(unknown, 32, 2, device="cpu")
 
 
 def test_rows_recycle_and_release():

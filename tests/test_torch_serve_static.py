@@ -7,14 +7,17 @@ CLI's ``--engine static``) against the reference's.
   ``[t0, t2]``.
 * ``run_static_server`` on SMOKE under ``TickClock(1.0)``, the reference's
   weights through ``params_from_numpy``: for smollm-135m, granite-3-8b,
-  qwen2-72b, recurrentgemma-2b and rwkv6-3b at batch 4, six requests of
-  20 tokens (past recurrentgemma's 16-token SMOKE window, so its ring
+  qwen2-72b, recurrentgemma-2b, rwkv6-3b, llava-next-mistral-7b (8
+  patches before the 20 tokens: the 25-slot ring drops the oldest
+  patches, as the reference's does) and whisper-medium (the reference's
+  ring of prompt + 64 inside the port's buffer) at batch 4, six requests
+  of 20 tokens (past recurrentgemma's 16-token SMOKE window, so its ring
   wraps; a padded tail group of two) with output lengths 2-5, every
   request's tokens are identical and the report equal key for key.
 * The CLI with ``--engine static --device cpu --smoke --tick-dt 1`` prints
   the reference CLI's report (the port's ``static_decode`` key popped).
-* ``decode_impl="eager"`` gives "auto"'s tokens; vlm and enc-dec configs
-  raise.
+* ``decode_impl="eager"`` gives "auto"'s tokens; a family the reference
+  does not know is refused.
 """
 import dataclasses
 import json
@@ -139,7 +142,8 @@ def _run_both(arch, **torch_kw):
 
 
 @pytest.mark.parametrize("arch", ["smollm-135m", "granite-3-8b", "qwen2-72b",
-                                  "recurrentgemma-2b", "rwkv6-3b"])
+                                  "recurrentgemma-2b", "rwkv6-3b",
+                                  "llava-next-mistral-7b", "whisper-medium"])
 def test_static_server_matches_reference(arch):
     jreqs, jout, treqs, tout, server = _run_both(arch)
     for jr, tr in zip(jreqs, treqs):
@@ -173,14 +177,14 @@ def test_static_decode_eager_equals_auto():
                decode_impl="graph")
 
 
-@pytest.mark.parametrize("family", ["vlm", "encdec"])
-def test_static_server_refuses_unported_families(family):
-    cfg = dataclasses.replace(tsmoke("smollm-135m"), family=family)
-    with pytest.raises(NotImplementedError, match="enc-dec and VLM"):
+def test_static_server_refuses_an_unknown_family():
+    cfg = dataclasses.replace(tsmoke("smollm-135m"), family="rnn")
+    with pytest.raises(ValueError, match="unknown model family"):
         Server(cfg, batch=2, max_len=12, device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["smollm-135m", "granite-3-8b"])
+@pytest.mark.parametrize("arch", ["smollm-135m", "granite-3-8b",
+                                  "llava-next-mistral-7b", "whisper-medium"])
 def test_static_cli_matches_reference_cli(capsys, arch):
     argv = ["--arch", arch, "--smoke", "--engine", "static", "--requests",
             "7", "--batch", "3", "--prompt-len", "10", "--max-new", "4",

@@ -5,14 +5,17 @@
   ``ContinuousServeEngine`` over ``JaxSlotExecutor``, both under
   ``TickClock(dt=1.0)`` with an allocator of the reference CLI's sizing,
   for recurrentgemma-2b, rwkv6-3b, mixtral-8x7b (a 16-token window below
-  the 20-token max_len, so ``make_executor`` picks the per-slot executor)
+  the 20-token max_len, so ``make_executor`` picks the per-slot executor),
+  llava-next-mistral-7b (8 patches before the prompt, so the 20-slot
+  ring drops patches), whisper-medium (the prompt + 64 ring, zero frames)
   and smollm-135m (asked for explicitly): every request's tokens are
   identical and ``ServeReport.as_dict()`` is equal field by field.
   Seven requests through three slots, so requests admit and detach while
   others decode, and a tight SLO that some tokens miss.
 * The CLI with ``--smoke --device cpu`` and ``--executor slot`` (or the
-  ``auto`` choice for recurrentgemma-2b) reports what the reference's CLI
-  reports under a TickClock.
+  ``auto`` choice for recurrentgemma-2b, llava-next-mistral-7b and
+  whisper-medium) reports what the reference's CLI reports under a
+  TickClock.
 """
 import json
 
@@ -53,7 +56,8 @@ def _stream(eng_mod, vocab):
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-3b",
-                                  "mixtral-8x7b", "smollm-135m"])
+                                  "mixtral-8x7b", "smollm-135m",
+                                  "llava-next-mistral-7b", "whisper-medium"])
 def test_engine_tokens_and_report_match_reference(arch):
     jcfg, tcfg = jsmoke(arch), tsmoke(arch)
     slo = dict(ttft=6.0, tpot=2.0)
@@ -92,7 +96,8 @@ def test_engine_tokens_and_report_match_reference(arch):
 
 
 @pytest.mark.parametrize("arch,executor", [
-    ("recurrentgemma-2b", "auto"), ("smollm-135m", "slot")])
+    ("recurrentgemma-2b", "auto"), ("smollm-135m", "slot"),
+    ("llava-next-mistral-7b", "auto"), ("whisper-medium", "auto")])
 def test_cli_slot_executor_matches_reference_cli(capsys, arch, executor):
     argv = ["--arch", arch, "--smoke", "--requests", "5", "--batch", "2",
             "--prompt-len", "12", "--max-new", "5", "--tick-dt", "1",
