@@ -179,7 +179,28 @@ each of which raises on failure (nothing is caught):
    ``TrainStep`` from a host state, 10 steps on one fixed batch (the
    loss must fall): step ms, tokens/s, MFU (6 N tokens, no attention),
    the card's clocks, peak memory, capture seconds and pool bytes, a
-   2-step profile; (d) ``train_ssm_graph_vs_eager``, as in phase 8.
+   2-step profile; (d) ``train_ssm_graph_vs_eager``, as in phase 8;
+10. training whisper-medium at its published widths and full depth (24
+   encoder and 24 decoder layers; bf16 compute, fp32 master params,
+   remat; 8 rows of 448 tokens, each beside 1500 frames drawn from a
+   seeded normal): (a) the flash forward with its LSE and the backward
+   at the encoder's shape (8, 16 / 16 heads of 64, 1500 x 1500), the
+   cross-attention's (448 queries x 1500 keys), both without the causal
+   mask, and the decoder's causal 448, against their plain versions as
+   in phase 6, beside SDPA's; (b) the full model's loss and gradients
+   with the flash kernels and with the plain versions, every encoder
+   attention and decoder cross-attention leaf moving, the key biases
+   held by KEY_BIAS_GRAD_SHARE; (c) a captured ``TrainStep`` from a host
+   state, 10 steps on one fixed batch (the loss must fall): step ms,
+   tokens/s, MFU by the enc-dec formula (``train_model_flops``), the
+   card's clocks, peak memory, capture seconds and pool bytes, a 2-step
+   profile; (d) ``train_encdec_graph_vs_eager``, as in phase 8;
+11. training llava-next-mistral-7b at its published widths with the
+   depth cut 32 -> 5 (d 4096, 32 / 8 heads of 128, d_ff 14336; one
+   stream of 1152 patches, drawn from a seeded normal, and 2,944
+   tokens): phase 10's (a)-(d) at its causal 4096 (GQA group 4),
+   every attention leaf moving, the dense MFU over the 4,096 positions
+   (``train_vlm``, ``train_vlm_graph_vs_eager``).
 
 Every serving run goes through the executor's ``serving_params`` (the
 weights cast to the compute dtype once) and runs each decode step as a
@@ -247,7 +268,10 @@ MoE layer, again in remat's recompute, and 3 backward calls
 per recurrent layer, again in remat's recompute, and one reverse scan
 (``LAUNCHES_BWD``): flash 2 x 2 + 2, the scan 4 x 2 + 4 at depth 6, and
 for the ssm one WKV per layer, again in remat's recompute, and one
-reverse WKV (``LAUNCHES_BWD``): 8 x 2 + 8 at depth 8; every flash and
+reverse WKV (``LAUNCHES_BWD``): 8 x 2 + 8 at depth 8, for the enc-dec family one
+flash forward per encoder layer and two per decoder layer (self and
+cross), again in remat's recompute, and as many backwards: 72 x 2 +
+72, and for the vlm 5 x 2 + 5; every flash and
 grouped-matmul launch on the tensor cores; the launches a run reports
 add one step's per replay, and the replays must equal the steps.
 
@@ -260,6 +284,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -1804,6 +1829,19 @@ TRAIN_FP32_LOSS_ATOL = 1e-4
 # lower the loss (~log 49152 = 10.8 at init) by this many nats: the
 # reference's "runs and learns" check
 LEARN_MARGIN = 0.5
+# a key bias (whisper's attention ``bk``) adds one value to every score
+# of a query's row, which the softmax does not see: its gradient is zero
+# in exact arithmetic, and each run computes rounding (the kernel's dS
+# rows, rounded to bf16, sum to ~2^-9 of their size instead of 0).  So
+# its gradients are not compared by direction: in every run (fp32, bf16,
+# kernel, plain) its norm must stay within this share of its layer's
+# query bias's, a gradient of the same shape that no cancellation
+# removes (whisper-medium at 8 x 448 on the H100, the most of the four
+# runs: 8.3e-4 in the encoder, 1.4e-2 in the decoder's self-attention,
+# 7.2e-2 in its cross-attention; the plain fp32 model at 2 + 2 layers
+# on the CPU: under 2e-6, so bf16 rounding sets the share); a row of dS that does not sum to zero (a masking or
+# scaling fault) gives a key-bias gradient of the query bias's order
+KEY_BIAS_GRAD_SHARE = 0.25
 
 
 def _causal_mask(torch, sq: int, window: int):
@@ -1816,15 +1854,37 @@ def _causal_mask(torch, sq: int, window: int):
     return mask
 
 
+def flash_case(case):
+    """A flash training case as (name, b, hq, hkv, sq, d, window, skv,
+    causal): the cases are (name, b, hq, hkv, sq, d, window), causal with
+    skv = sq, or name the keys' length and the mask after them."""
+    what, b, hq, hkv, sq, d, window, *rest = case
+    skv, causal = rest if rest else (sq, True)
+    return what, b, hq, hkv, sq, d, window, skv, causal
+
+
+def _flash_mask(torch, sq: int, skv: int, window: int, causal: bool):
+    """(mask, pairs, SDPA's mask arguments) of a flash case: the causal
+    (and windowed) mask as a boolean (sq, sq) and its true pairs, or
+    none without the causal mask (sq x skv pairs; no window there)."""
+    if not causal:
+        if window:
+            raise ValueError("a non-causal case takes no window")
+        return None, sq * skv, {}
+    mask = _causal_mask(torch, sq, window)
+    return (mask, int(mask.sum()),
+            {"attn_mask": mask} if window else {"is_causal": True})
+
+
 # the flash forward with its LSE at a training path's shape: (name, b,
-# hq, hkv, sq, d, window), causal
+# hq, hkv, sq, d, window[, skv, causal]) (``flash_case``)
 FLASH_FWD_SMOLLM_CASE = ("smollm_train_lse", TRAIN_BATCH, 9, 3, TRAIN_SEQ,
                          64, 0)
 
 
-def flash_train_fwd_cases(torch, case=FLASH_FWD_SMOLLM_CASE,
+def flash_train_fwd_cases(torch, cases=(FLASH_FWD_SMOLLM_CASE,),
                           expand_kv=False):
-    """The flash forward at the shape a train step gives it (``case``:
+    """The flash forward at the shapes a train step gives it (``cases``:
     smollm's b 8 x 2048, hq 9 / hkv 3, d 64 by default) with its LSE,
     fp32 (the CUDA-core instance) and bf16 (the tensor-core one, as on
     the path): output and LSE against ``attention_ref(...,
@@ -1839,64 +1899,68 @@ def flash_train_fwd_cases(torch, case=FLASH_FWD_SMOLLM_CASE,
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
-    what, b, hq, hkv, sq, d, window = case
     rows = []
-    for dtype in (torch.float32, torch.bfloat16):
-        g = torch.Generator(device=dev).manual_seed(sq + d + 1)
-        q, k, v = (torch.randn((b, sq, h, d), generator=g, device=dev)
-                   .to(dtype).transpose(1, 2) for h in (hq, hkv, hkv))
-        name = f"flash {what} forward with LSE {dtype}"
+    for case in cases:
+        what, b, hq, hkv, sq, d, window, skv, causal = flash_case(case)
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator(device=dev).manual_seed(skv + d + 1)
+            q, k, v = (torch.randn((b, n, h, d), generator=g, device=dev)
+                       .to(dtype).transpose(1, 2)
+                       for n, h in ((sq, hq), (skv, hkv), (skv, hkv)))
+            name = f"flash {what} forward with LSE {dtype}"
+            kw = {"causal": causal, "window": window}
 
-        def call():
-            return fa.flash_attention(q, k, v, window=window,
-                                      return_lse=True)
+            def call():
+                return fa.flash_attention(q, k, v, return_lse=True, **kw)
 
-        (out, lse), inst = run_counted(torch, fa, name, call)
-        if inst != ("tc" if dtype == torch.bfloat16 else "cuda_core"):
-            raise AssertionError(f"{name}: ran on the {inst} instance")
-        ref, ref_lse = attention_ref(q, k, v, window=window,
-                                     return_lse=True)
-        err = check_close(torch, name, out, ref, TOL[str(dtype)])
-        lse_err = check_close(torch, f"{name} lse", lse, ref_lse,
-                              LSE_TOL[str(dtype)])
-        del out, lse, ref, ref_lse
-        mask = _causal_mask(torch, sq, window)
-        pairs = int(mask.sum())
-        es = q.element_size()
-        nbytes = (es * d * (2 * b * hq * sq + 2 * b * hkv * sq)
-                  + 4 * b * hq * sq)
-        bound_ms, bound_by = bound(4.0 * d * b * hq * pairs, nbytes, dtype)
-        kv = ([t.repeat_interleave(hq // hkv, dim=1) for t in (k, v)]
-              if expand_kv else [k, v])
-        sdpa_kw = {} if expand_kv else {"enable_gqa": True}
-        sdpa_kw.update({"attn_mask": mask} if window
-                       else {"is_causal": True})
-        row = {"kernel": "flash_attention", "case": what,
-               "dtype": str(dtype), "b": b, "hq": hq, "hkv": hkv, "d": d,
-               "sq": sq, "window": window, "instance": inst,
-               "max_abs_err": err, "lse_max_abs_err": lse_err,
-               "tol": TOL[str(dtype)], "lse_tol": LSE_TOL[str(dtype)],
-               "kernel_ms": graph_ms(torch, call, reps=5),
-               "plain_ms": graph_ms(torch, lambda: attention_ref(
-                   q, k, v, window=window, return_lse=True), reps=2,
-                   replays=3),
-               "library_ms": graph_ms(
-                   torch, lambda: F.scaled_dot_product_attention(
-                       q, *kv, **sdpa_kw), reps=5),
-               "library": "SDPA forward ("
-                          f"{_sdpa_backend(torch, q, *kv, **sdpa_kw)}"
-                          f"{', kv expanded' if expand_kv else ''})",
-               "bound_ms": bound_ms, "bound_by": bound_by, "pairs": pairs}
-        rows.append(row)
-        log(row)
-        del q, k, v, kv, mask
-        gc.collect()
-        torch.cuda.empty_cache()
+            (out, lse), inst = run_counted(torch, fa, name, call)
+            if inst != ("tc" if dtype == torch.bfloat16 else "cuda_core"):
+                raise AssertionError(f"{name}: ran on the {inst} instance")
+            ref, ref_lse = attention_ref(q, k, v, return_lse=True, **kw)
+            err = check_close(torch, name, out, ref, TOL[str(dtype)])
+            lse_err = check_close(torch, f"{name} lse", lse, ref_lse,
+                                  LSE_TOL[str(dtype)])
+            del out, lse, ref, ref_lse
+            mask, pairs, sdpa_kw = _flash_mask(torch, sq, skv, window,
+                                               causal)
+            es = q.element_size()
+            nbytes = (es * d * (2 * b * hq * sq + 2 * b * hkv * skv)
+                      + 4 * b * hq * sq)
+            bound_ms, bound_by = bound(4.0 * d * b * hq * pairs, nbytes,
+                                       dtype)
+            kv = ([t.repeat_interleave(hq // hkv, dim=1) for t in (k, v)]
+                  if expand_kv else [k, v])
+            if not expand_kv:
+                sdpa_kw["enable_gqa"] = True
+            row = {"kernel": "flash_attention", "case": what,
+                   "dtype": str(dtype), "b": b, "hq": hq, "hkv": hkv,
+                   "d": d, "sq": sq, "skv": skv, "causal": causal,
+                   "window": window, "instance": inst,
+                   "max_abs_err": err, "lse_max_abs_err": lse_err,
+                   "tol": TOL[str(dtype)], "lse_tol": LSE_TOL[str(dtype)],
+                   "kernel_ms": graph_ms(torch, call, reps=5),
+                   "plain_ms": graph_ms(torch, lambda: attention_ref(
+                       q, k, v, return_lse=True, **kw), reps=2,
+                       replays=3),
+                   "library_ms": graph_ms(
+                       torch, lambda: F.scaled_dot_product_attention(
+                           q, *kv, **sdpa_kw), reps=5),
+                   "library": "SDPA forward ("
+                              f"{_sdpa_backend(torch, q, *kv, **sdpa_kw)}"
+                              f"{', kv expanded' if expand_kv else ''})",
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "pairs": pairs}
+            rows.append(row)
+            log(row)
+            del q, k, v, kv, mask, sdpa_kw
+            gc.collect()
+            torch.cuda.empty_cache()
     return rows
 
 
-# (name, b, hq, hkv, sq, d, window), all causal: smollm's training shape,
-# d 128 with g 1 at 1024 tokens, a window, and a ragged length
+# (name, b, hq, hkv, sq, d, window[, skv, causal]) (``flash_case``), all
+# causal: smollm's training shape, d 128 with g 1 at 1024 tokens, a
+# window, and a ragged length
 FLASH_BWD_CASES = [("smollm_train", 8, 9, 3, 2048, 64, 0),
                    ("d128_g1", 2, 16, 16, 1024, 128, 0),
                    ("window", 4, 9, 3, 1024, 64, 256),
@@ -1973,14 +2037,16 @@ def flash_bwd_cases(torch, cases=FLASH_BWD_CASES, expand_kv=False,
                     ptxas_report: str = ""):
     """The flash backward against ``attention_bwd_ref`` on the same
     (q, k, v, o, lse, dO) (o and lse from the plain forward) at each of
-    ``cases``; fp32 on the CUDA cores, bf16 on the tensor cores (the
+    ``cases`` (``flash_case``: causal, or without a mask at sq != skv);
+    fp32 on the CUDA cores, bf16 on the tensor cores (the
     instance read from the counters); two calls bit-identical.  bf16 is
     held to the rounding model and to DS_BF16_FLOOR_FACTOR times its
     distance from the fp32 plain backward (both distances logged).  Each
     line has the kernel's device time (bf16 lines also the same case's
     fp32 CUDA-core time, which the tensor-core one must beat), the plain
     version's, the SDPA backward's (the library call: its autograd
-    backward alone, timed eagerly, a window as a boolean mask; with
+    backward alone, timed eagerly, a window as a boolean mask, no mask
+    for a non-causal case; with
     ``expand_kv`` on k and v expanded to the query heads, else with
     ``enable_gqa``; the backend the dispatcher picks is named), and the
     bound: 2.5x the forward's matmul flops over the unmasked pairs at the
@@ -2000,21 +2066,24 @@ def flash_bwd_cases(torch, cases=FLASH_BWD_CASES, expand_kv=False,
     rows, fp32_ms = [], {}
     for dtype in (torch.float32, torch.bfloat16):
         bf16 = dtype == torch.bfloat16
-        for what, b, hq, hkv, sq, d, window in cases:
-            g = torch.Generator(device=dev).manual_seed(sq + d + window)
-            q, k, v, do = (torch.randn((b, sq, h, d), generator=g,
+        for case in cases:
+            what, b, hq, hkv, sq, d, window, skv, causal = flash_case(case)
+            kw = {"causal": causal, "window": window}
+            g = torch.Generator(device=dev).manual_seed(skv + d + window)
+            q, k, v, do = (torch.randn((b, n, h, d), generator=g,
                                        device=dev).to(dtype).transpose(1, 2)
-                           for h in (hq, hkv, hkv, hq))
-            o, lse = attention_ref(q, k, v, window=window, return_lse=True)
+                           for n, h in ((sq, hq), (skv, hkv), (skv, hkv),
+                                        (sq, hq)))
+            o, lse = attention_ref(q, k, v, return_lse=True, **kw)
             args = (q, k, v, o, lse, do)
             name = f"flash_bwd {what} {dtype}"
             out, inst = run_counted(
                 torch, fa, name,
-                lambda: fa.flash_attention_bwd(*args, window=window),
+                lambda: fa.flash_attention_bwd(*args, **kw),
                 counter="LAUNCHES_BWD", tc_counter="LAUNCHES_BWD_TC")
             if inst != ("tc" if bf16 else "cuda_core"):
                 raise AssertionError(f"{name}: ran on the {inst} instance")
-            ref = attention_bwd_ref(*args, window=window, operand_dtype=(
+            ref = attention_bwd_ref(*args, **kw, operand_dtype=(
                 torch.bfloat16 if bf16 else None))
             errs = {gn: check_close(torch, f"{name} {gn}", a, r,
                                     BWD_TOL[str(dtype)])
@@ -2022,8 +2091,7 @@ def flash_bwd_cases(torch, cases=FLASH_BWD_CASES, expand_kv=False,
             dists = {}
             if bf16:
                 # distances from the fp32 plain backward on the same inputs
-                exact = attention_bwd_ref(*(t.float() for t in args),
-                                          window=window)
+                exact = attention_bwd_ref(*(t.float() for t in args), **kw)
                 for gn, a, r, x in zip(("dq", "dk", "dv"), out, ref, exact):
                     dists[gn] = {"kernel": _rel_dist(torch, a, x),
                                  "model": _rel_dist(torch, r, x)}
@@ -2035,39 +2103,37 @@ def flash_bwd_cases(torch, cases=FLASH_BWD_CASES, expand_kv=False,
                             f"the rounding model's {dists[gn]['model']}")
                 del exact
             del out, ref
-            mask = _causal_mask(torch, sq, window)
-            pairs = int(mask.sum())
+            mask, pairs, sdpa_kw = _flash_mask(torch, sq, skv, window,
+                                               causal)
             es = q.element_size()
-            nbytes = (es * d * (3 * b * hq * sq + 2 * b * hkv * sq)
+            nbytes = (es * d * (3 * b * hq * sq + 2 * b * hkv * skv)
                       + 4 * b * hq * sq
-                      + es * d * (b * hq * sq + 2 * b * hkv * sq))
+                      + es * d * (b * hq * sq + 2 * b * hkv * skv))
             flops = 2.5 * 4.0 * d * b * hq * pairs
             bound_ms, bound_by = bound(flops, nbytes, dtype)
             if expand_kv:
                 kv = [t.repeat_interleave(hq // hkv, dim=1) for t in (k, v)]
-                sdpa_kw = {}
             else:
                 kv = [k, v]
-                sdpa_kw = {"enable_gqa": True}
+                sdpa_kw["enable_gqa"] = True
             leaves = [t.detach().requires_grad_() for t in (q, *kv)]
-            sdpa_kw.update({"attn_mask": mask} if window
-                           else {"is_causal": True})
             backend = _sdpa_backend(torch, *leaves, **sdpa_kw)
             so = F.scaled_dot_product_attention(*leaves, **sdpa_kw)
-            big = b * hq * sq * sq >= 2 ** 28
+            big = b * hq * sq * skv >= 2 ** 28
             row = {
                 "kernel": "flash_attention_bwd", "case": what,
                 "dtype": str(dtype), "b": b, "hq": hq, "hkv": hkv, "d": d,
-                "sq": sq, "window": window, "instance": inst,
+                "sq": sq, "skv": skv, "causal": causal, "window": window,
+                "instance": inst,
                 "max_abs_err": max(errs.values()), "errs": errs,
                 "tol": BWD_TOL[str(dtype)],
                 "kernel_ms": graph_ms(torch, lambda: fa.flash_attention_bwd(
-                    *args, window=window), reps=5 if big else 20),
+                    *args, **kw), reps=5 if big else 20),
                 "kernel_call_ms": cuda_ms(
                     torch, lambda: fa.flash_attention_bwd(
-                        *args, window=window), 10 if big else 50),
+                        *args, **kw), 10 if big else 50),
                 "plain_ms": graph_ms(torch, lambda: attention_bwd_ref(
-                    *args, window=window), reps=2, replays=3),
+                    *args, **kw), reps=2, replays=3),
                 "library_ms": cuda_ms(torch, lambda: torch.autograd.grad(
                     so, leaves, do, retain_graph=True), 10, 2),
                 "library": f"SDPA backward ({backend}"
@@ -2077,8 +2143,7 @@ def flash_bwd_cases(torch, cases=FLASH_BWD_CASES, expand_kv=False,
             row["tflops"] = flops / row["kernel_ms"] / 1e9
             if d == 256:
                 row["launch_ms"] = kernel_split_ms(
-                    torch, lambda: fa.flash_attention_bwd(*args,
-                                                          window=window))
+                    torch, lambda: fa.flash_attention_bwd(*args, **kw))
             if bf16 and d == 256:
                 from repro_torch.kernels import _build
 
@@ -2097,7 +2162,7 @@ def flash_bwd_cases(torch, cases=FLASH_BWD_CASES, expand_kv=False,
                 fp32_ms[what] = row["kernel_ms"]
             rows.append(row)
             log(row)
-            del so, leaves, kv, args, o, lse, q, k, v, do
+            del so, leaves, kv, args, o, lse, q, k, v, do, mask, sdpa_kw
             gc.collect()
             torch.cuda.empty_cache()
     return rows
@@ -2165,8 +2230,10 @@ def train_grads_kernel_vs_plain(torch, cfg, batch_size=TRAIN_BATCH,
     show as such, not as a gradient off.  For the ssm the drawn decay_b
     is made nonzero first (``give_decay_lora_work``), and its fp32 leaves
     are held to SSM_FP32_SHARE of their plain bf16 distance where that
-    exceeds TRAIN_FP32_GRAD_RTOL (``fp32_grad_limit``)."""
-    from repro_torch.data.pipeline import DataPipeline
+    exceeds TRAIN_FP32_GRAD_RTOL (``fp32_grad_limit``).  The batch is
+    ``train_batches``'s (frames or patches beside the tokens for the
+    enc-dec and vlm families); a key bias (whisper's ``bk``) is held by
+    KEY_BIAS_GRAD_SHARE instead, in every run."""
     from repro_torch.launch.strategy import value_and_grad
     from repro_torch.models.init import init_params
     from repro_torch.tree import flatten
@@ -2176,8 +2243,8 @@ def train_grads_kernel_vs_plain(torch, cfg, batch_size=TRAIN_BATCH,
                          dev)
     if cfg.family == "ssm":
         give_decay_lora_work(torch, params)
-    batch = {k: torch.from_numpy(a).to(dev) for k, a in next(DataPipeline(
-        cfg.vocab_size, batch_size, seq, seed=5)).items()}
+    batch = {k: t.to(dev) for k, t in train_batches(
+        torch, cfg, batch_size, seq, 5)[0].items()}
     names = flatten(_leaf_names(params))[0]
     res, routes = {}, {}
     for dt in (torch.float32, torch.bfloat16):
@@ -2194,7 +2261,8 @@ def train_grads_kernel_vs_plain(torch, cfg, batch_size=TRAIN_BATCH,
                 undo()
             res[(dt, impl)] = (float(loss), flatten(grads)[0],
                                time.perf_counter() - t0,
-                               float(metrics["aux"]))
+                               float(metrics["aux"]) if "aux" in metrics
+                               else None)
     f32, b16 = torch.float32, torch.bfloat16
     # each MoE layer's ids from the forward (remat's recompute repeats them)
     n_moe = (cfg.num_layers - cfg.first_k_dense) if cfg.num_experts else 0
@@ -2202,8 +2270,17 @@ def train_grads_kernel_vs_plain(torch, cfg, batch_size=TRAIN_BATCH,
         routes[(f32, "kernel")][:n_moe], routes[(f32, "ref")][:n_moe])]
     worst32, worst32_share, worst16, control = 0.0, 0.0, 0.0, float("inf")
     worst32_leaf = None
-    failed, still = [], []
+    failed, still, key_bias = [], [], {}
     for i, name in enumerate(names):
+        if name.endswith(".bk"):
+            # zero in exact arithmetic: held by its size, not its direction
+            j = names.index(name[:-2] + "bq")
+            norm = torch.linalg.vector_norm
+            key_bias[name] = max(
+                norm(v[1][i].float()).item()
+                / max(norm(v[1][j].float()).item(), 1e-30)
+                for v in res.values())
+            continue
         moved = {key: bool(v[1][i].any()) for key, v in res.items()}
         if ((moved[(f32, "ref")] and not moved[(f32, "kernel")])
                 or (moved[(b16, "ref")] and not moved[(b16, "kernel")])
@@ -2230,6 +2307,8 @@ def train_grads_kernel_vs_plain(torch, cfg, batch_size=TRAIN_BATCH,
          "seconds": {f"{str(dt)}_{impl}": v[2]
                      for (dt, impl), v in res.items()},
          "fp32_tokens_routed_apart": tipped,
+         "key_bias_grad_share_of_bq": key_bias,
+         "key_bias_share_limit": KEY_BIAS_GRAD_SHARE,
          "leaves_that_must_move": sum(n.endswith(must_move) for n in names)
          if must_move else 0,
          "leaves_without_gradient": still,
@@ -2242,6 +2321,10 @@ def train_grads_kernel_vs_plain(torch, cfg, batch_size=TRAIN_BATCH,
          "bf16_worst_leaf_ratio": worst16,
          "bf16_factor": DS_BF16_FLOOR_FACTOR})
     del res, routes, params, batch
+    if any(v > KEY_BIAS_GRAD_SHARE for v in key_bias.values()):
+        raise AssertionError(f"{cfg.name}: key-bias gradients, zero but "
+                             f"for rounding, reach {key_bias} of their "
+                             f"query bias's (limit {KEY_BIAS_GRAD_SHARE})")
     if still:
         raise AssertionError(f"{cfg.name}: leaves without a gradient (all "
                              f"zero with the kernels, or where they must "
@@ -2288,10 +2371,14 @@ def train_counts_per_call(cfg):
 
 
 def n_attention_layers(cfg) -> int:
-    """Attention layers of a config (``is_attention_layer`` names every
-    layer of a non-hybrid one; the ssm has none)."""
+    """Attention calls a training forward makes (``is_attention_layer``
+    names every layer of a non-hybrid one; the ssm has none; enc-dec:
+    each encoder layer's, and each decoder layer's self and cross
+    attention)."""
     if cfg.family == "ssm":
         return 0
+    if cfg.family == "encdec":
+        return cfg.encoder_layers + 2 * cfg.num_layers
     return sum(cfg.is_attention_layer(i) for i in range(cfg.num_layers))
 
 
@@ -3098,6 +3185,73 @@ def gmm_bwd_cases(torch, part_fns, ptxas_report: str = ""):
     return rows, fwd_rows
 
 
+def train_batches(torch, cfg, b: int, s: int, seed: int, n: int = 1):
+    """``n`` host batches of the training shape ``input_specs`` gives for
+    b x s (s the positions the stack runs): tokens from a
+    ``DataPipeline`` seeded with ``seed`` (the vlm's s - num_patches of
+    them), and for the enc-dec family ``frames`` (b, 1500, d), for the
+    vlm ``patches`` (b, num_patches, d), drawn in bf16 from a normal on a
+    generator seeded with ``seed``: rows that differ (zero frames would
+    give every row of the encoder the same states)."""
+    from repro_torch.data.pipeline import DataPipeline
+
+    stub = {"encdec": ("frames", cfg.encoder_positions),
+            "vlm": ("patches", cfg.num_patches)}.get(cfg.family)
+    pipe = DataPipeline(cfg.vocab_size, b,
+                        s - cfg.num_patches if cfg.family == "vlm" else s,
+                        seed=seed)
+    gen = torch.Generator().manual_seed(seed)
+    out = []
+    for _ in range(n):
+        batch = {k: torch.from_numpy(a) for k, a in next(pipe).items()}
+        if stub:
+            batch[stub[0]] = torch.randn((b, stub[1], cfg.d_model),
+                                         generator=gen).to(torch.bfloat16)
+        out.append(batch)
+    return out
+
+
+def train_model_flops(cfg, b: int, s: int):
+    """(model flops of one train step at b x s, the formula): 6 N tokens
+    (N the active parameters) and 12 b hq d over the attention's pairs
+    per attention layer (causal, and windowed where the config has a
+    window); for the enc-dec family each part at its own length, T the
+    encoder's 1500 positions: 6 (N_enc b T + N_dec b s + N_xkv b T + V d
+    b (s - 1)) + 12 b hq d (L_enc T^2 + L_dec s (s + 1) / 2 + L_dec s T),
+    N_enc the encoder's parameters, N_xkv the cross-attention's key and
+    value projections, N_dec the decoder's others but the embeddings, V d
+    the tied head.  Remat's recompute is not counted."""
+    from repro_torch.models.init import param_specs
+
+    attn = 12.0 * b * cfg.num_heads * cfg.head_dim
+    if cfg.family != "encdec":
+        pairs = _visible_pairs(s, cfg.attention_window)
+        return (6.0 * cfg.num_active_params() * b * s
+                + attn * n_attention_layers(cfg) * pairs,
+                "(6 N_active tokens + 12 L_attn b hq d pairs) / (step_s x "
+                "989e12), pairs the causal (and windowed) visible pairs; "
+                "remat's forward not counted")
+    t = cfg.encoder_positions
+    part = {"enc": 0, "xkv": 0, "embed": 0, "dec": 0}
+    for name, spec in param_specs(cfg).items():
+        key = ("enc" if name.startswith(("enc_blocks.", "final_norm_enc"))
+               else "xkv" if name.startswith("dec_blocks.xattn.")
+               and name.rsplit(".", 1)[1] in ("wk", "wv", "bk", "bv")
+               else "embed" if name.startswith("embed.") else "dec")
+        part[key] += math.prod(spec.shape)
+    flops = (6.0 * (part["enc"] * b * t + part["dec"] * b * s
+                    + part["xkv"] * b * t
+                    + cfg.vocab_size * cfg.d_model * b * (s - 1))
+             + attn * (cfg.encoder_layers * t * t
+                       + cfg.num_layers * s * (s + 1) // 2
+                       + cfg.num_layers * s * t))
+    return flops, ("(6 (N_enc b T + N_dec b s + N_xkv b T + V d b (s-1)) + "
+                   "12 b hq d (L_enc T^2 + L_dec s(s+1)/2 + L_dec s T)) / "
+                   f"(step_s x 989e12), T {t}, N_enc {part['enc']}, N_dec "
+                   f"{part['dec']} (no embeddings), N_xkv {part['xkv']}; "
+                   "remat's forward not counted")
+
+
 def _host(tree):
     """A copy of a tree of device tensors on the host."""
     from repro_torch.tree import tree_map
@@ -3115,13 +3269,16 @@ def _visible_pairs(s: int, window: int) -> int:
 
 def train_cut_runs(torch, cfg, b: int, s: int, phase: str):
     """A training path at full published width with its depth cut to
-    ``cfg.num_layers`` (batch b x s, bf16 compute, fp32 master params,
-    random weights from seed 0, the initial state held on the host so
-    that the card holds only the step's own): (a) a captured
+    ``cfg.num_layers`` (batch b x s, s the positions the stack runs,
+    bf16 compute, fp32 master params, random weights from seed 0, the
+    initial state held on the host so that the card holds only the
+    step's own; batches from ``train_batches``, with the enc-dec
+    family's frames or the vlm's patches): (a) a captured
     ``TrainStep``, 10 steps on one fixed batch, whose loss must fall by
     LEARN_MARGIN (for a MoE with a finite aux above 0 at every step):
-    step ms (mean of the steady steps), tokens/s, MFU (by active
-    parameters for a MoE; attention over the pairs its mask leaves),
+    step ms (mean of the steady steps), tokens/s, MFU
+    (``train_model_flops``: by active parameters for a MoE; attention
+    over the pairs its mask leaves; the enc-dec family part by part),
     peak memory, capture seconds and pool bytes, the card's clocks, and
     a 2-step profile for the device busy share and the top kernels
     (line ``phase``); (b) ``<phase>_graph_vs_eager``: a captured and a
@@ -3133,7 +3290,6 @@ def train_cut_runs(torch, cfg, b: int, s: int, phase: str):
     tensor cores.  Returns the launches made, replays counted."""
     import numpy as np
 
-    from repro_torch.data.pipeline import DataPipeline
     from repro_torch.launch.strategy import TrainStep, init_train_state
     from repro_torch.optim import AdamWConfig
     from repro_torch.tree import flatten
@@ -3143,6 +3299,9 @@ def train_cut_runs(torch, cfg, b: int, s: int, phase: str):
         cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"))
     gc.collect()
     torch.cuda.empty_cache()
+    # what earlier phases left on the card (none of it this phase's)
+    at_start = (torch.cuda.memory_allocated() / 1e9,
+                torch.cuda.memory_reserved() / 1e9)
     launches = {}
 
     def add(counts):
@@ -3155,8 +3314,7 @@ def train_cut_runs(torch, cfg, b: int, s: int, phase: str):
     t0 = time.perf_counter()
     step = TrainStep(cfg, opt, s0, b, s, "graph", device="cuda")
     build_s = time.perf_counter() - t0
-    batch = {k: torch.from_numpy(a) for k, a in next(DataPipeline(
-        cfg.vocab_size, b, s, seed=123)).items()}
+    batch = train_batches(torch, cfg, b, s, 123)[0]
     walls, losses, auxes = [], [], []
     with ClockSampler() as clocks:
         for _ in range(10):
@@ -3164,7 +3322,7 @@ def train_cut_runs(torch, cfg, b: int, s: int, phase: str):
             m = step(batch)
             losses.append(float(m["loss"]))
             walls.append(1e3 * (time.perf_counter() - t0))
-            auxes.append(float(m["aux"]))
+            auxes.append(float(m["aux"]) if "aux" in m else None)
     peak = (torch.cuda.max_memory_allocated() / 1e9,
             torch.cuda.max_memory_reserved() / 1e9)
     kernels, span = _profile_steps(torch, step, batch)
@@ -3172,6 +3330,10 @@ def train_cut_runs(torch, cfg, b: int, s: int, phase: str):
     for e in kernels:
         key = e.key[:100]
         by_name[key] = by_name.get(key, 0.0) + e.self_device_time_total / 2e3
+    classes = kernel_class_split(
+        {e.key: {"ms": e.self_device_time_total / 1e3 / max(e.count, 1),
+                 "per_call": e.count / 2} for e in kernels
+         if e.self_device_time_total > 0})["classes"]
     g = step.graph
     if g.replays != 10 + 2:
         raise AssertionError(f"{phase}: {g.replays} replays for 10 + 2 "
@@ -3183,24 +3345,24 @@ def train_cut_runs(torch, cfg, b: int, s: int, phase: str):
     tokens = b * s
     n_active = cfg.num_active_params()
     n_attn = n_attention_layers(cfg)
-    pairs = _visible_pairs(s, cfg.attention_window)
-    attn_flops = (12.0 * n_attn * b * cfg.num_heads * cfg.head_dim
-                  * pairs)
-    model_flops = 6.0 * n_active * tokens + attn_flops
+    model_flops, formula = train_model_flops(cfg, b, s)
     log({"phase": phase, "arch": cfg.name,
-         "num_layers": cfg.num_layers, "attention_layers": n_attn,
-         "batch": b, "seq": s, "visible_pairs": pairs,
+         "num_layers": cfg.num_layers,
+         "encoder_layers": cfg.encoder_layers, "attention_layers": n_attn,
+         "batch": b, "seq": s, "batch_keys": sorted(batch),
+         "visible_pairs": _visible_pairs(s, cfg.attention_window),
          "n_params": cfg.num_params(), "n_active_params": n_active,
          "losses": losses, "aux": auxes, "drop": losses[0] - losses[-1],
          "margin": LEARN_MARGIN, "step_ms_all": walls,
          "step_ms": 1e3 * step_s, "tokens_per_s": tokens / step_s,
+         "encoder_frames_per_s": (b * cfg.encoder_positions / step_s
+                                  if cfg.family == "encdec" else None),
          "clocks": clocks.summary(), "model_flops_per_step": model_flops,
          "mfu": model_flops / step_s / PEAK_FLOPS["torch.bfloat16"],
-         "mfu_formula": "(6 N_active tokens + 12 L_attn b hq d pairs) / "
-                        "(step_s x 989e12), pairs the causal (and "
-                        "windowed) visible pairs; remat's forward not "
-                        "counted",
+         "mfu_formula": formula,
          "peak_mem_gb": peak[0], "peak_reserved_gb": peak[1],
+         "at_start_gb": {"allocated": at_start[0],
+                         "reserved": at_start[1]},
          "build_s": build_s, "capture_s": g.capture_s,
          "capture_gb": g.capture_bytes / 1e9, "step_calls": g.calls,
          "step_replays": g.replays,
@@ -3208,6 +3370,7 @@ def train_cut_runs(torch, cfg, b: int, s: int, phase: str):
                      "device_busy_share": dev_us / 2e6 / step_s,
                      "device_busy_share_profiled": dev_us / 1e6 / span,
                      "top_kernels_ms_per_step": dict(top),
+                     "classes_per_step": classes,
                      "top_kernels_share": {
                          k: v * 2e3 / dev_us for k, v in top}}})
     if not (all(np.isfinite(losses))
@@ -3221,9 +3384,7 @@ def train_cut_runs(torch, cfg, b: int, s: int, phase: str):
     torch.cuda.empty_cache()
 
     # (b) graph vs eager, one after the other from the host state
-    pipe = DataPipeline(cfg.vocab_size, b, s, seed=7)
-    batches = [{k: torch.from_numpy(a) for k, a in next(pipe).items()}
-               for _ in range(3)]
+    batches = train_batches(torch, cfg, b, s, 7, 3)
     seen = {}
     for mode in ("graph", "eager"):
         reset_counts()
@@ -3251,7 +3412,8 @@ def train_cut_runs(torch, cfg, b: int, s: int, phase: str):
                if not torch.equal(a, e.cpu())]
     log({"phase": f"{phase}_graph_vs_eager", "steps": 3,
          "leaves": len(names), "losses": [float(x["loss"]) for x in mg],
-         "aux": [float(x["aux"]) for x in mg], "identical": not differ,
+         "aux": [float(x["aux"]) if "aux" in x else None for x in mg],
+         "identical": not differ,
          "differ": differ[:20], "peak_mem_gb": {"graph": peak_g,
                                                 "eager": peak_e}})
     if differ:
@@ -3520,6 +3682,46 @@ def give_decay_lora_work(torch, params):
     db = params["blocks"]["tm"]["decay_b"]
     db.copy_(0.01 * torch.randn(db.shape, generator=g, device=db.device))
 
+
+# ---------------------------------------------------------------------------
+# phases 10 and 11: training whisper-medium at full depth and
+# llava-next-mistral-7b at its published widths, depth 5
+# ---------------------------------------------------------------------------
+
+# 8 rows of whisper's own 448-token decoder context, each with its 1500
+# encoder frames
+ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ = 8, 448
+# one 4,096-position stream: 1152 patches and 2,944 tokens; 32 layers'
+# train state (~30 B a parameter with the step's new copy, gradients and
+# casts: 7.24 B parameters) would not fit 80 GB.  Depth 6 peaked at 70.6
+# GB (65.7 GiB) with phases 10 and 11 alone, but after the earlier
+# phases its capture ran out of memory, asking for 70.1 GiB beside 9.8
+# GiB cached and unusable; each layer is ~5.2 GB of the step
+VLM_TRAIN_BATCH, VLM_TRAIN_SEQ = 1, 4096
+VLM_TRAIN_LAYERS = 5
+# the leaves whose gradient comes through the flash backward alone: the
+# encoder's attention and the decoder's cross-attention (the key bias is
+# held by KEY_BIAS_GRAD_SHARE instead: its gradient is zero but for
+# rounding), and llava's attention
+ENCDEC_LEAVES = tuple(f"{blk}.{w}" for blk in ("enc_blocks.attn",
+                                               "dec_blocks.xattn")
+                      for w in ("wq", "wk", "wv", "wo", "bq", "bv"))
+VLM_LEAVES = tuple(f"blocks.attn.{w}" for w in ("wq", "wk", "wv", "wo"))
+# the flash forward with its LSE and the backward at the training shapes
+# (``flash_case``): whisper's encoder (1500 x 1500) and cross-attention
+# (448 queries x 1500 keys), both without the causal mask, and its
+# decoder's causal 448, d 64 with 16 / 16 heads at batch 8; llava's
+# causal 4096 at d 128 with 32 / 8 heads
+FLASH_ENCDEC_CASES = [
+    ("whisper_encoder", ENCDEC_TRAIN_BATCH, 16, 16, 1500, 64, 0, 1500, False),
+    ("whisper_cross", ENCDEC_TRAIN_BATCH, 16, 16, ENCDEC_TRAIN_SEQ, 64, 0,
+     1500, False),
+    ("whisper_decoder_self", ENCDEC_TRAIN_BATCH, 16, 16, ENCDEC_TRAIN_SEQ,
+     64, 0, ENCDEC_TRAIN_SEQ, True)]
+FLASH_VLM_CASES = [("llava_train", VLM_TRAIN_BATCH, 32, 8, VLM_TRAIN_SEQ,
+                    128, 0)]
+
+
 def main() -> int:
     import torch
 
@@ -3733,7 +3935,7 @@ def main() -> int:
         raise AssertionError(f"recurrentgemma-2b is not at full width: "
                              f"{hyb}")
     scan_bwd = rglru_bwd_cases(torch)
-    flash_fwd_hyb = flash_train_fwd_cases(torch, FLASH_FWD_HYBRID_CASE,
+    flash_fwd_hyb = flash_train_fwd_cases(torch, (FLASH_FWD_HYBRID_CASE,),
                                           expand_kv=True)
     flash_bwd_hyb = flash_bwd_cases(torch, FLASH_BWD_HYBRID_CASES,
                                     expand_kv=True,
@@ -3766,6 +3968,48 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # phase 10: training whisper-medium at its published widths and full
+    # depth, 8 x 448 tokens beside 8 x 1500 frames
+    wht = get_config("whisper-medium")
+    if (wht.encoder_layers, wht.num_layers, wht.encoder_positions,
+            wht.d_model, wht.num_heads, wht.num_kv_heads, wht.head_dim,
+            wht.d_ff, wht.vocab_size, wht.compute_dtype, wht.param_dtype,
+            wht.remat) != (24, 24, 1500, 1024, 16, 16, 64, 4096, 51865,
+                           torch.bfloat16, torch.float32, True):
+        raise AssertionError(f"whisper-medium is not at full width: {wht}")
+    flash_fwd_wh = flash_train_fwd_cases(torch, FLASH_ENCDEC_CASES)
+    flash_bwd_wh = flash_bwd_cases(torch, FLASH_ENCDEC_CASES)
+    train_grads_kernel_vs_plain(torch, wht, ENCDEC_TRAIN_BATCH,
+                                ENCDEC_TRAIN_SEQ, must_move=ENCDEC_LEAVES)
+    gc.collect()
+    torch.cuda.empty_cache()
+    c_train_encdec = train_cut_runs(torch, wht, ENCDEC_TRAIN_BATCH,
+                                    ENCDEC_TRAIN_SEQ, "train_encdec")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 11: training llava-next-mistral-7b at its published widths,
+    # depth cut 32 -> 5, one stream of 1152 patches and 2,944 tokens
+    llt = dataclasses.replace(get_config("llava-next-mistral-7b"),
+                              num_layers=VLM_TRAIN_LAYERS)
+    if (llt.d_model, llt.num_heads, llt.num_kv_heads, llt.head_dim,
+            llt.d_ff, llt.vocab_size, llt.num_patches, llt.compute_dtype,
+            llt.param_dtype, llt.remat) != (
+            4096, 32, 8, 128, 14336, 32000, 1152, torch.bfloat16,
+            torch.float32, True):
+        raise AssertionError(f"llava-next-mistral-7b is not at full width: "
+                             f"{llt}")
+    flash_fwd_ll = flash_train_fwd_cases(torch, FLASH_VLM_CASES)
+    flash_bwd_ll = flash_bwd_cases(torch, FLASH_VLM_CASES)
+    train_grads_kernel_vs_plain(torch, llt, VLM_TRAIN_BATCH, VLM_TRAIN_SEQ,
+                                must_move=VLM_LEAVES)
+    gc.collect()
+    torch.cuda.empty_cache()
+    c_train_vlm = train_cut_runs(torch, llt, VLM_TRAIN_BATCH, VLM_TRAIN_SEQ,
+                                 "train_vlm")
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # the summary: the main paths' shapes and dtypes (bf16 flash at the
     # longest smollm prompt, bf16 paged at smollm's mixed batch, the bf16
     # grouped matmul at deepseek's decode and its backward at deepseek's
@@ -3773,7 +4017,8 @@ def main() -> int:
     # 300-token prefill, both reverses at their training shapes) with the
     # launches of every serving and training run
     runs = (c_cli, c_eng, c_static, c_arrival, c_ds, c_gr, c_rg, c_rw,
-            c_wh, c_ll, c_train, c_train_moe, c_train_hyb, c_train_ssm)
+            c_wh, c_ll, c_train, c_train_moe, c_train_hyb, c_train_ssm,
+            c_train_encdec, c_train_vlm)
 
     def summary(rows, name, source, replaces, pick):
         r = [x for x in rows if pick(x)][0]
@@ -3810,7 +4055,8 @@ def main() -> int:
              # granite-3-8b's decode: 8 rows, d 128, group 4, 3 pages
              granite_shape=case(paged, lambda x: granite(x, 8),
                                 ("b", "hq", "hkv", "d", "nb"))),
-        dict(summary(flash + flash_train + flash_fwd_hyb, "flash_attention",
+        dict(summary(flash + flash_train + flash_fwd_hyb + flash_fwd_wh
+                     + flash_fwd_ll, "flash_attention",
                      "src/repro_torch/kernels/csrc/flash_attention.cu",
                      "src/repro/kernels/flash_attention/flash_attention.py:70",
                      lambda x: x["dtype"] == bf16 and x["sq"] == 300
@@ -3826,6 +4072,16 @@ def main() -> int:
                  flash_fwd_hyb, lambda x: x["dtype"] == bf16,
                  ("b", "hq", "hkv", "d", "sq", "window", "lse_max_abs_err",
                   "library")),
+             # the enc-dec and vlm training forwards with the LSE: bf16,
+             # whisper's encoder, cross and decoder self attention at
+             # batch 8, llava's 1 x 4096
+             encdec_vlm_train_shapes=[
+                 case(flash_fwd_wh + flash_fwd_ll,
+                      lambda x, c=c: x["dtype"] == bf16 and x["case"] == c,
+                      ("case", "b", "hq", "hkv", "d", "sq", "skv", "causal",
+                       "lse_max_abs_err", "library"))
+                 for c in ("whisper_encoder", "whisper_cross",
+                           "whisper_decoder_self", "llava_train")],
              # granite-3-8b's prefills: one 300-token prompt (the
              # continuous engine), 8 x 200 (the static engine)
              granite_shape=[
@@ -3867,8 +4123,10 @@ def main() -> int:
                  for b in (1, 8)]),
         # no Pallas kernel: the reference differentiates its XLA
         # attention; the line is the smollm training shape, with
-        # recurrentgemma-2b's (d 256, group 10, window 2048) beside it
-        dict(summary(flash_bwd, "flash_attention_bwd",
+        # recurrentgemma-2b's (d 256, group 10, window 2048), whisper's
+        # three and llava's beside it
+        dict(summary(flash_bwd + flash_bwd_hyb + flash_bwd_wh + flash_bwd_ll,
+                     "flash_attention_bwd",
                      "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                      "src/repro/models/attention.py:52",
                      lambda x: x["dtype"] == bf16
@@ -3876,7 +4134,15 @@ def main() -> int:
              d256_shape=case(flash_bwd_hyb, lambda x: x["dtype"] == bf16,
                              ("b", "hq", "hkv", "d", "sq", "window",
                               "instance", "library", "launch_ms",
-                              "ptxas", "sass_hgmma"))),
+                              "ptxas", "sass_hgmma")),
+             encdec_vlm_train_shapes=[
+                 case(flash_bwd_wh + flash_bwd_ll,
+                      lambda x, c=c: x["dtype"] == bf16 and x["case"] == c,
+                      ("case", "b", "hq", "hkv", "d", "sq", "skv", "causal",
+                       "instance", "library", "kernel_call_ms",
+                       "fp32_cuda_core_ms"))
+                 for c in ("whisper_encoder", "whisper_cross",
+                           "whisper_decoder_self", "llava_train")]),
         dict(summary(gmm, "moe_gmm",
                      "src/repro_torch/kernels/csrc/moe_gmm.cu",
                      "src/repro/kernels/moe_gmm/moe_gmm.py:39",

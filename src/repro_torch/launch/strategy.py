@@ -66,8 +66,12 @@ def value_and_grad(cfg: ModelConfig, attn_impl: str = "auto",
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig) -> Callable:
     """step(state, batch) -> (new_state, metrics); state {"params",
-    "opt"}, metrics {"loss", "xent", "aux", "grad_norm", "lr"} ("xent"
-    and "aux" only with one microbatch, as the reference's)."""
+    "opt"}, batch ``model.input_specs``'s (tokens, and the enc-dec
+    family's frames or the vlm's patches; with ``cfg.microbatches > 1``
+    every key is split along its first dim), metrics {"loss", the loss's
+    own ("xent", and "aux" but for the enc-dec family), "grad_norm",
+    "lr"} (the loss's own only with one microbatch, as the
+    reference's)."""
     vg = value_and_grad(cfg)
     mb = max(1, cfg.microbatches)
 
@@ -137,7 +141,9 @@ class TrainStep:
     """The train step as the reference compiles it
     (``jax.jit(step_fn, donate_argnums=(0,))``, compiled ahead of time):
     :func:`make_train_step`'s step over a static train state and a static
-    (batch, seq) token batch on ``state``'s device, run as one captured
+    batch of ``model.input_specs``'s (batch, seq) training shape on
+    ``state``'s device (tokens; the enc-dec family's also ``frames``, the
+    vlm's ``patches`` and seq - num_patches tokens), run as one captured
     CUDA graph (the forward, remat's recompute and the backward with the
     flash, grouped-matmul, RG-LRU scan and WKV kernels, the global-norm
     clip and the AdamW update) or called directly.  ``step_impl`` is
@@ -147,9 +153,10 @@ class TrainStep:
     Each step writes the new state over the old, in place, with the
     values :func:`make_train_step` returns (its arithmetic, copied into
     the static tensors): ``self.state`` holds the params, ``opt``'s m, v
-    and step; ``self.metrics`` the step's loss, xent and aux (one
-    microbatch only, as the reference's), grad_norm and lr, fp32 scalars
-    on the device that a caller reads after the call.
+    and step; ``self.metrics`` the step's loss, xent and aux (aux not for
+    the enc-dec family; both with one microbatch only, as the
+    reference's), grad_norm and lr, fp32 scalars on the device that a
+    caller reads after the call.
 
     Construction is the step's "compile": warm-up calls (``WARMUP`` and
     the capture on the graph path, one direct call on the eager one,
@@ -190,7 +197,9 @@ class TrainStep:
     def __call__(self, batch: Dict[str, torch.Tensor]
                  ) -> Dict[str, torch.Tensor]:
         """One step on ``batch`` (host or device tensors of the static
-        batch's shapes and dtypes, copied in); returns ``self.metrics``."""
+        batch's keys, shapes and dtypes, copied in; any other batch is
+        refused with ``ValueError``, a tokens-only one for the enc-dec or
+        vlm family included); returns ``self.metrics``."""
         copy_tree_(self.batch, batch, "batch")
         self.graph()
         return self.metrics

@@ -12,7 +12,11 @@ forward and backward, each chosen by ``impl="auto"``; add ``--device
 cpu`` (and ``--smoke`` for the reduced config) to run on the host with
 the plain versions.  The flags and the printed JSON keys are the
 reference's, plus ``--device``.  Trains the dense, MoE, hybrid and ssm
-families (``model.loss_fn`` refuses the others).
+families.  The enc-dec and vlm families train through
+``launch.strategy.TrainStep`` (their loss is ported), but not here: the
+orchestrator's pipeline yields tokens only, as the reference's does, and
+the step refuses a batch without their ``frames`` / ``patches``
+(``ValueError``) rather than fill them with zeros.
 """
 from __future__ import annotations
 

@@ -28,9 +28,14 @@ from repro_torch.models.init import (abstract_params,  # noqa: F401
 
 def loss_fn(cfg: ModelConfig, attn_impl: str = "auto",
             gmm_impl: str = "auto", scan_impl: str = "auto") -> Callable:
-    """f(params, batch) -> (mean loss, {"xent", "aux"}); raises
-    ``NotImplementedError`` for a family the port does not train yet."""
-    transformer.check_trainable(cfg)
+    """f(params, batch) -> (mean loss, metrics): the enc-dec family's is
+    ``whisper.loss_fn`` (metrics {"xent"}), every other family's
+    ``transformer.loss_fn`` ({"xent", "aux"}), as the reference's
+    dispatch; raises ``ValueError`` for a family the reference does not
+    know."""
+    check_ported(cfg)
+    if cfg.family == "encdec":
+        return lambda p, b: whisper.loss_fn(p, b, cfg, attn_impl=attn_impl)
     return lambda p, b: transformer.loss_fn(p, b, cfg, attn_impl=attn_impl,
                                             gmm_impl=gmm_impl,
                                             scan_impl=scan_impl)

@@ -2,8 +2,8 @@
 attention), ssm (RWKV-6) and vlm (a dense decoder behind patch
 embeddings) families: prefill, the per-request decode step, and batched
 paged decode (the counterparts of ``repro.models.transformer``), and the
-training loss of the dense, MoE, hybrid and ssm families (``loss_fn``).
-The enc-dec family is ``repro_torch.models.whisper``.
+training loss of all five (``loss_fn``).  The enc-dec family, serving and
+training, is ``repro_torch.models.whisper``.
 
 Layer stacks are a Python loop: for dense and MoE the unrolled
 ``dense_layers`` first (``first_k_dense`` of them), then the stacked L dim
@@ -116,7 +116,7 @@ def rwkv_block(x, bp, cfg: ModelConfig, state=None,
 
 
 def _remat(block, cfg: ModelConfig, collect: bool):
-    """``block`` (x, bp) -> its outputs as it runs in the stack: under
+    """``block`` (x, bp, ...) -> its outputs as it runs in the stack: under
     ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``) when
     cfg.remat is set, autograd records and no cache is collected, so the
     backward recomputes the block's forward instead of keeping its
@@ -127,7 +127,7 @@ def _remat(block, cfg: ModelConfig, collect: bool):
     state is not allowed while a CUDA graph is being captured."""
     if not (cfg.remat and torch.is_grad_enabled()) or collect:
         return block
-    return lambda x, bp: checkpoint(block, x, bp, use_reentrant=False,
+    return lambda *args: checkpoint(block, *args, use_reentrant=False,
                                     preserve_rng_state=False)
 
 
@@ -264,44 +264,24 @@ def prefill(params, batch, cfg: ModelConfig, max_len: int = 0,
 # training loss
 # ---------------------------------------------------------------------------
 
-# the families the port cannot train yet, and where they wait
-# (ROADMAP.md, Queue 1)
-_TRAIN_TODO = {
-    "encdec": "training of enc-dec and VLM",
-    "vlm": "training of enc-dec and VLM",
-}
-
-
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a family the port cannot train
-    yet, naming the ROADMAP item that adds it: the dense, MoE, hybrid and
-    ssm families train so far."""
-    if cfg.family not in ("dense", "moe", "hybrid", "ssm"):
-        raise NotImplementedError(
-            f"{cfg.name}: training family {cfg.family!r} is not ported yet; "
-            f"ROADMAP.md Queue 1: "
-            f"{_TRAIN_TODO.get(cfg.family, 'training path')}")
-
-
 def loss_fn(params, batch, cfg: ModelConfig, attn_impl: str = "auto",
             gmm_impl: str = "auto", scan_impl: str = "auto"):
-    """Causal LM loss of the dense, MoE, hybrid and ssm families
+    """Causal LM loss of the dense, MoE, hybrid, ssm and vlm families
     (``repro.models.transformer.loss_fn``): predict ``tokens[:, 1:]`` from
-    positions ``[:-1]``, mean token cross-entropy in fp32; over sequence
-    chunks when ``cfg.loss_chunk`` divides the predicted length and is
-    shorter.  Returns (loss, {"xent", "aux"}): aux the MoE layers' summed
-    load-balancing loss (a zero without them), added to the loss as
-    ``0.01 * aux`` when the config has experts.  ``attn_impl``,
-    ``gmm_impl`` and ``scan_impl`` pick the attention's, the experts' and
-    the recurrences' (the RG-LRU scan, the RWKV-6 WKV) implementations,
-    forward and backward.  ``model.loss_fn`` refuses the other families
-    (``check_trainable``), as this function does."""
-    check_trainable(cfg)
-    x, _ = embed_inputs(params, batch, cfg)
+    stream positions ``[patch_len:-1]`` (the vlm's patches come first and
+    predict nothing; ``patch_len`` is 0 for the others), mean token
+    cross-entropy in fp32; over sequence chunks when ``cfg.loss_chunk``
+    divides the predicted length and is shorter.  Returns (loss, {"xent",
+    "aux"}): aux the MoE layers' summed load-balancing loss (a zero
+    without them), added to the loss as ``0.01 * aux`` when the config
+    has experts.  ``attn_impl``, ``gmm_impl`` and ``scan_impl`` pick the
+    attention's, the experts' and the recurrences' (the RG-LRU scan, the
+    RWKV-6 WKV) implementations, forward and backward."""
+    x, patch_len = embed_inputs(params, batch, cfg)
     x, aux, _ = run_stack(x, params, cfg, attn_impl=attn_impl,
                           gmm_impl=gmm_impl, scan_impl=scan_impl)
     x = norm(x, params, "final_norm", cfg)
-    h = x[:, :-1]
+    h = x[:, patch_len:-1]
     labels = batch["tokens"][:, 1:]
     if cfg.loss_chunk and h.shape[1] % cfg.loss_chunk == 0 \
             and h.shape[1] > cfg.loss_chunk:

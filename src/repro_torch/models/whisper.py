@@ -7,9 +7,11 @@ paths.  LayerNorm + GELU MLP, pre-norm blocks, a fixed sinusoid on the
 encoder, learned decoder positions (32,768 of them), tied output
 projection.
 
-Encoder self-attention, the decoder's prefill self-attention and every
-cross-attention (prefill and decode: one query against the encoder's
-1500 keys) run on the flash-attention kernel, where the reference calls
+``loss_fn`` is the training loss (the reference's), each block under
+remat.  Encoder self-attention, the decoder's prefill and training
+self-attention and every cross-attention (training, prefill and decode:
+the queries against the encoder's 1500 keys) run on the flash-attention
+kernel, forward and, in training, backward, where the reference calls
 its ``attention``; decoder self-attention at decode is the plain
 ``decode_attention`` against the ring cache, as for every family.  The
 decode step projects the encoder's keys and values again in every layer,
@@ -35,8 +37,8 @@ from repro_torch.models.attention import (cross_attention,
                                           self_attention)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (dense, embed_tokens, layernorm,
-                                       lm_logits, mlp)
-from repro_torch.models.transformer import _tree_slice, ring_place
+                                       lm_logits, mlp, softmax_xent)
+from repro_torch.models.transformer import _remat, _tree_slice, ring_place
 from repro_torch.tree import copy_tree_
 
 # the reference's prefill ring: prompt + this many slots
@@ -61,19 +63,25 @@ def _sinusoid(positions: int, d: int, device=None):
     return torch.cat([torch.sin(t), torch.cos(t)], dim=1)
 
 
+def _enc_block(x, bp, cfg: ModelConfig, attn_impl: str):
+    """One encoder block: non-causal self-attention, MLP."""
+    a, _ = self_attention(_ln(x, bp, "ln1", cfg), bp["attn"], cfg,
+                          causal=False, use_rope=False, attn_impl=attn_impl)
+    x = x + a
+    return x + mlp(_ln(x, bp, "ln2", cfg), bp["mlp"], cfg)
+
+
 def encode(params, frames, cfg: ModelConfig, attn_impl: str = "auto"):
     """frames: (b, T, d) precomputed conv-frontend output (stub) ->
-    encoder states (b, T, d) in the compute dtype."""
+    encoder states (b, T, d) in the compute dtype.  Each block runs under
+    ``transformer._remat`` (the reference's ``jax.checkpoint``)."""
     dt = cfg.compute_dtype
     x = frames.to(dt)
     x = x + _sinusoid(x.shape[1], cfg.d_model, x.device).to(dt)
+    block = _remat(lambda h, bp: _enc_block(h, bp, cfg, attn_impl), cfg,
+                   False)
     for i in range(cfg.encoder_layers):
-        bp = _tree_slice(params["enc_blocks"], i)
-        a, _ = self_attention(_ln(x, bp, "ln1", cfg), bp["attn"], cfg,
-                              causal=False, use_rope=False,
-                              attn_impl=attn_impl)
-        x = x + a
-        x = x + mlp(_ln(x, bp, "ln2", cfg), bp["mlp"], cfg)
+        x = block(x, _tree_slice(params["enc_blocks"], i))
     return layernorm(x, params["final_norm_enc"], params["final_norm_enc_b"],
                      cfg.norm_eps)
 
@@ -100,24 +108,50 @@ def _dec_block(x, bp, cfg: ModelConfig, enc_kv, attn_impl: str = "auto"):
 
 
 def decode_train(params, tokens, enc_out, cfg: ModelConfig,
-                 attn_impl: str = "auto"):
+                 collect_caches: bool = False, attn_impl: str = "auto"):
     """The decoder over whole token sequences (b, s) from position 0.
     Returns (hidden after the final LayerNorm, (k, v) stacked to (L, b,
-    s, hkv, hd))."""
+    s, hkv, hd) with ``collect_caches``, else None).  Each block, the
+    projection of the encoder states to its cross-attention keys and
+    values included, runs under ``transformer._remat`` (the reference's
+    checkpointed body), so the backward recomputes them; ``enc_out`` is
+    the checkpoint's argument, and its gradient flows through every
+    layer's ``xattn.wk`` / ``wv``."""
     s = tokens.shape[1]
     dt = cfg.compute_dtype
     x = embed_tokens(tokens, params["embed"]["tok"], dt)
     x = x + params["embed"]["pos_dec"][:s].to(dt)
+
+    def body(h, bp, enc):
+        h, kv = _dec_block(h, bp, cfg, _enc_kv(bp, enc, cfg), attn_impl)
+        return h, (kv if collect_caches else None)
+
+    block = _remat(body, cfg, collect_caches)
     ks, vs = [], []
     for i in range(cfg.num_layers):
-        bp = _tree_slice(params["dec_blocks"], i)
-        x, (k, v) = _dec_block(x, bp, cfg, _enc_kv(bp, enc_out, cfg),
-                               attn_impl)
-        ks.append(k)
-        vs.append(v)
+        x, kv = block(x, _tree_slice(params["dec_blocks"], i), enc_out)
+        if collect_caches:
+            ks.append(kv[0])
+            vs.append(kv[1])
     x = layernorm(x, params["final_norm"], params["final_norm_b"],
                   cfg.norm_eps)
-    return x, (torch.stack(ks), torch.stack(vs))
+    return x, ((torch.stack(ks), torch.stack(vs)) if collect_caches
+               else None)
+
+
+def loss_fn(params, batch, cfg: ModelConfig, attn_impl: str = "auto"):
+    """Training loss (``repro.models.whisper.loss_fn``): batch ``frames``
+    (b, T, d) and ``tokens`` (b, s); the encoder, then the decoder over
+    the tokens, the logits of positions ``[:-1]`` against ``tokens[:,
+    1:]``, mean cross-entropy in fp32.  Returns (loss, {"xent"}), the
+    reference's metrics (no aux).  ``attn_impl`` picks the attention's
+    implementation, forward and backward."""
+    enc_out = encode(params, batch["frames"], cfg, attn_impl)
+    x, _ = decode_train(params, batch["tokens"], enc_out, cfg,
+                        attn_impl=attn_impl)
+    loss = softmax_xent(lm_logits(x[:, :-1], params, cfg),
+                        batch["tokens"][:, 1:])
+    return loss, {"xent": loss}
 
 
 def prefill(params, batch, cfg: ModelConfig, max_len: int = 0,
@@ -138,7 +172,7 @@ def prefill(params, batch, cfg: ModelConfig, max_len: int = 0,
         raise ValueError(f"{cfg.name}: a {slots}-slot cache cannot hold the "
                          f"{ring}-slot ring of a {seq}-token prompt")
     x, (k_st, v_st) = decode_train(params, tokens, enc_out, cfg,
-                                   attn_impl)
+                                   collect_caches=True, attn_impl=attn_impl)
     logits = lm_logits(x[:, -1:], params, cfg)[:, 0]
     dt, dev = cfg.compute_dtype, tokens.device
     cache = {

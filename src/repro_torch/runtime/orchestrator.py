@@ -1,8 +1,10 @@
 """The port's training orchestrator (``repro.runtime.orchestrator``): the
 runtime layer of the stack (paper §3.3), instrumented so every second of
 chip time lands in an MPG Interval ledger.  It runs on CUDA unless
-``RunConfig.device`` asks for the CPU, and trains the families
-``model.loss_fn`` takes (dense and MoE so far).
+``RunConfig.device`` asks for the CPU, and trains the dense, MoE,
+hybrid and ssm families: its pipeline yields tokens only, as the
+reference's, so the step refuses the batch of an enc-dec or vlm config,
+which also needs ``frames`` / ``patches`` (``ValueError``).
 
 The same emissions, layers and segments as the reference's: INIT split
 into the compiler layer (the compile clock's seconds: here the step's

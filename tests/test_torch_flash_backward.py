@@ -10,9 +10,10 @@ inputs in fp32:
   same saved tensors, layouts and GQA reduction the card's kernels get);
 * torch autograd of the plain forward ``attention_ref``.
 
-Cases: GQA (g 1, 2, 3, 10), causal, windowed and full masks, ragged
+Cases: GQA (g 1, 2, 3, 4, 10), causal, windowed and full masks, ragged
 lengths, head_dim 16 to 256 (recurrentgemma-2b's: MQA with a group of
-10 under a window).  Tolerance 1e-5 (atol and rtol): the same fp32
+10 under a window), and non-causal with fewer and with more keys than
+queries (whisper's cross-attention).  Tolerance 1e-5 (atol and rtol): the same fp32
 arithmetic in another summation order.  Then what the Function and the
 backward kernel's wrapper refuse (``ValueError`` before any launch), and
 exact zeros for rows that see no key.  The CUDA kernel itself is held
@@ -37,7 +38,7 @@ from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
-# (b, hq, hkv, sq, d, causal, window)
+# (b, hq, hkv, sq, d, causal, window[, skv]): skv defaults to sq
 CASES = [
     (1, 3, 1, 37, 16, True, 0),        # g 3, one ragged tile
     (2, 6, 3, 45, 32, True, 0),        # g 2
@@ -46,17 +47,27 @@ CASES = [
     (1, 4, 4, 33, 16, False, 0),       # MHA, no mask
     (1, 4, 2, 40, 128, True, 8),       # head_dim 128, window
     (1, 10, 1, 70, 256, True, 24),     # recurrentgemma-2b's heads, window
+    # non-causal, sq != skv (whisper's cross-attention: 448 queries x
+    # 1500 keys, both ragged against the kernels' 64 / 128 tiles; and
+    # fewer keys than queries), group 1 and 4
+    (2, 4, 4, 12, 64, False, 0, 40),
+    (1, 8, 2, 12, 16, False, 0, 40),
+    (2, 4, 4, 40, 16, False, 0, 24),
+    (1, 8, 2, 40, 128, False, 0, 24),
 ]
 IDS = [f"b{c[0]}-hq{c[1]}-hkv{c[2]}-s{c[3]}-d{c[4]}-"
-       f"{'causal' if c[5] else 'full'}-w{c[6]}" for c in CASES]
+       f"{'causal' if c[5] else 'full'}-w{c[6]}"
+       + (f"-kv{c[7]}" if len(c) > 7 else "") for c in CASES]
 
 
-def _inputs(b, hq, hkv, sq, d, seed):
-    """(b, s, h, d) q, k, v and the output's gradient, as numpy."""
+def _inputs(b, hq, hkv, sq, d, seed, skv=None):
+    """(b, s, h, d) q, k, v and the output's gradient, as numpy; k and v
+    hold ``skv`` positions (default sq)."""
+    skv = sq if skv is None else skv
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((b, sq, hq, d)).astype(np.float32)
-    k = rng.standard_normal((b, sq, hkv, d)).astype(np.float32)
-    v = rng.standard_normal((b, sq, hkv, d)).astype(np.float32)
+    k = rng.standard_normal((b, skv, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((b, skv, hkv, d)).astype(np.float32)
     do = rng.standard_normal((b, sq, hq, d)).astype(np.float32)
     return q, k, v, do
 
@@ -72,8 +83,10 @@ def _jax_grads(q, k, v, do, causal, window):
 
 @pytest.fixture(scope="module", params=CASES, ids=IDS)
 def case(request):
-    b, hq, hkv, sq, d, causal, window = request.param
-    q, k, v, do = _inputs(b, hq, hkv, sq, d, seed=sq + d + window)
+    b, hq, hkv, sq, d, causal, window, *rest = request.param
+    skv = rest[0] if rest else sq
+    q, k, v, do = _inputs(b, hq, hkv, sq, d, seed=skv + d + window,
+                          skv=skv)
     return dict(arrays=(q, k, v, do), causal=causal, window=window,
                 jax=_jax_grads(q, k, v, do, causal, window))
 
@@ -126,8 +139,8 @@ def test_lse_is_the_masked_logsumexp(case):
     g = hq // k.shape[1]
     s = torch.einsum("bhqd,bhkd->bhqk", q.double() * d ** -0.5,
                      k.double().repeat_interleave(g, dim=1))
-    pos = torch.arange(sq)
-    mask = torch.ones((sq, sq), dtype=torch.bool)
+    pos = torch.arange(sq)                  # causal cases have skv == sq
+    mask = torch.ones((sq, k.shape[2]), dtype=torch.bool)
     if causal:
         mask &= pos[None, :] <= pos[:, None]
     if window:

@@ -2,7 +2,8 @@
 (attention also at deepseek-moe-16b's head shape, d 128 with one query
 head per kv head, and recurrentgemma-2b's, d 256 with a group of 10;
 non-causal with fewer or more queries than keys at whisper-medium's
-heads, the encoder's 1500 states and its cross-attention;
+heads, the encoder's 1500 states and its cross-attention, forward and
+backward, and the backward at llava-next-mistral-7b's training shape;
 paged attention also at 16 pages a row, where a row's pages are split
 over blocks and merged in the launch, with windows across splits and a
 group of 8; the grouped matmul at ragged and deepseek shapes, also with
@@ -201,13 +202,14 @@ BWD_TOLS = {torch.float32: dict(atol=1e-4, rtol=1e-4),
 BWD_DIST_FACTOR = 2.0
 
 
-def _bwd_inputs(dev, dtype, b, hq, hkv, sq, d, seed):
+def _bwd_inputs(dev, dtype, b, hq, hkv, sq, d, seed, skv=None):
     """The model's (b, s, h, d) q, k, v and an output gradient, viewed as
-    (b, h, s, d), with the plain forward's output and LSE."""
+    (b, h, s, d); k and v hold ``skv`` positions (default sq)."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    q, k, v, do = (torch.randn((b, sq, h, d), generator=g, device=dev)
+    q, k, v, do = (torch.randn((b, s, h, d), generator=g, device=dev)
                    .to(dtype).transpose(1, 2)
-                   for h in (hq, hkv, hkv, hq))
+                   for s, h in ((sq, hq), (skv or sq, hkv), (skv or sq, hkv),
+                                (sq, hq)))
     return q, k, v, do
 
 
@@ -273,6 +275,40 @@ def test_flash_bwd_kernel_matches_plain(card, dtype, b, hq, hkv, sq, d,
     q, k, v, do = _bwd_inputs(card, dtype, b, hq, hkv, sq, d,
                               seed=sq + d + window)
     kw = dict(causal=causal, window=window)
+    o, lse = attention_ref(q, k, v, return_lse=True, **kw)
+    tc = dtype == torch.bfloat16
+    assert fmod.bwd_instance(q, k, v, o, do) == ("tc" if tc else "cuda_core")
+    n0, tc0 = fmod.LAUNCHES_BWD, fmod.LAUNCHES_BWD_TC
+    out = fmod.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = fmod.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    assert fmod.LAUNCHES_BWD == n0 + 2
+    assert fmod.LAUNCHES_BWD_TC == tc0 + 2 * tc
+    _check_bwd(out, (q, k, v, o, lse, do), kw, tc)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal", [
+    # chip_smoke.py's training shapes of whisper-medium and
+    # llava-next-mistral-7b at a reduced batch: the encoder (1500 keys:
+    # 11 x 128 + 92, 23 x 64 + 28), the cross-attention (448 = 3 x 128 +
+    # 64 queries against them), the decoder's causal self-attention, and
+    # llava's GQA group 4 at d 128 over 4096 positions
+    (2, 16, 16, 1500, 1500, 64, False), (2, 16, 16, 448, 1500, 64, False),
+    (2, 16, 16, 448, 448, 64, True), (1, 32, 8, 4096, 4096, 128, True),
+    # more queries than keys, non-causal, ragged, g 1 and g 4
+    (2, 4, 4, 200, 70, 64, False), (1, 8, 2, 100, 60, 128, False),
+])
+def test_flash_bwd_noncausal_and_train_shapes_match_plain(
+        card, dtype, b, hq, hkv, sq, skv, d, causal):
+    """The backward at sq != skv without the causal mask, and at the
+    enc-dec and vlm training shapes, against ``attention_bwd_ref``
+    (``_check_bwd``): bf16 on the tensor cores, two calls bit-identical,
+    one count per call."""
+    q, k, v, do = _bwd_inputs(card, dtype, b, hq, hkv, sq, d,
+                              seed=sq + skv + d, skv=skv)
+    kw = dict(causal=causal)
     o, lse = attention_ref(q, k, v, return_lse=True, **kw)
     tc = dtype == torch.bfloat16
     assert fmod.bwd_instance(q, k, v, o, do) == ("tc" if tc else "cuda_core")

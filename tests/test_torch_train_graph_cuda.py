@@ -5,7 +5,9 @@ At SMOKE widths with head_dim 64 (the flash backward's), on the same
 initial state and batches:
 
 * the graph and eager steps give bit-identical params, m, v, step and
-  metrics after 3 steps, fp32 and bf16 compute;
+  metrics after 3 steps, fp32 and bf16 compute, also for whisper-medium
+  (frames) and llava-next-mistral-7b (patches), with their flash
+  launches counted exactly;
 * the counters see the warm-up and capture calls only (per call one
   flash forward per layer, again in remat's recompute, one backward per
   layer, bf16 on the tensor cores), replays add none, and a profiled
@@ -94,6 +96,59 @@ def test_graph_and_eager_steps_give_identical_state(card, dtype):
     assert (g.captures, g.replays, g.calls) == (1, 3, WARMUP + 1)
     assert (e.captures, e.replays, e.calls) == (0, 0, 1 + 3)
     assert g.capture_bytes > 0
+
+
+def _family_batches(cfg, n):
+    """n batches of ``input_specs``'s training shape (B x S): random
+    tokens, and the enc-dec family's frames or the vlm's patches drawn
+    from a seeded normal in bf16 (rows that differ)."""
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.model import input_specs
+
+    g = torch.Generator().manual_seed(4)
+    specs = input_specs(cfg, ShapeConfig("t", "train", S, B))
+    return [{k: (torch.randn(x.shape, generator=g).to(x.dtype)
+                 if x.dtype.is_floating_point
+                 else torch.randint(0, cfg.vocab_size, x.shape, generator=g,
+                                    dtype=x.dtype))
+             for k, x in specs.items()} for _ in range(n)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("arch", ["whisper-medium", "llava-next-mistral-7b"])
+def test_graph_and_eager_steps_identical_encdec_vlm(card, arch, dtype):
+    """The enc-dec (frames) and vlm (patches) families' SMOKE configs at
+    head_dim 64: graph and eager steps bit for bit over 3 batches, and
+    the flash launches counted exactly: per direct call, one forward per
+    attention (whisper: each encoder layer and each decoder layer's self
+    and cross attention), again in remat's recompute, and one backward,
+    bf16 on the tensor cores."""
+    cfg = dataclasses.replace(get_smoke(arch), head_dim=64,
+                              compute_dtype=dtype)
+    n_attn = (cfg.encoder_layers + 2 * cfg.num_layers
+              if cfg.family == "encdec" else cfg.num_layers)
+    state = _state(cfg, card)
+    n0, b0 = fa.LAUNCHES, fa.LAUNCHES_BWD
+    tc0, tcb0 = fa.LAUNCHES_TC, fa.LAUNCHES_BWD_TC
+    graph = TrainStep(cfg, OPT, state, B, S, step_impl="graph")
+    eager = TrainStep(cfg, OPT, state, B, S, step_impl="eager")
+    for batch in _family_batches(cfg, 3):
+        mg, me = graph(batch), eager(batch)
+        torch.cuda.synchronize()
+        assert mg.keys() == me.keys()
+        for k in mg:
+            assert torch.equal(mg[k], me[k]), k
+        for i, (a, b) in enumerate(zip(flatten(graph.state)[0],
+                                       flatten(eager.state)[0])):
+            assert torch.equal(a, b), i
+    calls = graph.graph.calls + eager.graph.calls
+    assert calls == WARMUP + 1 + 1 + 3
+    assert fa.LAUNCHES - n0 == 2 * n_attn * calls
+    assert fa.LAUNCHES_BWD - b0 == n_attn * calls
+    tc = dtype == torch.bfloat16
+    assert fa.LAUNCHES_TC - tc0 == 2 * n_attn * calls * tc
+    assert fa.LAUNCHES_BWD_TC - tcb0 == n_attn * calls * tc
 
 
 def test_replays_add_no_counted_launch_and_the_backward_is_captured(card):

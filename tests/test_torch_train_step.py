@@ -26,8 +26,9 @@ batches (the reference's ``DataPipeline``), SMOKE smollm-135m:
   the activations and the embedding's scatter-add sums at other places:
   the leaves land 1.7-2.5% apart);
 * ``input_specs`` / ``synthetic_batch`` / ``abstract_train_state`` shapes
-  and dtypes, and the families the port does not train yet (enc-dec and
-  VLM) are refused;
+  and dtypes; ``model.loss_fn`` sends the enc-dec family to
+  ``whisper.loss_fn`` and every other to ``transformer.loss_fn``, and
+  refuses a family the reference does not know (``ValueError``);
 * the MoE family, deepseek-moe-16b and mixtral-8x7b SMOKE, through the
   same checks: ``loss_fn`` (xent, the load-balancing aux summed over the
   MoE layers, and ``0.01 * aux`` in the loss) and its gradients within
@@ -354,12 +355,32 @@ def test_abstract_train_state_matches_reference(setup):
         [np.dtype(x.dtype).name for x in j]
 
 
-@pytest.mark.parametrize("family", ["encdec", "vlm"])
-def test_untrained_families_are_refused(family):
-    """The families the port does not train yet (no port config of
-    theirs exists, so smollm's SMOKE config stands in, relabelled)."""
-    cfg = dataclasses.replace(tsmoke(ARCH), family=family)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("arch", ["smollm-135m", "deepseek-moe-16b",
+                                  "recurrentgemma-2b", "rwkv6-3b",
+                                  "whisper-medium", "llava-next-mistral-7b"])
+def test_loss_fn_dispatches_by_family(arch, monkeypatch):
+    """``model.loss_fn`` sends the enc-dec family to ``whisper.loss_fn``
+    and every other family to ``transformer.loss_fn`` (the reference's
+    dispatch), with the implementations it was given."""
+    from repro_torch.models import transformer, whisper
+
+    cfg = tsmoke(arch)
+    seen = []
+    monkeypatch.setattr(whisper, "loss_fn", lambda p, b, c, **kw:
+                        seen.append(("whisper", c, kw)))
+    monkeypatch.setattr(transformer, "loss_fn", lambda p, b, c, **kw:
+                        seen.append(("transformer", c, kw)))
+    tmodel.loss_fn(cfg, attn_impl="ref")({}, {})
+    want = ("whisper" if cfg.family == "encdec" else "transformer")
+    assert [(w, c) for w, c, _ in seen] == [(want, cfg)]
+    assert seen[0][2]["attn_impl"] == "ref"
+
+
+def test_untrained_families_are_refused():
+    """A family the reference does not know (smollm's SMOKE config
+    relabelled) is refused when the loss is made, before any call."""
+    cfg = dataclasses.replace(tsmoke(ARCH), family="diffusion")
+    with pytest.raises(ValueError, match="unknown model family"):
         tmodel.loss_fn(cfg)
 
 
