@@ -138,7 +138,8 @@ each of which raises on failure (nothing is caught):
    reverse scan (``rglru_scan_bwd``) against its plain version at (1,
    4096, 2560) from zeros and from a nonzero h0 and at a ragged (1, 37,
    40), fp32 and bf16, bit-exact, with its time, the plain version's and
-   its bound; the flash forward with its LSE at the training shape (q
+   its bound, and the forward scan at (1, 4096, 2560) as in phase 2; the
+   flash forward with its LSE at the training shape (q
    (1, 4096, 10, 256), k, v (1, 4096, 1, 256), causal, window 2048)
    beside SDPA's forward, and the flash backward there, fp32 on the CUDA
    cores and bf16 on the tensor cores as in phase 6, beside SDPA's
@@ -200,7 +201,20 @@ each of which raises on failure (nothing is caught):
    stream of 1152 patches, drawn from a seeded normal, and 2,944
    tokens): phase 10's (a)-(d) at its causal 4096 (GQA group 4),
    every attention leaf moving, the dense MFU over the 4,096 positions
-   (``train_vlm``, ``train_vlm_graph_vs_eager``).
+   (``train_vlm``, ``train_vlm_graph_vs_eager``);
+12. the compile-time analysis of the six training cells above
+   (``analysis``; it runs no step, it reads their measured step times):
+   ``H100_SXM.hbm_bytes`` (``repro_torch.core.hardware``) against the
+   card's total memory (within ``HBM_SPEC_SHARE``); per cell the
+   reference's ``model_flops`` (6 N_active tokens) and its MFU
+   (``mfu_model_flops``) beside the smoke's own, the cost reference's
+   counted flops and bytes (``repro_torch.core.costref``: the plain step
+   on ``meta`` tensors, on the host, each kernel's plain version at its
+   kernel's bytes) and the roofline of one H100
+   (``RooflineCell``: compute, memory and lower-bound times, the
+   dominant term, the useful share, ``pg_measured`` = t_ideal over the
+   measured step; a lower bound above the step fails), and the seconds
+   each count took.
 
 Every serving run goes through the executor's ``serving_params`` (the
 weights cast to the compute dtype once) and runs each decode step as a
@@ -294,10 +308,17 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.core.hardware import H100_SXM  # noqa: E402
+
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, and flop/s for
-# bf16 on the tensor cores and fp32 outside them (the kernels' exact fp32)
-HBM_BYTES_S = 3.35e12
-PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
+# bf16 on the tensor cores (``H100_SXM``) and fp32 outside them (the
+# kernels' exact fp32: 67 TFLOP/s)
+HBM_BYTES_S = H100_SXM.hbm_bw
+PEAK_FLOPS = {"torch.bfloat16": H100_SXM.peak_flops_bf16,
+              "torch.float32": 67e12}
+# the analysis phase: H100_SXM's HBM capacity may differ from the card's
+# total memory by at most this share
+HBM_SPEC_SHARE = 0.03
 TOL = {"torch.float32": dict(atol=1e-5, rtol=1e-5),
        "torch.bfloat16": dict(atol=1.6e-2, rtol=1e-2)}
 # full-model logits, bf16, kernel vs plain attention: the two attentions
@@ -680,20 +701,26 @@ def gmm_cases(torch):
     return rows
 
 
-def rglru_cases(torch, floor_ms):
-    """The RG-LRU scan at recurrentgemma-2b's prefill shape (the gates are
-    fp32 in the model), from zeros and from a nonzero state, at 2048 and
-    40 steps, a ragged shape no block divides, batch 4, and the static
-    engine's batch-8 prefill of 200 tokens; fp32 must be
-    bit-exact against the plain version (both round the same two ops)."""
+# (b, s, w, from a nonzero state) of the RG-LRU scan's serving cases, and
+# the hybrid's training shape (timed in phase 8, beside the reverse)
+RGLRU_SERVE_SHAPES = ((1, 300, 2560, False), (1, 300, 2560, True),
+                      (1, 2048, 2560, False), (1, 40, 2560, False),
+                      (3, 37, 200, True), (4, 300, 2560, True),
+                      (8, 200, 2560, False))
+RGLRU_TRAIN_SHAPES = ((1, 4096, 2560, False),)
+
+
+def rglru_cases(torch, floor_ms, shapes=RGLRU_SERVE_SHAPES):
+    """The RG-LRU scan at ``shapes``, fp32 and bf16 (the gates are fp32
+    in the model): by default recurrentgemma-2b's prefill shape, from
+    zeros and from a nonzero state, at 2048 and 40 steps, a ragged shape
+    no block divides, batch 4, and the static engine's batch-8 prefill of
+    200 tokens; fp32 must be bit-exact against the plain version (both
+    round the same two ops)."""
     from repro_torch.kernels.rglru_scan import rglru_scan as rs
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 
     dev = torch.device("cuda")
-    shapes = [(1, 300, 2560, False), (1, 300, 2560, True),
-              (1, 2048, 2560, False), (1, 40, 2560, False),
-              (3, 37, 200, True), (4, 300, 2560, True),
-              (8, 200, 2560, False)]
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         for b, s, w, with_h0 in shapes:
@@ -2516,7 +2543,8 @@ def train_runs(torch, cfg):
     steps each.  Checks the emissions, the launches and the losses;
     reports step time, tokens/s, MFU, peak memory, capture seconds and
     bytes, checkpoint seconds, compile seconds and RG.  Returns the
-    launches of (a) and (b), replays counted."""
+    launches of (a) and (b), replays counted, and the measured step
+    (``measured_step``: the orchestrator's steady steps)."""
     import shutil
     import tempfile
 
@@ -2634,6 +2662,10 @@ def train_runs(torch, cfg):
         attn_flops = (12.0 * cfg.num_layers * TRAIN_BATCH * cfg.num_heads
                       * cfg.head_dim * pairs)
         model_flops = 6.0 * n_params * tokens + attn_flops
+        mfu_formula = ("(6 N tokens + 12 L b hq d s(s+1)/2) / "
+                       "(step_s x 989e12); remat's forward not counted")
+        measured = measured_step("train_orchestrator", cfg, TRAIN_BATCH,
+                                 TRAIN_SEQ, step_s, model_flops, mfu_formula)
         ivs = orc1.intervals + orc2.intervals
         rep = compute_goodput(ivs, sum(i.chip_time for i in ivs))
         ck = [o.ckpt.metrics for o in (orc1, orc2)]
@@ -2650,9 +2682,7 @@ def train_runs(torch, cfg):
                              + orc2.step_times],
              "tokens_per_s": tokens / step_s,
              "model_flops_per_step": model_flops,
-             "mfu": model_flops / step_s / PEAK_FLOPS["torch.bfloat16"],
-             "mfu_formula": "(6 N tokens + 12 L b hq d s(s+1)/2) / "
-                            "(step_s x 989e12); remat's forward not counted",
+             "mfu": measured["mfu"], "mfu_formula": mfu_formula,
              "n_params": n_params,
              "peak_mem_gb": [peak1[0], peak2[0]],
              "peak_reserved_gb": [peak1[1], peak2[1]],
@@ -2769,7 +2799,7 @@ def train_runs(torch, cfg):
         del graph, eager, s0, batch
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return launches
+    return launches, measured
 
 
 # ---------------------------------------------------------------------------
@@ -3287,7 +3317,8 @@ def train_cut_runs(torch, cfg, b: int, s: int, phase: str):
     first's metrics and final state held on the host: bit-identical
     params, m, v, step and metrics.  Launches counted exactly, per
     direct call, those of the kernels with two instances all on the
-    tensor cores.  Returns the launches made, replays counted."""
+    tensor cores.  Returns the launches made, replays counted, and the
+    measured step (``measured_step``)."""
     import numpy as np
 
     from repro_torch.launch.strategy import TrainStep, init_train_state
@@ -3346,6 +3377,7 @@ def train_cut_runs(torch, cfg, b: int, s: int, phase: str):
     n_active = cfg.num_active_params()
     n_attn = n_attention_layers(cfg)
     model_flops, formula = train_model_flops(cfg, b, s)
+    measured = measured_step(phase, cfg, b, s, step_s, model_flops, formula)
     log({"phase": phase, "arch": cfg.name,
          "num_layers": cfg.num_layers,
          "encoder_layers": cfg.encoder_layers, "attention_layers": n_attn,
@@ -3358,8 +3390,7 @@ def train_cut_runs(torch, cfg, b: int, s: int, phase: str):
          "encoder_frames_per_s": (b * cfg.encoder_positions / step_s
                                   if cfg.family == "encdec" else None),
          "clocks": clocks.summary(), "model_flops_per_step": model_flops,
-         "mfu": model_flops / step_s / PEAK_FLOPS["torch.bfloat16"],
-         "mfu_formula": formula,
+         "mfu": measured["mfu"], "mfu_formula": formula,
          "peak_mem_gb": peak[0], "peak_reserved_gb": peak[1],
          "at_start_gb": {"allocated": at_start[0],
                          "reserved": at_start[1]},
@@ -3420,7 +3451,97 @@ def train_cut_runs(torch, cfg, b: int, s: int, phase: str):
         raise AssertionError(f"{phase} graph vs eager: {len(differ)} "
                              f"leaves or metrics differ: {differ[:20]}")
     del seen, se, sg, s0
-    return launches
+    return launches, measured
+
+
+def measured_step(phase: str, cfg, b: int, s: int, step_s: float,
+                  model_flops: float, formula: str) -> dict:
+    """A training phase's measured step as the ``analysis`` phase reads
+    it: the cell (config as cut, b x s), the step's seconds, and the
+    smoke's own MFU with its formula."""
+    return {"phase": phase, "cfg": cfg, "batch": b, "seq": s,
+            "step_s": step_s, "mfu": model_flops / step_s
+            / PEAK_FLOPS["torch.bfloat16"], "mfu_formula": formula}
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the compile-time analysis of the training cells
+# ---------------------------------------------------------------------------
+
+def analysis(torch, cells):
+    """The reference's compile-time analysis of each training cell the
+    smoke ran (``cells``: ``measured_step``'s records), on the host, no
+    step run: ``H100_SXM.hbm_bytes`` against the card's total memory
+    (both printed; more than HBM_SPEC_SHARE apart fails), then per cell
+    ``model_flops`` (6 N_active tokens, ``repro_torch.core.flops``) and
+    its MFU over the measured step, the cost reference's counted flops
+    and bytes (``cost_reference``, counted anew: the plain step on
+    ``meta`` tensors, the eager ops outside the kernels unfused and each
+    kernel at its byte model), the one-H100 ``RooflineCell`` of them
+    (t_compute, t_memory, t_lower_bound, t_ideal, the dominant term,
+    useful_ratio, pg_overlap) and ``pg_measured`` = t_ideal / the
+    measured step.  A lower bound above the measured step fails: the
+    counts would not describe the step that ran."""
+    from repro_torch.core.costref import cost_reference
+    from repro_torch.core.flops import model_flops
+    from repro_torch.core.roofline import RooflineCell
+    from repro_torch.models.config import ShapeConfig
+
+    t_phase = time.perf_counter()
+    total = torch.cuda.get_device_properties(0).total_memory
+    share = abs(H100_SXM.hbm_bytes - total) / total
+    log({"phase": "analysis_hbm", "spec": H100_SXM.name,
+         "spec_hbm_bytes": H100_SXM.hbm_bytes,
+         "device_total_memory": total, "share": share,
+         "limit": HBM_SPEC_SHARE})
+    if share > HBM_SPEC_SHARE:
+        raise AssertionError(f"H100_SXM.hbm_bytes {H100_SXM.hbm_bytes} is "
+                             f"{share:.3f} away from the card's {total}")
+    peak = H100_SXM.peak_flops_bf16
+    for m in cells:
+        cfg, b, s, step_s = m["cfg"], m["batch"], m["seq"], m["step_s"]
+        shape = ShapeConfig("smoke_train", "train", s, b)
+        mf = model_flops(cfg, shape)
+        t0 = time.perf_counter()
+        cost = cost_reference(cfg, shape, use_cache=False)
+        count_s = time.perf_counter() - t0
+        cell = RooflineCell(arch=cfg.name, shape=shape.name, mesh="1",
+                            chips=1, hlo_flops=cost["flops"],
+                            hlo_bytes=cost["bytes"],
+                            collective_bytes_per_chip=0.0, model_flops=mf,
+                            chip=H100_SXM)
+        log({"phase": "analysis", "cell": m["phase"], "arch": cfg.name,
+             "num_layers": cfg.num_layers,
+             "encoder_layers": cfg.encoder_layers, "batch": b, "seq": s,
+             "step_ms": 1e3 * step_s, "model_flops": mf,
+             "mfu": m["mfu"], "mfu_model_flops": mf / (step_s * peak),
+             "mfu_formula": {
+                 "mfu": m["mfu_formula"],
+                 "mfu_model_flops": "6 N_active tokens / (step_s x "
+                                    "989e12): repro_torch.core.flops."
+                                    "model_flops, the reference's"},
+             "counted_flops": cost["flops"], "counted_bytes": cost["bytes"],
+             "counted_bytes_model": "eager aten ops unfused, each input "
+                                    "and output once; each kernel's "
+                                    "tensors in and out once",
+             "count_points": len(cost["ref_points"]),
+             "t_compute_ms": 1e3 * cell.t_compute,
+             "t_memory_ms": 1e3 * cell.t_memory,
+             "t_lower_bound_ms": 1e3 * cell.t_lower_bound,
+             "t_ideal_ms": 1e3 * cell.t_ideal, "dominant": cell.dominant,
+             "useful_ratio": cell.useful_ratio,
+             "pg_overlap": cell.pg_optimistic,
+             "pg_measured": cell.t_ideal / step_s,
+             "lower_bound_share": cell.t_lower_bound / step_s,
+             "count_s": count_s})
+        if cell.t_lower_bound > step_s:
+            raise AssertionError(
+                f"{m['phase']}: the roofline's lower bound "
+                f"{1e3 * cell.t_lower_bound:.2f} ms is above the measured "
+                f"step {1e3 * step_s:.2f} ms: the counts do not describe "
+                f"the step that ran")
+    log({"phase": "analysis_total", "cells": len(cells),
+         "seconds": time.perf_counter() - t_phase})
 
 
 # ---------------------------------------------------------------------------
@@ -3901,7 +4022,7 @@ def main() -> int:
     train_head(torch, cfg)
     gc.collect()
     torch.cuda.empty_cache()
-    c_train = train_runs(torch, cfg)
+    c_train, m_train = train_runs(torch, cfg)
 
     # phase 7: training deepseek-moe-16b at its published widths, depth
     # cut 28 -> 2 (the dense first layer and one MoE layer)
@@ -3918,8 +4039,8 @@ def main() -> int:
     train_grads_kernel_vs_plain(torch, dst, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ)
     gc.collect()
     torch.cuda.empty_cache()
-    c_train_moe = train_cut_runs(torch, dst, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ,
-                                 "train_moe")
+    c_train_moe, m_train_moe = train_cut_runs(
+        torch, dst, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, "train_moe")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3935,6 +4056,7 @@ def main() -> int:
         raise AssertionError(f"recurrentgemma-2b is not at full width: "
                              f"{hyb}")
     scan_bwd = rglru_bwd_cases(torch)
+    scan_train = rglru_cases(torch, floor_ms, RGLRU_TRAIN_SHAPES)
     flash_fwd_hyb = flash_train_fwd_cases(torch, (FLASH_FWD_HYBRID_CASE,),
                                           expand_kv=True)
     flash_bwd_hyb = flash_bwd_cases(torch, FLASH_BWD_HYBRID_CASES,
@@ -3945,8 +4067,8 @@ def main() -> int:
                                 HYBRID_TRAIN_SEQ, must_move=SCAN_LEAVES)
     gc.collect()
     torch.cuda.empty_cache()
-    c_train_hyb = train_cut_runs(torch, hyb, HYBRID_TRAIN_BATCH,
-                                 HYBRID_TRAIN_SEQ, "train_hybrid")
+    c_train_hyb, m_train_hyb = train_cut_runs(
+        torch, hyb, HYBRID_TRAIN_BATCH, HYBRID_TRAIN_SEQ, "train_hybrid")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3963,8 +4085,8 @@ def main() -> int:
                                 must_move=WKV_LEAVES)
     gc.collect()
     torch.cuda.empty_cache()
-    c_train_ssm = train_cut_runs(torch, ssm, SSM_TRAIN_BATCH, SSM_TRAIN_SEQ,
-                                 "train_ssm")
+    c_train_ssm, m_train_ssm = train_cut_runs(
+        torch, ssm, SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, "train_ssm")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3983,8 +4105,8 @@ def main() -> int:
                                 ENCDEC_TRAIN_SEQ, must_move=ENCDEC_LEAVES)
     gc.collect()
     torch.cuda.empty_cache()
-    c_train_encdec = train_cut_runs(torch, wht, ENCDEC_TRAIN_BATCH,
-                                    ENCDEC_TRAIN_SEQ, "train_encdec")
+    c_train_encdec, m_train_encdec = train_cut_runs(
+        torch, wht, ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ, "train_encdec")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4005,10 +4127,14 @@ def main() -> int:
                                 must_move=VLM_LEAVES)
     gc.collect()
     torch.cuda.empty_cache()
-    c_train_vlm = train_cut_runs(torch, llt, VLM_TRAIN_BATCH, VLM_TRAIN_SEQ,
-                                 "train_vlm")
+    c_train_vlm, m_train_vlm = train_cut_runs(
+        torch, llt, VLM_TRAIN_BATCH, VLM_TRAIN_SEQ, "train_vlm")
     gc.collect()
     torch.cuda.empty_cache()
+
+    # phase 12: the compile-time analysis of the six training cells
+    analysis(torch, [m_train, m_train_moe, m_train_hyb, m_train_ssm,
+                     m_train_encdec, m_train_vlm])
 
     # the summary: the main paths' shapes and dtypes (bf16 flash at the
     # longest smollm prompt, bf16 paged at smollm's mixed batch, the bf16
@@ -4168,13 +4294,16 @@ def main() -> int:
                            ("e", "c", "k", "f", "filled_rows",
                             "kernel_split_ms"))),
         # the static engine's batch-8 prefill of 200 tokens as batch8
-        dict(summary(scan, "rglru_scan",
+        dict(summary(scan + scan_train, "rglru_scan",
                      "src/repro_torch/kernels/csrc/rglru_scan.cu",
                      "src/repro/kernels/rglru_scan/rglru_scan.py:45",
                      lambda x: x["dtype"] == fp32 and x["s"] == 300
                      and not x["h0"]),
              batch8=case(scan, lambda x: x["dtype"] == fp32
-                         and x["b"] == 8, ("b", "s", "w"))),
+                         and x["b"] == 8, ("b", "s", "w")),
+             # the hybrid's training forward, fp32, 1 x 4096, from zeros
+             train_shape=case(scan_train, lambda x: x["dtype"] == fp32,
+                              ("b", "s", "w"))),
         # no Pallas kernel: the reference differentiates its associative
         # scan; the line is the hybrid's training shape, fp32, from zeros
         summary(scan_bwd, "rglru_scan_bwd",

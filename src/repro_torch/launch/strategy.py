@@ -64,15 +64,17 @@ def value_and_grad(cfg: ModelConfig, attn_impl: str = "auto",
     return f
 
 
-def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig) -> Callable:
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
+                    attn_impl: str = "auto", gmm_impl: str = "auto",
+                    scan_impl: str = "auto") -> Callable:
     """step(state, batch) -> (new_state, metrics); state {"params",
     "opt"}, batch ``model.input_specs``'s (tokens, and the enc-dec
     family's frames or the vlm's patches; with ``cfg.microbatches > 1``
     every key is split along its first dim), metrics {"loss", the loss's
     own ("xent", and "aux" but for the enc-dec family), "grad_norm",
     "lr"} (the loss's own only with one microbatch, as the
-    reference's)."""
-    vg = value_and_grad(cfg)
+    reference's).  The ``*_impl`` choices are :func:`value_and_grad`'s."""
+    vg = value_and_grad(cfg, attn_impl, gmm_impl, scan_impl)
     mb = max(1, cfg.microbatches)
 
     def train_step(state, batch):

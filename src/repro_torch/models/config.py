@@ -1,19 +1,20 @@
-"""Model configuration: the port's copy of ``repro.models.config.ModelConfig``.
+"""Model configuration: the port's copy of ``repro.models.config``.
 
 The fields and derived properties are the reference's, so a config file
 reads the same on both sides; only the two dtypes are ``torch`` dtypes.
-The port serves the dense, MoE, hybrid and ssm families
-(``repro_torch.models.transformer``) and trains the dense and MoE ones;
-the other families' fields are kept so that their config files can be
-copied over unchanged when their slices land.  ``ShapeConfig`` is the
-reference's input-shape cell (its ``SHAPES`` table and
-``shape_applicable`` come with the compile-time analysis, ROADMAP.md
-Queue 1).
+The port serves and trains all six families of the reference (dense,
+MoE, hybrid, ssm and vlm in ``repro_torch.models.transformer``, enc-dec
+in ``repro_torch.models.whisper``).  ``ShapeConfig`` is the reference's
+input-shape cell; ``SHAPES``, ``SHAPES_BY_NAME`` and ``shape_applicable``
+are its table of the four cells and its skip rule, which the
+compile-time analysis (``repro_torch.core.roofline``,
+``repro_torch.launch.dryrun``) walks.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Tuple
 
 import torch
 
@@ -159,3 +160,20 @@ class ShapeConfig:
     @property
     def tokens(self) -> int:
         return self.seq_len * self.global_batch
+
+
+SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", "train", 4_096, 256),
+    ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    ShapeConfig("decode_32k", "decode", 32_768, 128),
+    ShapeConfig("long_500k", "decode", 524_288, 1),
+)
+
+SHAPES_BY_NAME = {s.name: s for s in SHAPES}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether an (arch x shape) cell runs, plus the reason when skipped."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, "full quadratic attention: 500k decode infeasible (DESIGN.md §5)"
+    return True, ""

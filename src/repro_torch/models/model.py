@@ -53,14 +53,15 @@ def supports_paged_decode(cfg: ModelConfig, max_len: int) -> bool:
 
 
 def prefill_fn(cfg: ModelConfig, max_len: int = 0, attn_impl: str = "auto",
-               gmm_impl: str = "auto") -> Callable:
+               gmm_impl: str = "auto", scan_impl: str = "auto") -> Callable:
     """f(params, batch) -> (logits, cache), the cache a server of requests
     of at most ``max_len`` tokens (prompt + new) keeps, of
     ``init_cache(cfg, b, max_len)``'s shape; ``max_len`` 0 sizes it to
     prompt + 64.  The decoder families' ring is ``max_len`` slots; the
     enc-dec buffer is ``max_len`` + ``whisper.RING_EXTRA``, room for the
     reference's ring of prompt + 64, which its prefill sizes whatever
-    ``max_len`` is."""
+    ``max_len`` is.  ``attn_impl``, ``gmm_impl`` and ``scan_impl`` pick
+    the attention's, the experts' and the recurrences' implementations."""
     check_ported(cfg)
     if cfg.family == "encdec":
         slots = max_len + whisper.RING_EXTRA if max_len else 0
@@ -68,7 +69,8 @@ def prefill_fn(cfg: ModelConfig, max_len: int = 0, attn_impl: str = "auto",
                                             attn_impl=attn_impl)
     return lambda p, b: transformer.prefill(p, b, cfg, max_len=max_len,
                                             attn_impl=attn_impl,
-                                            gmm_impl=gmm_impl)
+                                            gmm_impl=gmm_impl,
+                                            scan_impl=scan_impl)
 
 
 def decode_fn(cfg: ModelConfig, attn_impl: str = "auto",
