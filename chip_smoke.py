@@ -172,9 +172,12 @@ each of which raises on failure (nothing is caught):
    with its time and each launch's, the segments, blocks, registers and
    blocks an SM, the plain version's time and its bound; the
    forward at (1, 4096, 40, 64) with and without the chunk states the
-   reverse reads, beside its bound; (b) the full model's loss and
-   gradients with the WKV kernels and with the plain versions, as in
-   phase 6, decay_b drawn nonzero so that decay_a has a gradient, every
+   reverse reads, beside its bound (each plain version timed by the one
+   eager call its check or its first row makes); (b) the full model's
+   loss and gradients, at ``SSM_GRAD_LAYERS`` of the 8 layers (the plain
+   WKV loops over the tokens in Python: ~6 s a layer for the four
+   gradient runs), with the WKV kernels and with the plain versions, as
+   in phase 6, decay_b drawn nonzero so that decay_a has a gradient, every
    WKV leaf (``wr``, ``wk``, ``wv``, ``decay_*``, ``bonus``) nonzero, the
    fp32 leaves held to ``fp32_grad_limit``; (c) a captured
    ``TrainStep`` from a host state, 10 steps on one fixed batch (the
@@ -214,7 +217,25 @@ each of which raises on failure (nothing is caught):
    (``RooflineCell``: compute, memory and lower-bound times, the
    dominant term, the useful share, ``pg_measured`` = t_ideal over the
    measured step; a lower bound above the step fails), and the seconds
-   each count took.
+   each count took;
+13. distribution (``distributed``), on a freed card: the default process
+   group started through NCCL at world size 1 (a file store; its
+   seconds and ``torch.cuda.nccl.version()`` logged), a 1 x 1
+   ("data", "model") mesh, and per cell a captured ``TrainStep`` and a
+   captured ``ShardedTrainStep`` (the state as DTensors, the batch split
+   by ``batch_placements``, the step under the mesh's ``ParallelCtx``,
+   its NCCL collectives in the graph) from the same host state over the
+   same 3 batches, one after the other: smollm-135m at full width, 8 x
+   2048, and deepseek-moe-16b at its published widths, depth 2, 4 x
+   2048, with ``moe_impl="ep"`` (``moe_ep``: 64 local experts, both
+   all-to-alls through NCCL, the grouped matmul forward and backward on
+   the local rows).  Each line: both steps' ms and their ratio, build
+   and capture seconds, pool bytes, peak memory, the launches (exact per
+   direct call, every flash and grouped-matmul kernel above 0 over the
+   phase), the sharded step's collectives by kind (count and bytes; the
+   EP step's all-to-alls present), and the final params, m, v, step and
+   metrics bit for bit against ``TrainStep``'s.  The group is destroyed
+   at the end.
 
 Every serving run goes through the executor's ``serving_params`` (the
 weights cast to the compute dtype once) and runs each decode step as a
@@ -3641,6 +3662,10 @@ SSM_TRAIN_BATCH, SSM_TRAIN_SEQ = 1, 4096
 # gradients and casts: ~92 GB) would not fit 80 GB; 8 layers are 1.02 B
 # parameters, the size of the MoE and hybrid cuts
 SSM_TRAIN_LAYERS = 8
+# the kernel-vs-plain gradient check of the ssm runs the first 4 of those
+# layers: each plain gradient run loops the WKV over the tokens in Python
+# (~6.5 s a layer), and the smoke's time limit is shared by every phase
+SSM_GRAD_LAYERS = 4
 # the time-mix leaves whose gradient comes through the WKV alone: the
 # r, k, v projections, the decay's LoRA and base, and the bonus
 WKV_LEAVES = ("wr", "wk", "wv", "decay_a", "decay_b", "decay_base", "bonus")
@@ -3719,8 +3744,14 @@ def wkv_bwd_cases(torch, ptxas_report: str = ""):
         what = f"rwkv6_wkv_bwd {case} {(b, s, h, n)}"
         out, _ = run_counted(torch, wk, what, lambda: wk.rwkv6_wkv_bwd(*args),
                              counter="LAUNCHES_BWD")
+        # the plain reverse is timed by this one eager call, its check's
+        plain = torch.cuda.Event(enable_timing=True)
+        plain_end = torch.cuda.Event(enable_timing=True)
+        plain.record()
         ref = rwkv6_wkv_bwd_ref(r, k, v, logw, u, do, s0, ds)
+        plain_end.record()
         torch.cuda.synchronize()
+        plain_ms = plain.elapsed_time(plain_end)
         errs = {}
         for name, o, w in zip(("dr", "dk", "dv", "dlogw", "du", "ds0"),
                               out, ref):
@@ -3760,10 +3791,8 @@ def wkv_bwd_cases(torch, ptxas_report: str = ""):
             "rtol_of_largest": WKV_BWD_RTOL, "kernel_ms": kernel_ms,
             "kernel_call_ms": cuda_ms(torch,
                                       lambda: wk.rwkv6_wkv_bwd(*args)),
-            "plain_ms": cuda_ms(
-                torch, lambda: rwkv6_wkv_bwd_ref(r, k, v, logw, u, do, s0,
-                                                 ds), iters=1, warmup=1),
-            "plain_timing": "one eager call",
+            "plain_ms": plain_ms,
+            "plain_timing": "the check's eager call",
             "library_ms": None,        # no one PyTorch call computes it
             "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_ratio": kernel_ms / bound_ms})
@@ -3772,6 +3801,11 @@ def wkv_bwd_cases(torch, ptxas_report: str = ""):
             # the forward at the training shape, serving and training forms
             nb_fwd = 4 * (5 * tokens * n + h * n + b * h * n * n)
             flops = float(tokens * (5 * n * n + 4 * n))
+            # one eager call of the plain forward (the same function for
+            # both rows: the chunk states are the kernel's own output)
+            f_plain_ms = cuda_ms(
+                torch, lambda: rwkv6_wkv_ref(r, k, v, logw, u, s0),
+                iters=1, warmup=0)
             for keep in (False, True):
                 fn = (lambda keep=keep: wk.rwkv6_wkv(r, k, v, logw, u, s0,
                                                      states=keep))
@@ -3782,10 +3816,9 @@ def wkv_bwd_cases(torch, ptxas_report: str = ""):
                     "kernel": "rwkv6_wkv", "case": "train_shape",
                     "dtype": str(f32), "b": b, "s": s, "h": h, "n": n,
                     "chunk_states": keep, "kernel_ms": f_ms,
-                    "plain_ms": cuda_ms(
-                        torch, lambda: rwkv6_wkv_ref(r, k, v, logw, u, s0),
-                        iters=1, warmup=1),
-                    "plain_timing": "one eager call", "library_ms": None,
+                    "plain_ms": f_plain_ms,
+                    "plain_timing": "one eager call, shared by both rows",
+                    "library_ms": None,
                     "bound_ms": f_bound, "bound_by": f_by,
                     "bound_ratio": f_ms / f_bound})
                 log(fwd_rows[-1])
@@ -3841,6 +3874,168 @@ FLASH_ENCDEC_CASES = [
      64, 0, ENCDEC_TRAIN_SEQ, True)]
 FLASH_VLM_CASES = [("llava_train", VLM_TRAIN_BATCH, 32, 8, VLM_TRAIN_SEQ,
                     128, 0)]
+
+
+# ---------------------------------------------------------------------------
+# phase 13: distribution (the sharded train step at world size 1)
+# ---------------------------------------------------------------------------
+
+# the kernels the sharded steps must have launched over the phase
+DIST_KERNELS = ("flash_attention", "flash_attention_bwd", "moe_gmm",
+                "moe_gmm_bwd")
+
+
+def _local_host(tree):
+    """This rank's blocks of a tree of DTensors, on the host (at world
+    size 1 the whole tensors)."""
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t: t.to_local().detach().cpu(), tree)
+
+
+def sharded_vs_train_step(torch, cfg, b: int, s: int, mesh, phase: str):
+    """A captured ``TrainStep`` and a captured ``ShardedTrainStep`` on
+    ``mesh`` from the same host state (random weights from seed 0) over
+    the same 3 batches, one after the other: step ms of each (the steady
+    steps' mean wall, batch copy included) and their ratio, build and
+    capture seconds, pool bytes, the peak bytes of the construction
+    (warm-ups and capture) and of the 3 replays, the launches (exact per direct
+    call, every bf16 one on the tensor cores), the sharded step's
+    collectives of one step, and the final params, m, v, step and
+    metrics, which must be bit-identical.  Returns the launches made
+    (replays counted)."""
+    import numpy as np
+
+    from repro_torch.launch.strategy import (ShardedTrainStep, TrainStep,
+                                             init_train_state)
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.tree import flatten
+
+    opt = AdamWConfig(lr=1e-3)
+    s0 = _host(init_train_state(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"))
+    batches = train_batches(torch, cfg, b, s, 7, 3)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches, seen = {}, {}
+    for kind in ("train_step", "sharded"):
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        st = (TrainStep(cfg, opt, s0, b, s, "graph", device="cuda")
+              if kind == "train_step" else
+              ShardedTrainStep(cfg, opt, mesh, s0, b, s, "graph"))
+        build_s = time.perf_counter() - t0
+        peak_build = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        metrics, walls = [], []
+        for bt in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = st(bt)
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+            metrics.append({k: v.detach().cpu() for k, v in m.items()})
+        g = st.graph
+        if (g.calls, g.replays) != (3, 3):
+            raise AssertionError(f"{phase} {kind}: {g.calls} calls, "
+                                 f"{g.replays} replays")
+        for k, n in check_train_counts(cfg, f"{phase} {kind}", g.calls,
+                                       g.replays).items():
+            launches[k] = launches.get(k, 0) + n
+        row = {"step_ms": float(np.mean(walls[1:])), "step_ms_all": walls,
+               "build_s": build_s, "capture_s": g.capture_s,
+               "capture_gb": g.capture_bytes / 1e9,
+               "peak_build_gb": peak_build,
+               "peak_steps_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "losses": [float(x["loss"]) for x in metrics]}
+        if kind == "sharded":
+            c = st.collectives
+            row["collectives"] = {
+                "count_by_kind": c.stats().count_by_kind,
+                "bytes_by_kind": c.stats().bytes_by_kind,
+                "total_bytes": c.stats().total_bytes,
+                "top": c.top(4)}
+            state = _local_host(st.state)
+        else:
+            state = _host(st.state)
+        seen[kind] = (metrics, state, row)
+        del st, g, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    (mt, st_t, row_t), (ms, st_s, row_s) = seen["train_step"], seen["sharded"]
+    names = flatten(_leaf_names(st_t))[0]
+    differ = [f"step {i} metric {k}" for i in range(3) for k in mt[i]
+              if not torch.equal(mt[i][k], ms[i][k])]
+    differ += [n for n, a, e in zip(names, flatten(st_t)[0],
+                                    flatten(st_s)[0])
+               if not torch.equal(a, e)]
+    per_call = train_counts_per_call(cfg)
+    kinds = row_s["collectives"]["count_by_kind"]
+    log({"phase": phase, "arch": cfg.name, "num_layers": cfg.num_layers,
+         "batch": b, "seq": s, "moe_impl": cfg.moe_impl,
+         "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+         "train_step": row_t, "sharded": row_s,
+         "step_ms_ratio": row_s["step_ms"] / row_t["step_ms"],
+         "launches_per_call": {k: n for k, n in per_call.items() if n},
+         "launches": {k: n for k, n in launches.items() if n},
+         "identical": not differ, "differ": differ[:20],
+         "leaves": len(names)})
+    if differ:
+        raise AssertionError(f"{phase}: the sharded step differs from "
+                             f"TrainStep in {len(differ)} leaves or "
+                             f"metrics: {differ[:20]}")
+    if cfg.num_experts and cfg.moe_impl == "ep" and not kinds.get(
+            "all-to-all"):
+        raise AssertionError(f"{phase}: no all-to-all in the EP step's "
+                             f"collectives {kinds}")
+    del seen, s0
+    return launches
+
+
+def distributed(torch, smollm, moe):
+    """Phase 13 (the module note): the two cells on a 1 x 1 mesh through
+    NCCL; returns the launches made."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed, make_dev_mesh
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    init_s = init_distributed()
+    done = False
+    try:
+        mesh = make_dev_mesh(1, 1)
+        log({"phase": "distributed_init", "nccl_init_s": init_s,
+             "mesh_s": time.perf_counter() - t0 - init_s,
+             "backend": dist.get_backend(),
+             "world_size": dist.get_world_size(),
+             "nccl_version": torch.cuda.nccl.version(),
+             "at_start_gb": {
+                 "allocated": torch.cuda.memory_allocated() / 1e9,
+                 "reserved": torch.cuda.memory_reserved() / 1e9}})
+        launches = {}
+        for cfg, b, s, phase in (
+                (smollm, TRAIN_BATCH, TRAIN_SEQ, "distributed_smollm"),
+                (moe, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ,
+                 "distributed_deepseek_ep")):
+            for k, n in sharded_vs_train_step(torch, cfg, b, s, mesh,
+                                              phase).items():
+                launches[k] = launches.get(k, 0) + n
+        missing = [k for k in DIST_KERNELS if not launches.get(k)]
+        log({"phase": "distributed", "seconds": time.perf_counter() - t0,
+             "launches": {k: launches.get(k, 0) for k in DIST_KERNELS}})
+        if missing:
+            raise AssertionError(f"distributed: {missing} never launched")
+        done = True
+    finally:
+        # on a failure the traceback ends the run: destroying the group
+        # could wait forever on NCCL work that a failed capture left
+        # unlaunched
+        if done:
+            dist.destroy_process_group()
+    return launches
 
 
 def main() -> int:
@@ -4081,8 +4276,9 @@ def main() -> int:
                            torch.float32, True):
         raise AssertionError(f"rwkv6-3b is not at full width: {ssm}")
     wkv_bwd, wkv_train = wkv_bwd_cases(torch, reports.get("rwkv6_wkv", ""))
-    train_grads_kernel_vs_plain(torch, ssm, SSM_TRAIN_BATCH, SSM_TRAIN_SEQ,
-                                must_move=WKV_LEAVES)
+    train_grads_kernel_vs_plain(
+        torch, dataclasses.replace(ssm, num_layers=SSM_GRAD_LAYERS),
+        SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, must_move=WKV_LEAVES)
     gc.collect()
     torch.cuda.empty_cache()
     c_train_ssm, m_train_ssm = train_cut_runs(
@@ -4136,6 +4332,10 @@ def main() -> int:
     analysis(torch, [m_train, m_train_moe, m_train_hyb, m_train_ssm,
                      m_train_encdec, m_train_vlm])
 
+    # phase 13: the sharded train step through NCCL at world size 1
+    c_dist = distributed(torch, cfg, dataclasses.replace(dst,
+                                                         moe_impl="ep"))
+
     # the summary: the main paths' shapes and dtypes (bf16 flash at the
     # longest smollm prompt, bf16 paged at smollm's mixed batch, the bf16
     # grouped matmul at deepseek's decode and its backward at deepseek's
@@ -4144,7 +4344,7 @@ def main() -> int:
     # launches of every serving and training run
     runs = (c_cli, c_eng, c_static, c_arrival, c_ds, c_gr, c_rg, c_rw,
             c_wh, c_ll, c_train, c_train_moe, c_train_hyb, c_train_ssm,
-            c_train_encdec, c_train_vlm)
+            c_train_encdec, c_train_vlm, c_dist)
 
     def summary(rows, name, source, replaces, pick):
         r = [x for x in rows if pick(x)][0]

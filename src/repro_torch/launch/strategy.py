@@ -1,12 +1,19 @@
-"""The train step of the port: ``repro.launch.strategy``'s single-device
-``make_train_step``, ``abstract_train_state`` and ``init_train_state``.
+"""The train step of the port: ``repro.launch.strategy``'s
+``make_train_step``, ``abstract_train_state``, ``init_train_state``, and
+on a mesh ``make_ctx``, ``train_state_shardings`` and the sharded step.
 
-No mesh and no shardings: the step runs on the device its state lies
-on.  The reference's sharded variants (``make_ctx``, the shardings,
-``jit_*``, ``lower_cell``) wait for the distribution slice (ROADMAP.md,
-Queue 1).  The reference jits the step with its state donated;
-:class:`TrainStep` is the port's counterpart: the step over a static
-state and batch, updated in place, one captured CUDA graph on the card.
+The reference jits the step with its state donated; :class:`TrainStep`
+is the port's counterpart on one device: the step over a static state
+and batch, updated in place, one captured CUDA graph on the card.
+:class:`ShardedTrainStep` is the counterpart of ``jit_train_step`` on a
+``DeviceMesh``: the state's leaves are DTensors placed by the rule table
+(``repro_torch.parallel.sharding``), the batch is split by
+``batch_placements``, and the step runs under the mesh's
+:class:`~repro_torch.parallel.ctx.ParallelCtx`, also captured as one
+CUDA graph (its NCCL collectives included).  The sharded prefill and
+decode steps (``jit_prefill_step`` / ``jit_decode_step``) and
+``lower_cell`` come with later parts of the distribution work
+(ROADMAP.md, Queue 1).
 
 Mixed precision as the reference's: the loss is differentiated with
 respect to compute-dtype copies of every fp32 parameter with more than
@@ -20,14 +27,20 @@ the fp32 gradient and loss sums are divided by the count.
 from __future__ import annotations
 
 import functools
-from typing import Any, Callable, Dict
+import gc
+from typing import Any, Callable, Dict, Optional
 
 import torch
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, Replicate
 
+from repro_torch.core.collectives import CollectiveCounter, region
 from repro_torch.models import model
 from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.models.init import abstract_params
 from repro_torch.optim import AdamWConfig, adamw_apply, adamw_init
+from repro_torch.parallel import sharding as shlib
+from repro_torch.parallel.ctx import ParallelCtx, parallel_ctx
 from repro_torch.step_graph import StepGraph
 from repro_torch.tree import copy_tree_, flatten, tree_map, unflatten
 
@@ -64,6 +77,37 @@ def value_and_grad(cfg: ModelConfig, attn_impl: str = "auto",
     return f
 
 
+def make_ctx(cfg: ModelConfig, mesh: DeviceMesh) -> ParallelCtx:
+    return ParallelCtx(
+        mesh,
+        dp_axes=("pod", "data"),
+        tp_axis="model",
+        sp_axis="model" if cfg.seq_shard_activations else None,
+        bf16_grad=cfg.bf16_grad_reduce,
+    )
+
+
+def constrain_grads(cfg: ModelConfig, grads: PyTree,
+                    params: PyTree) -> PyTree:
+    """Each DTensor gradient redistributed to its parameter's placements
+    (the data-parallel reduction: an all-reduce or reduce-scatter of the
+    per-rank partial gradients): while still in the compute dtype with
+    ``cfg.bf16_grad_reduce`` (the reference's ``constrain_grads``, a bf16
+    reduction), else cast to fp32 first, where the reference's XLA
+    reduces.  Plain tensors, and gradients already placed as their
+    parameters (nothing to reduce), are returned as they are."""
+    def one(g, p):
+        if not isinstance(g, DTensor) or tuple(g.placements) == tuple(
+                p.placements):
+            return g
+        if not cfg.bf16_grad_reduce:
+            g = g.float()
+        return g.redistribute(p.device_mesh, p.placements)
+
+    with region("grad_reduce"):
+        return tree_map(one, grads, params)
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
                     attn_impl: str = "auto", gmm_impl: str = "auto",
                     scan_impl: str = "auto") -> Callable:
@@ -82,15 +126,14 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
             # gradient accumulation: fp32 grad buffer, one optimizer step
             split = {k: a.reshape(mb, a.shape[0] // mb, *a.shape[1:])
                      for k, a in batch.items()}
-            gsum = tree_map(lambda p: torch.zeros(p.shape,
-                                                  dtype=torch.float32,
-                                                  device=p.device),
-                            state["params"])
+            gsum = tree_map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32), state["params"])
             loss_sum = torch.zeros((), dtype=torch.float32,
                                    device=split["tokens"].device)
             for i in range(mb):
                 loss, _, grads = vg(state["params"],
                                     {k: a[i] for k, a in split.items()})
+                grads = constrain_grads(cfg, grads, state["params"])
                 gsum = tree_map(lambda a, g: a + g.float(), gsum, grads)
                 loss_sum = loss_sum + loss
             grads = tree_map(lambda g: g / mb, gsum)
@@ -98,6 +141,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
             metrics: Dict[str, torch.Tensor] = {}
         else:
             loss, metrics, grads = vg(state["params"], batch)
+            grads = constrain_grads(cfg, grads, state["params"])
         new_p, new_opt, om = adamw_apply(grads, state["opt"],
                                          state["params"], opt_cfg)
         return ({"params": new_p, "opt": new_opt},
@@ -119,12 +163,42 @@ def abstract_train_state(cfg: ModelConfig) -> PyTree:
                                         device="meta")}}
 
 
+def train_state_shardings(cfg: ModelConfig, mesh: DeviceMesh,
+                          rules=None) -> PyTree:
+    """DTensor placements of the train state: params and both moments by
+    the rule table, the step replicated."""
+    pshard = shlib.param_placements(cfg, mesh, rules)
+    return {"params": pshard,
+            "opt": {"m": pshard, "v": pshard,
+                    "step": (Replicate(),) * mesh.ndim}}
+
+
+def shard_train_state(state: PyTree, cfg: ModelConfig, mesh: DeviceMesh,
+                      rules=None) -> PyTree:
+    """A full train state (the same on every rank) -> DTensors on the
+    mesh's device, each rank keeping its blocks."""
+    dev = _mesh_device(mesh)
+    return tree_map(lambda t, plc: shlib.distribute(t, plc, mesh, dev),
+                    state, train_state_shardings(cfg, mesh, rules))
+
+
 def init_train_state(cfg: ModelConfig, generator: torch.Generator,
-                     device=None) -> Dict[str, Any]:
+                     device=None, mesh: Optional[DeviceMesh] = None
+                     ) -> Dict[str, Any]:
     """Random params (``model.init_params``, drawn on the generator's
-    device) and zero AdamW state, on ``device`` (default CUDA)."""
+    device) and zero AdamW state, on ``device`` (default CUDA); with a
+    ``mesh``, sharded onto it (:func:`shard_train_state`)."""
     params = model.init_params(cfg, generator, device)
-    return {"params": params, "opt": adamw_init(params)}
+    state = {"params": params, "opt": adamw_init(params)}
+    if mesh is not None:
+        state = shard_train_state(state, cfg, mesh)
+    return state
+
+
+def _mesh_device(mesh: DeviceMesh) -> torch.device:
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
 
 
 def _step_in_place(step: Callable, bufs: Dict[str, Any]) -> None:
@@ -205,3 +279,120 @@ class TrainStep:
         copy_tree_(self.batch, batch, "batch")
         self.graph()
         return self.metrics
+
+
+def _local_metrics(step: Callable) -> Callable:
+    """``step`` with its metrics as this rank's plain tensors (each is
+    replicated: the local tensor is the whole value)."""
+    def run(state, batch):
+        new_state, metrics = step(state, batch)
+        return new_state, {k: v.to_local() if isinstance(v, DTensor) else v
+                           for k, v in metrics.items()}
+    return run
+
+
+def _sharded_step(step: Callable, ctx: ParallelCtx,
+                  counters: list, bufs: Dict[str, Any]) -> None:
+    """One step under ``ctx``; the first call (a warm-up, or the one
+    direct call) also runs under a ``CollectiveCounter``, kept in
+    ``counters``."""
+    if counters:
+        with parallel_ctx(ctx):
+            _step_in_place(step, bufs)
+        return
+    counter = CollectiveCounter()
+    with parallel_ctx(ctx), counter:
+        _step_in_place(step, bufs)
+    counters.append(counter)
+    # the counted call leaves reference cycles that hold a step's tensors
+    # (a train state's worth on the card); StepGraph's capture runs with
+    # the collector off, so they are collected here
+    gc.collect()
+
+
+def _load(dst: PyTree, src: PyTree, what: str) -> None:
+    """Copy ``src`` into the DTensor tree ``dst``: a DTensor leaf of the
+    same placements as it is, a full tensor as this rank's block."""
+    def local(d, s):
+        if isinstance(s, DTensor):
+            s = s.redistribute(d.device_mesh, d.placements).to_local()
+        else:
+            s = shlib.local_slice(s, d.placements, d.device_mesh)
+        return s
+
+    copy_tree_(tree_map(lambda d: d.to_local(), dst),
+               tree_map(local, dst, src), what)
+
+
+class ShardedTrainStep:
+    """The train step on a mesh (the reference's ``jit_train_step`` with
+    its state and batch shardings, called under its ``make_ctx``):
+    :func:`make_train_step`'s step over a static DTensor train state
+    (``train_state_shardings``) and a static batch of the (batch, seq)
+    training shape split by ``batch_placements``, run under the mesh's
+    :class:`ParallelCtx` as one captured CUDA graph (``step_impl`` as
+    :class:`TrainStep`'s: "auto" is the graph on CUDA, a direct call on
+    the CPU).  Every rank constructs it with the same full ``state`` (or
+    an already sharded one) and calls it with the same full batch; each
+    keeps its blocks.
+
+    ``self.collectives`` is the ``CollectiveCounter`` of the first
+    (warm-up) step: every collective one step issues, this rank's.
+    ``self.state`` holds this rank's DTensors, ``self.metrics`` the
+    step's loss, xent, aux, grad_norm and lr as plain fp32 scalars (the
+    whole values, replicated).  Construction warms up and captures as
+    :class:`TrainStep` does, then loads ``state`` back."""
+
+    def __init__(self, cfg: ModelConfig, opt_cfg: AdamWConfig,
+                 mesh: DeviceMesh, state: PyTree, batch: int, seq: int,
+                 step_impl: str = "auto", rules=None):
+        device = _mesh_device(mesh)
+        self.ctx = make_ctx(cfg, mesh)
+        self.state = tree_map(
+            lambda t, plc: _static(t, plc, mesh, device), state,
+            train_state_shardings(cfg, mesh, rules))
+        full = model.input_specs(
+            cfg, ShapeConfig("train", "train", seq, batch), abstract=False,
+            device=device)
+        parts = shlib.batch_placements(full, mesh)
+        self.batch = tree_map(
+            lambda t, pt: _static(t, shlib.placements(pt, mesh), mesh,
+                                  device), full, parts)
+        self.metrics: Dict[str, torch.Tensor] = {}
+        counters: list = []
+        self.graph = StepGraph(
+            functools.partial(_sharded_step, _local_metrics(
+                make_train_step(cfg, opt_cfg)), self.ctx, counters),
+            {"state": self.state, "batch": self.batch,
+             "metrics": self.metrics},
+            device, step_impl, option="step_impl")
+        if self.graph.mode == "eager":
+            self.graph()
+        self.collectives = counters[0]
+        self.load_state(state)
+
+    def load_state(self, state: PyTree) -> None:
+        """Copy ``state`` (full tensors or DTensors) into the static
+        state; ``ValueError`` where its keys or a leaf's shape or dtype
+        differ."""
+        _load(self.state, state, "train state")
+
+    def __call__(self, batch: Dict[str, torch.Tensor]
+                 ) -> Dict[str, torch.Tensor]:
+        """One step on ``batch`` (the full batch, the same on every rank,
+        host or device tensors of the static batch's keys, shapes and
+        dtypes); returns ``self.metrics``."""
+        _load(self.batch, batch, "batch")
+        self.graph()
+        return self.metrics
+
+
+def _static(t, plc, mesh: DeviceMesh, device) -> DTensor:
+    """A DTensor of placements ``plc`` on ``device`` holding its own copy
+    of this rank's block of ``t`` (a full tensor or a DTensor)."""
+    if isinstance(t, DTensor):
+        t = t.redistribute(mesh, tuple(plc))
+        return DTensor.from_local(t.to_local().detach().clone(), mesh,
+                                  tuple(plc), run_check=False,
+                                  shape=t.shape, stride=t.stride())
+    return shlib.distribute(t, plc, mesh, device)

@@ -5,15 +5,16 @@ that every measurement names exactly what changed.
 The table is the reference's, name for name.  :func:`apply_variant`
 refuses (``ValueError``) a variant that sets a knob no code of the port
 reads, so that no run is labelled with a change that never happened:
-the mesh knobs (``moe_impl``, ``seq_shard_activations``,
-``attn_kv_gather``, ``bf16_grad_reduce``) act on a sharded step, which
-comes with the distribution slice; ``attn_chunk`` sizes the query
-blocks of the reference's XLA attention, which the port's attention
-(the flash kernel, or its plain version over the whole sequence) does
-not have; and ``decode_unroll`` unrolls the reference's scanned layer
-stack in decode, with a per-layer cache, where the port's layer stacks
-are Python loops, unrolled always, that update the stacked cache in
-place.
+``attn_chunk`` sizes the query blocks of the reference's XLA attention,
+which the port's attention (the flash kernel, or its plain version over
+the whole sequence) does not have; and ``decode_unroll`` unrolls the
+reference's scanned layer stack in decode, with a per-layer cache, where
+the port's layer stacks are Python loops, unrolled always, that update
+the stacked cache in place.  The mesh knobs are read by the sharded
+step: ``moe_impl`` by ``models.moe.moe_block``,
+``seq_shard_activations`` and ``bf16_grad_reduce`` by
+``launch.strategy.make_ctx`` / ``constrain_grads``, ``attn_kv_gather``
+by ``models.attention.self_attention``.
 """
 from __future__ import annotations
 
@@ -81,15 +82,6 @@ VARIANTS: Dict[str, Callable[[ModelConfig], ModelConfig]] = {
 
 # knob -> where it goes: the knobs no code of the port reads yet
 UNREAD_KNOBS = {
-    "moe_impl": "the sharded MoE dispatch (shard_map EP / TP), with the "
-                "distribution slice (ROADMAP.md Queue 1 item 2)",
-    "seq_shard_activations": "sequence-sharded activations on a mesh, with "
-                             "the distribution slice (ROADMAP.md Queue 1 "
-                             "item 2)",
-    "attn_kv_gather": "the all-gathered K/V of a sharded attention, with "
-                      "the distribution slice (ROADMAP.md Queue 1 item 2)",
-    "bf16_grad_reduce": "the bf16 gradient reduction across a mesh, with "
-                        "the distribution slice (ROADMAP.md Queue 1 item 2)",
     "attn_chunk": "the query blocks of the reference's XLA attention; the "
                   "port's attention has no query chunking",
     "decode_unroll": "the reference's unrolled decode over a per-layer "

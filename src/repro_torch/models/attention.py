@@ -8,33 +8,78 @@ as its TPU implementation; the port runs its own flash-attention kernel
 there (``repro_torch.kernels.flash_attention``), the same function.
 Decode self-attention against a per-request cache is plain torch, as the
 reference computes it in XLA and no Pallas kernel covers it.
+
+Under a ``ParallelCtx`` with DTensor activations the projections' heads
+are laid out as the reference's ``act_heads`` spec (batch over the data
+axes, heads over the model axis; heads replicated when the query or KV
+head count does not divide the model axis), and the flash kernel runs on
+each rank's heads and rows (``repro_torch.parallel.ctx.run_local``).
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels.flash_attention.ops import flash_attention_bshd
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense, rope
+from repro_torch.parallel.ctx import get_ctx, run_local, shard_activation
 
 
 def project_qkv(x, p, cfg: ModelConfig, positions, use_rope: bool = True):
     """x: (b, s, d) -> q (b, s, hq, hd), k, v (b, s, hkv, hd)."""
-    b, s, _ = x.shape
-    q = dense(x, p["wq"], p.get("bq")).reshape(b, s, cfg.num_heads, cfg.head_dim)
-    k = dense(x, p["wk"], p.get("bk")).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-    v = dense(x, p["wv"], p.get("bv")).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    q = _split_heads(dense(x, p["wq"], p.get("bq")), cfg, cfg.num_heads)
+    k = _split_heads(dense(x, p["wk"], p.get("bk")), cfg, cfg.num_kv_heads)
+    v = _split_heads(dense(x, p["wv"], p.get("bv")), cfg, cfg.num_kv_heads)
     if use_rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
+def _split_heads(y, cfg: ModelConfig, heads: int):
+    """A projection (b, s, heads * hd) -> (b, s, heads, hd).  A DTensor is
+    first laid out as the ``act_heads`` spec (batch over the data axes,
+    heads over model), or on the batch only (``kv_rep``) when the query
+    or KV head count does not divide the model axis, and split on each
+    rank's block, so that neither the view nor its gradient ever cuts
+    a head."""
+    if not isinstance(y, DTensor):
+        return y.reshape(*y.shape[:2], heads, cfg.head_dim)
+    ctx = get_ctx()
+    n = ctx.size(ctx.tp_axis)
+    even = cfg.num_heads % n == 0 and cfg.num_kv_heads % n == 0
+    y = shard_activation(y, "act_heads" if even else "kv_rep")
+    plc = tuple(y.placements)
+    return run_local(lambda t: t.reshape(*t.shape[:2], -1, cfg.head_dim),
+                     y.device_mesh, (y,), (plc,), plc)
+
+
+def _attend(q, k, v, *, causal: bool, window: int, impl: str):
+    """flash_attention_bshd, on each rank's blocks for DTensors (k and v
+    take q's placements: its batch rows and its heads' KV heads)."""
+    if not isinstance(q, DTensor):
+        return flash_attention_bshd(q, k, v, causal=causal, window=window,
+                                    impl=impl)
+    plc = tuple(q.placements)
+    return run_local(
+        lambda a, b_, c: flash_attention_bshd(a, b_, c, causal=causal,
+                                              window=window, impl=impl),
+        q.device_mesh, (q, k, v), (plc, plc, plc), plc)
+
+
 def merge_heads_out(o, p):
     b, s = o.shape[:2]
-    return dense(o.reshape(b, s, -1), p["wo"])
+    if isinstance(o, DTensor):
+        # the heads merged on each rank's block (see ``_split_heads``)
+        plc = tuple(o.placements)
+        flat = run_local(lambda t: t.reshape(*t.shape[:2], -1),
+                         o.device_mesh, (o,), (plc,), plc)
+    else:
+        flat = o.reshape(b, s, -1)
+    return dense(flat, p["wo"])
 
 
 def self_attention(x, p, cfg: ModelConfig, *, positions=None, causal=True,
@@ -46,9 +91,13 @@ def self_attention(x, p, cfg: ModelConfig, *, positions=None, causal=True,
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = project_qkv(x, p, cfg, positions, use_rope)
+    if cfg.attn_kv_gather:
+        # K/V gathered across the model axis once per layer (the
+        # reference's SP attention lever); the identity without a mesh
+        k = shard_activation(k, "kv_rep")
+        v = shard_activation(v, "kv_rep")
     w = cfg.attention_window if window is None else window
-    o = flash_attention_bshd(q, k, v, causal=causal, window=w,
-                             impl=attn_impl)
+    o = _attend(q, k, v, causal=causal, window=w, impl=attn_impl)
     return merge_heads_out(o, p), (k, v)
 
 
@@ -60,7 +109,7 @@ def cross_attention(x, p, cfg: ModelConfig, k, v, attn_impl: str = "auto"):
     b, s, _ = x.shape
     q = dense(x, p["wq"], p.get("bq")).reshape(b, s, cfg.num_heads,
                                               cfg.head_dim)
-    o = flash_attention_bshd(q, k, v, causal=False, window=0, impl=attn_impl)
+    o = _attend(q, k, v, causal=False, window=0, impl=attn_impl)
     return merge_heads_out(o, p)
 
 

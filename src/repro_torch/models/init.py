@@ -48,50 +48,60 @@ PyTree = Any
 
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
+    """A leaf's shape, its logical axis names (one per dim: the names the
+    rule table of ``repro_torch.parallel.reshard`` maps onto mesh axes),
+    dtype and init rule."""
     shape: Tuple[int, ...]
+    axes: Tuple[str, ...]
     dtype: torch.dtype = torch.float32
     init: str = "fan_in"   # fan_in | normal | zeros | ones | lru_a | rwkv_decay
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} and axes {self.axes} "
+                             "differ in rank")
 
 
 def _attn_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     d, q, kv = cfg.d_model, cfg.q_dim, cfg.kv_dim
     p = {
-        "wq": ParamSpec((d, q)),
-        "wk": ParamSpec((d, kv)),
-        "wv": ParamSpec((d, kv)),
-        "wo": ParamSpec((q, d)),
+        "wq": ParamSpec((d, q), ("embed", "heads")),
+        "wk": ParamSpec((d, kv), ("embed", "kv")),
+        "wv": ParamSpec((d, kv), ("embed", "kv")),
+        "wo": ParamSpec((q, d), ("heads", "embed")),
     }
     if cfg.qkv_bias:
-        p["bq"] = ParamSpec((q,), init="zeros")
-        p["bk"] = ParamSpec((kv,), init="zeros")
-        p["bv"] = ParamSpec((kv,), init="zeros")
+        p["bq"] = ParamSpec((q,), ("vec",), init="zeros")
+        p["bk"] = ParamSpec((kv,), ("vec",), init="zeros")
+        p["bv"] = ParamSpec((kv,), ("vec",), init="zeros")
     return p
 
 
 def _mlp_specs(cfg: ModelConfig, d_ff: int = 0) -> Dict[str, ParamSpec]:
     d, ff = cfg.d_model, (d_ff or cfg.d_ff)
-    p = {"wi": ParamSpec((d, ff)), "wo": ParamSpec((ff, d))}
+    p = {"wi": ParamSpec((d, ff), ("embed", "ffn")),
+         "wo": ParamSpec((ff, d), ("ffn", "embed"))}
     if cfg.mlp_gated:
-        p["wg"] = ParamSpec((d, ff))
+        p["wg"] = ParamSpec((d, ff), ("embed", "ffn"))
     return p
 
 
 def _moe_specs(cfg: ModelConfig) -> Dict[str, Any]:
     d, ff, e = cfg.d_model, cfg.d_ff, cfg.num_experts
     p: Dict[str, Any] = {
-        "router": ParamSpec((d, e)),
+        "router": ParamSpec((d, e), ("embed", "experts_r")),
         "experts": {
-            "wi": ParamSpec((e, d, ff)),
-            "wg": ParamSpec((e, d, ff)),
-            "wo": ParamSpec((e, ff, d)),
+            "wi": ParamSpec((e, d, ff), ("experts", "embed", "ffn")),
+            "wg": ParamSpec((e, d, ff), ("experts", "embed", "ffn")),
+            "wo": ParamSpec((e, ff, d), ("experts", "ffn", "embed")),
         },
     }
     if cfg.num_shared_experts > 0:
         sff = cfg.num_shared_experts * ff
         p["shared"] = {
-            "wi": ParamSpec((d, sff)),
-            "wg": ParamSpec((d, sff)),
-            "wo": ParamSpec((sff, d)),
+            "wi": ParamSpec((d, sff), ("embed", "ffn")),
+            "wg": ParamSpec((d, sff), ("embed", "ffn")),
+            "wo": ParamSpec((sff, d), ("ffn", "embed")),
         }
     return p
 
@@ -100,16 +110,16 @@ def _rglru_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     """RecurrentGemma recurrent block: proj -> conv1d -> RG-LRU -> gated out."""
     d, w = cfg.d_model, cfg.lru_width
     return {
-        "w_y": ParamSpec((d, w)),                  # value branch
-        "w_gate": ParamSpec((d, w)),               # multiplicative gate
-        "conv_w": ParamSpec((cfg.conv_width, w)),
-        "conv_b": ParamSpec((w,), init="zeros"),
-        "lru_wa": ParamSpec((w, w)),               # recurrence gate
-        "lru_wx": ParamSpec((w, w)),               # input gate
-        "lru_ba": ParamSpec((w,), init="zeros"),
-        "lru_bx": ParamSpec((w,), init="zeros"),
-        "lru_a": ParamSpec((w,), init="lru_a"),    # log-decay param
-        "w_out": ParamSpec((w, d)),
+        "w_y": ParamSpec((d, w), ("embed", "rnn")),      # value branch
+        "w_gate": ParamSpec((d, w), ("embed", "rnn")),   # multiplicative gate
+        "conv_w": ParamSpec((cfg.conv_width, w), ("vec", "rnn")),
+        "conv_b": ParamSpec((w,), ("vec",), init="zeros"),
+        "lru_wa": ParamSpec((w, w), ("rnn_in", "rnn")),  # recurrence gate
+        "lru_wx": ParamSpec((w, w), ("rnn_in", "rnn")),  # input gate
+        "lru_ba": ParamSpec((w,), ("vec",), init="zeros"),
+        "lru_bx": ParamSpec((w,), ("vec",), init="zeros"),
+        "lru_a": ParamSpec((w,), ("vec",), init="lru_a"),  # log-decay param
+        "w_out": ParamSpec((w, d), ("rnn", "embed")),
     }
 
 
@@ -119,36 +129,38 @@ def _rwkv_block_specs(cfg: ModelConfig) -> Dict[str, Any]:
     d, ff = cfg.d_model, cfg.d_ff
     lora = 64
     return {
-        "ln1": ParamSpec((d,), init="ones"),
-        "ln2": ParamSpec((d,), init="ones"),
+        "ln1": ParamSpec((d,), ("vec",), init="ones"),
+        "ln2": ParamSpec((d,), ("vec",), init="ones"),
         "tm": {
             # token-shift interpolation weights for (r, k, v, w, g)
-            "mix": ParamSpec((5, d), init="normal"),
-            "wr": ParamSpec((d, d)),
-            "wk": ParamSpec((d, d)),
-            "wv": ParamSpec((d, d)),
-            "wg": ParamSpec((d, d)),
-            "wo": ParamSpec((d, d)),
-            "decay_base": ParamSpec((d,), init="rwkv_decay"),
-            "decay_a": ParamSpec((d, lora), init="normal"),
-            "decay_b": ParamSpec((lora, d), init="zeros"),
+            "mix": ParamSpec((5, d), ("vec", "embed_v"), init="normal"),
+            "wr": ParamSpec((d, d), ("embed", "rnn")),
+            "wk": ParamSpec((d, d), ("embed", "rnn")),
+            "wv": ParamSpec((d, d), ("embed", "rnn")),
+            "wg": ParamSpec((d, d), ("embed", "rnn")),
+            "wo": ParamSpec((d, d), ("rnn", "embed")),
+            "decay_base": ParamSpec((d,), ("vec",), init="rwkv_decay"),
+            "decay_a": ParamSpec((d, lora), ("embed", "vec"),
+                                 init="normal"),
+            "decay_b": ParamSpec((lora, d), ("vec", "embed_v"),
+                                 init="zeros"),
             "bonus": ParamSpec((cfg.rwkv_heads, cfg.rwkv_head_dim),
-                               init="normal"),
-            "gn": ParamSpec((d,), init="ones"),
+                               ("vec", "vec2"), init="normal"),
+            "gn": ParamSpec((d,), ("vec",), init="ones"),
         },
         "cm": {
-            "mix": ParamSpec((2, d), init="normal"),
-            "wk": ParamSpec((d, ff)),
-            "wv": ParamSpec((ff, d)),
-            "wr": ParamSpec((d, d)),
+            "mix": ParamSpec((2, d), ("vec", "embed_v"), init="normal"),
+            "wk": ParamSpec((d, ff), ("embed", "ffn")),
+            "wv": ParamSpec((ff, d), ("ffn", "embed")),
+            "wr": ParamSpec((d, d), ("embed", "rnn")),
         },
     }
 
 
 def _hybrid_block_specs(cfg: ModelConfig, layer_idx: int) -> Dict[str, Any]:
     p: Dict[str, Any] = {
-        "ln1": ParamSpec((cfg.d_model,), init="ones"),
-        "ln2": ParamSpec((cfg.d_model,), init="ones"),
+        "ln1": ParamSpec((cfg.d_model,), ("vec",), init="ones"),
+        "ln2": ParamSpec((cfg.d_model,), ("vec",), init="ones"),
         "mlp": _mlp_specs(cfg),
     }
     if cfg.is_attention_layer(layer_idx):
@@ -160,13 +172,13 @@ def _hybrid_block_specs(cfg: ModelConfig, layer_idx: int) -> Dict[str, Any]:
 
 def _decoder_block_specs(cfg: ModelConfig, moe: bool) -> Dict[str, Any]:
     p: Dict[str, Any] = {
-        "ln1": ParamSpec((cfg.d_model,), init="ones"),
-        "ln2": ParamSpec((cfg.d_model,), init="ones"),
+        "ln1": ParamSpec((cfg.d_model,), ("vec",), init="ones"),
+        "ln2": ParamSpec((cfg.d_model,), ("vec",), init="ones"),
         "attn": _attn_specs(cfg),
     }
     if cfg.norm_type == "layernorm":
-        p["ln1_b"] = ParamSpec((cfg.d_model,), init="zeros")
-        p["ln2_b"] = ParamSpec((cfg.d_model,), init="zeros")
+        p["ln1_b"] = ParamSpec((cfg.d_model,), ("vec",), init="zeros")
+        p["ln2_b"] = ParamSpec((cfg.d_model,), ("vec",), init="zeros")
     if moe:
         p["moe"] = _moe_specs(cfg)
     else:
@@ -177,10 +189,10 @@ def _decoder_block_specs(cfg: ModelConfig, moe: bool) -> Dict[str, Any]:
 def _whisper_enc_block(cfg: ModelConfig) -> Dict[str, Any]:
     d = cfg.d_model
     return {
-        "ln1": ParamSpec((d,), init="ones"),
-        "ln1_b": ParamSpec((d,), init="zeros"),
-        "ln2": ParamSpec((d,), init="ones"),
-        "ln2_b": ParamSpec((d,), init="zeros"),
+        "ln1": ParamSpec((d,), ("vec",), init="ones"),
+        "ln1_b": ParamSpec((d,), ("vec",), init="zeros"),
+        "ln2": ParamSpec((d,), ("vec",), init="ones"),
+        "ln2_b": ParamSpec((d,), ("vec",), init="zeros"),
         "attn": _attn_specs(cfg),
         "mlp": _mlp_specs(cfg),
     }
@@ -190,8 +202,8 @@ def _whisper_dec_block(cfg: ModelConfig) -> Dict[str, Any]:
     """An encoder block plus the cross-attention and its LayerNorm."""
     d = cfg.d_model
     return {**_whisper_enc_block(cfg),
-            "ln_x": ParamSpec((d,), init="ones"),
-            "ln_x_b": ParamSpec((d,), init="zeros"),
+            "ln_x": ParamSpec((d,), ("vec",), init="ones"),
+            "ln_x_b": ParamSpec((d,), ("vec",), init="zeros"),
             "xattn": _attn_specs(cfg)}
 
 
@@ -205,9 +217,11 @@ PORTED_FAMILIES = ("dense", "moe", "hybrid", "ssm", "encdec", "vlm")
 
 
 def _stack(tree, n: int):
-    """Prepend a stacked layer axis of length n to every spec in tree."""
-    return _map_specs(lambda s: ParamSpec((n,) + s.shape, s.dtype, s.init),
-                      tree)
+    """Prepend a stacked ``layers`` axis of length n to every spec in
+    tree."""
+    return _map_specs(lambda s: ParamSpec((n,) + s.shape,
+                                          ("layers",) + s.axes, s.dtype,
+                                          s.init), tree)
 
 
 def check_ported(cfg: ModelConfig) -> None:
@@ -223,17 +237,19 @@ def spec_tree(cfg: ModelConfig) -> Dict[str, Any]:
     check_ported(cfg)
     d = cfg.d_model
     tree: Dict[str, Any] = {
-        "embed": {"tok": ParamSpec((cfg.vocab_size, d), init="normal")},
-        "final_norm": ParamSpec((d,), init="ones"),
+        "embed": {"tok": ParamSpec((cfg.vocab_size, d), ("vocab", "embed"),
+                                   init="normal")},
+        "final_norm": ParamSpec((d,), ("vec",), init="ones"),
     }
     if cfg.norm_type == "layernorm":
-        tree["final_norm_b"] = ParamSpec((d,), init="zeros")
+        tree["final_norm_b"] = ParamSpec((d,), ("vec",), init="zeros")
     if not cfg.tie_embeddings:
-        tree["lm_head"] = ParamSpec((d, cfg.vocab_size))
+        tree["lm_head"] = ParamSpec((d, cfg.vocab_size), ("embed", "vocab"))
     if cfg.family == "encdec":
-        tree["embed"]["pos_dec"] = ParamSpec((32_768, d), init="normal")
-        tree["final_norm_enc"] = ParamSpec((d,), init="ones")
-        tree["final_norm_enc_b"] = ParamSpec((d,), init="zeros")
+        tree["embed"]["pos_dec"] = ParamSpec((32_768, d), ("pos", "embed"),
+                                             init="normal")
+        tree["final_norm_enc"] = ParamSpec((d,), ("vec",), init="ones")
+        tree["final_norm_enc_b"] = ParamSpec((d,), ("vec",), init="zeros")
         tree["enc_blocks"] = _stack(_whisper_enc_block(cfg),
                                     cfg.encoder_layers)
         tree["dec_blocks"] = _stack(_whisper_dec_block(cfg), cfg.num_layers)
@@ -249,8 +265,8 @@ def spec_tree(cfg: ModelConfig) -> Dict[str, Any]:
     if cfg.first_k_dense > 0:
         tree["dense_layers"] = {
             str(i): {
-                "ln1": ParamSpec((d,), init="ones"),
-                "ln2": ParamSpec((d,), init="ones"),
+                "ln1": ParamSpec((d,), ("vec",), init="ones"),
+                "ln2": ParamSpec((d,), ("vec",), init="ones"),
                 "attn": _attn_specs(cfg),
                 "mlp": _mlp_specs(cfg, cfg.d_ff_dense or cfg.d_ff),
             }
@@ -267,7 +283,7 @@ def _apply_param_dtype(tree, cfg: ModelConfig):
     if cfg.param_dtype == torch.float32:
         return tree
     return _map_specs(
-        lambda s: (ParamSpec(s.shape, cfg.param_dtype, s.init)
+        lambda s: (ParamSpec(s.shape, s.axes, cfg.param_dtype, s.init)
                    if len(s.shape) >= 2 else s), tree)
 
 

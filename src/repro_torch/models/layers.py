@@ -4,13 +4,21 @@ Same numerics contract as the reference: norms compute in fp32 and cast
 back; ``dense`` multiplies in the compute dtype with fp32 accumulation
 (cuBLAS accumulates bf16 products in fp32) and casts back; logits come
 out in fp32 from compute-dtype operands.
+
+Under a ``ParallelCtx`` with DTensor operands (the sharded train step)
+the embedding lookup, RoPE, the logits head and the cross-entropy run on
+each rank's blocks (``repro_torch.parallel.ctx.run_local``): the lookup
+and the loss vocab-parallel over the model axis, as the reference's
+vocab-sharded logits imply; with plain tensors they are unchanged.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel.ctx import get_ctx, run_local
 
 
 def rmsnorm(x, w, eps: float):
@@ -35,9 +43,51 @@ def norm(x, block, name: str, cfg: ModelConfig):
     return rmsnorm(x, block[name], cfg.norm_eps)
 
 
+class DenseBf16Grad(torch.autograd.Function):
+    """x @ w whose weight gradient comes out in w's dtype (the reference's
+    ``_dense_bf16grad``): on a mesh the batch and sequence contraction
+    of that gradient is split over the data axis, so its per-rank
+    partial product, in bf16, is what the data-parallel reduction
+    moves."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.matmul(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.to(x.dtype)
+        gx = torch.matmul(dy, w.T)
+        gw = torch.einsum("...d,...f->df", x, dy).to(w.dtype)
+        return gx, gw
+
+
+def _rows_whole(x):
+    """DTensor ``x`` (b, ..., d) with its middle dims gathered (the
+    sequence of Megatron's sequence parallelism, before a column-parallel
+    product): the product flattens (b, ...) into rows, which a split
+    past the first dim does not survive."""
+    plc = tuple(Replicate() if isinstance(p, Shard)
+                and 0 < p.dim < x.dim() - 1 else p for p in x.placements)
+    if plc == tuple(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, plc)
+
+
 def dense(x, w, b=None):
-    """x @ w in compute dtype with fp32 accumulation."""
-    y = torch.matmul(x, w.to(x.dtype))
+    """x @ w in compute dtype with fp32 accumulation; under a context
+    with ``bf16_grad``, a 2-D weight already in x's dtype goes through
+    :class:`DenseBf16Grad`."""
+    ctx = get_ctx()
+    if isinstance(x, DTensor) and x.dim() > 2:
+        x = _rows_whole(x)
+    if ctx is not None and ctx.bf16_grad and w.dim() == 2 \
+            and w.dtype == x.dtype:
+        y = DenseBf16Grad.apply(x, w)
+    else:
+        y = torch.matmul(x, w.to(x.dtype))
     if b is not None:
         y = y + b.to(y.dtype)
     return y
@@ -62,7 +112,13 @@ def mlp(x, p, cfg: ModelConfig):
 
 
 def rope(x, positions, theta: float):
-    """Rotary embedding. x: (..., seq, heads, head_dim); positions: (..., seq)."""
+    """Rotary embedding. x: (..., seq, heads, head_dim); positions: (..., seq).
+    A DTensor ``x`` (seq and head_dim whole on each rank) rotates its
+    blocks in place of the whole."""
+    if isinstance(x, DTensor):
+        plc = tuple(x.placements)
+        return run_local(lambda t, pos: rope(t, pos, theta), x.device_mesh,
+                         (x, positions), (plc, None), plc)
     head_dim = x.shape[-1]
     half = head_dim // 2
     freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
@@ -77,7 +133,51 @@ def rope(x, positions, theta: float):
 
 
 def embed_tokens(tokens, w, compute_dtype):
+    if isinstance(w, DTensor):
+        return _embed_sharded(tokens, w).to(compute_dtype)
     return w[tokens].to(compute_dtype)
+
+
+def _block(mesh, dims) -> int:
+    """This rank's block index of a dim split over the mesh dims
+    ``dims`` (outer first)."""
+    block = 0
+    for i in sorted(dims):
+        block = block * mesh.size(i) + mesh.get_local_rank(i)
+    return block
+
+
+def _embed_sharded(tokens, w):
+    """Vocab-parallel lookup of tokens (b, s) in a DTensor table (V, d):
+    the table's vocab blocks stay where they are (its embed dim is
+    gathered), the tokens are gathered to the batch split only; each rank
+    looks up the tokens of its vocab block (zero rows for the others),
+    and the sum over the vocab ranks is the output's ``Partial``."""
+    if not isinstance(tokens, DTensor):
+        raise TypeError("a sharded table takes DTensor tokens")
+    ctx = get_ctx()
+    mesh = w.device_mesh
+    vocab_dims = {i for i, p in enumerate(w.placements)
+                  if isinstance(p, Shard) and p.dim == 0}
+    w_plc = tuple(Shard(0) if i in vocab_dims else Replicate()
+                  for i in range(mesh.ndim))
+    t_plc = ctx.placements("kv_rep", 2)
+    batch = {i for i, p in enumerate(t_plc) if isinstance(p, Shard)}
+    out_plc = tuple(Partial() if i in vocab_dims else
+                    Shard(0) if i in batch else Replicate()
+                    for i in range(mesh.ndim))
+    w_grad = tuple(Partial() if i in batch else w_plc[i]
+                   for i in range(mesh.ndim))
+    block = _block(mesh, vocab_dims)
+
+    def body(tok, wl):
+        idx = tok.long() - block * wl.shape[0]
+        ok = (idx >= 0) & (idx < wl.shape[0])
+        rows = wl[idx.clamp(0, wl.shape[0] - 1)]
+        return torch.where(ok[..., None], rows, rows.new_zeros(()))
+
+    return run_local(body, mesh, (tokens, w), (t_plc, w_plc), out_plc,
+                     (None, w_grad))
 
 
 class HeadFn(torch.autograd.Function):
@@ -127,21 +227,96 @@ def lm_logits(x, params, cfg: ModelConfig, softcap: float = 0.0):
         w = (params["embed"]["tok"].T if cfg.tie_embeddings
              else params["lm_head"])
         head = w.to(x.dtype)
-    if x.dtype == torch.float32:
-        logits = torch.matmul(x, head)
+    if isinstance(x, DTensor):
+        logits = _logits_sharded(x, head)
     else:
-        logits = HeadFn.apply(x.reshape(-1, x.shape[-1]), head).view(
-            *x.shape[:-1], head.shape[-1])
+        logits = _head(x, head)
     cap = softcap or cfg.logit_softcap
     if cap > 0:
         logits = cap * torch.tanh(logits / cap)
     return logits
 
 
+def _head(x, head):
+    """fp32 logits of x (..., d) and head (d, V) on plain tensors."""
+    if x.dtype == torch.float32:
+        return torch.matmul(x, head)
+    return HeadFn.apply(x.reshape(-1, x.shape[-1]), head).view(
+        *x.shape[:-1], head.shape[-1])
+
+
+def _logits_sharded(x, head):
+    """Logits of a DTensor ``x`` (b, s, d): x gathered to its batch split,
+    the head's vocab blocks kept (its embed dim gathered); each rank's
+    product is its vocab block of the logits (the reference's logits
+    spec), and x's gradient a ``Partial`` over the vocab ranks."""
+    ctx = get_ctx()
+    mesh = x.device_mesh
+    nd = x.dim()
+    vocab_dims = {i for i, p in enumerate(head.placements)
+                  if isinstance(p, Shard) and p.dim == 1}
+    x_plc = ctx.placements("kv_rep", nd)
+    batch = {i for i, p in enumerate(x_plc) if isinstance(p, Shard)}
+    h_plc = tuple(Shard(1) if i in vocab_dims else Replicate()
+                  for i in range(mesh.ndim))
+    out_plc = tuple(Shard(nd - 1) if i in vocab_dims else x_plc[i]
+                    for i in range(mesh.ndim))
+    x_grad = tuple(Partial() if i in vocab_dims else x_plc[i]
+                   for i in range(mesh.ndim))
+    h_grad = tuple(Partial() if i in batch else h_plc[i]
+                   for i in range(mesh.ndim))
+    return run_local(_head, mesh, (x, head), (x_plc, h_plc), out_plc,
+                     (x_grad, h_grad))
+
+
 def softmax_xent(logits, labels):
     """Mean token cross-entropy in fp32 (``repro.models.layers.
     softmax_xent``): logsumexp of each row less its gold logit."""
+    if isinstance(logits, DTensor):
+        return _xent_sharded(logits, labels)
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     return torch.mean(lse - gold)
+
+
+def _xent_sharded(logits, labels):
+    """Vocab-parallel cross-entropy of DTensor logits (b, s, V): each rank
+    takes the log-sum-exp of its vocab block and the gold logits that
+    fall in it; the blocks' log-sum-exps are gathered and combined, the
+    gold logits summed (a ``Partial``), and each batch rank's mean,
+    weighted by its share of the tokens, summed into the loss.  With one
+    vocab block it is the plain loss, bit for bit."""
+    ctx = get_ctx()
+    mesh = logits.device_mesh
+    nd = logits.dim()
+    vocab_dims = {i for i, p in enumerate(logits.placements)
+                  if isinstance(p, Shard) and p.dim == nd - 1}
+    row_plc = ctx.placements("kv_rep", nd - 1)
+    batch = {i for i, p in enumerate(row_plc) if isinstance(p, Shard)}
+    l_plc = tuple(Shard(nd - 1) if i in vocab_dims else row_plc[i]
+                  for i in range(mesh.ndim))
+    gold_plc = tuple(Partial() if i in vocab_dims else row_plc[i]
+                     for i in range(mesh.ndim))
+    block = _block(mesh, vocab_dims)
+
+    def parts(lg, lab):
+        lg = lg.float()
+        lse = torch.logsumexp(lg, dim=-1, keepdim=True)
+        idx = lab.long() - block * lg.shape[-1]
+        ok = (idx >= 0) & (idx < lg.shape[-1])
+        gold = torch.gather(lg, -1, idx.clamp(0, lg.shape[-1] - 1)[..., None])
+        return lse, torch.where(ok, gold[..., 0], gold.new_zeros(()))
+
+    lse, gold = run_local(parts, mesh, (logits, labels), (l_plc, row_plc),
+                          (l_plc, gold_plc))
+    total = labels.numel()
+    out_plc = tuple(Partial() if i in batch else Replicate()
+                    for i in range(mesh.ndim))
+
+    def mean(lse_all, g):
+        return (torch.mean(torch.logsumexp(lse_all, dim=-1) - g)
+                * (g.numel() / total))
+
+    loss = run_local(mean, mesh, (lse, gold), (row_plc, row_plc), out_plc)
+    return loss.redistribute(mesh, (Replicate(),) * mesh.ndim)

@@ -3,9 +3,12 @@ routing with capacity-bounded, sort-based dispatch (token drop on
 overflow, GShard-style), the experts' three products through the
 grouped-matmul kernel (``repro_torch.kernels.moe_gmm``).
 
-Only the reference's single-device branch is ported (``moe_gspmd``, the
-one ``moe_block`` takes with no mesh); the expert- and tensor-parallel
-branches come with the distribution slice.
+``moe_block`` dispatches as the reference's: with no mesh (no
+``ParallelCtx``) ``moe_gspmd``; on a mesh with ``moe_impl == "ep"`` the
+expert-parallel ``repro_torch.parallel.moe_ep.moe_ep`` when the experts
+split over the model axis, else the tensor-parallel ``moe_tp`` when
+``d_ff`` does, else ``moe_gspmd`` on the tokens gathered whole (its
+global sort needs them all).
 
 Two departures from the reference's arithmetic, neither changing the
 function: the dispatch writes each kept row once (dropped rows go to a
@@ -32,9 +35,13 @@ import math
 
 import torch
 
+from torch.distributed.tensor import DTensor, Replicate
+
 from repro_torch.kernels.moe_gmm.ops import moe_gmm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import _act, dense
+from repro_torch.parallel.ctx import get_ctx, run_local
+from repro_torch.tree import flatten, unflatten
 
 
 def router_topk(x2d, router_w, cfg: ModelConfig):
@@ -104,43 +111,58 @@ def expert_counts(idx, cap: int, cfg: ModelConfig):
     return counts.clamp_(max=cap)
 
 
-def moe_gspmd(x, p, cfg: ModelConfig, *, gmm_impl: str = "auto"):
-    """x: (b, s, d) -> (b, s, d), aux_loss."""
-    b, s, d = x.shape
-    t = b * s
-    k = cfg.experts_per_token
-    x2d = x.reshape(t, d)
-    gates, idx, aux = router_topk(x2d, p["router"], cfg)
-    cap = capacity(t, cfg)
-    _, e_sorted, slot, keep, order = build_dispatch(idx, t, cap, cfg)
+def pack(x2d, e_sorted, slot, keep, order, cap: int, cfg: ModelConfig):
+    """The (E * cap + 1, d) dispatch buffer of tokens x2d (T, d) and each
+    assignment's row in it (``dest``, (T*k,)).
 
-    # each kept assignment owns its (expert, slot) row; dropped ones all
-    # land on one spare row past the buffer, which the experts never see.
-    # The rows are x2d[tok] (build_dispatch's tok) taken as each token's
-    # k copies permuted into expert order: ``order`` is a permutation, so
-    # the backward gathers instead of scatter-adding at tok's repeated
-    # indices
+    Each kept assignment owns its (expert, slot) row; dropped ones all
+    land on one spare row past the buffer, which the experts never see.
+    The rows are x2d[tok] (build_dispatch's tok) taken as each token's
+    k copies permuted into expert order: ``order`` is a permutation, so
+    the backward gathers instead of scatter-adding at tok's repeated
+    indices."""
+    t, d = x2d.shape
+    k = cfg.experts_per_token
     n_rows = cfg.num_experts * cap
     dest = torch.where(keep, e_sorted * cap + slot,
                        torch.full_like(slot, n_rows))
     rows = x2d.unsqueeze(1).expand(t, k, d).reshape(t * k, d)[order]
-    buf = x.new_zeros((n_rows + 1, d))
+    buf = x2d.new_zeros((n_rows + 1, d))
     buf[dest] = rows
+    return buf, dest
+
+
+def combine(ye_rows, gates, keep, order, dest, t: int, cfg: ModelConfig):
+    """The experts' output rows ye_rows (E * cap, d) gathered back to
+    their tokens, weighted by gate prob (dropped rows from a spare zero
+    row, so the kept indices stay unique), each token's k rows summed in
+    top-k order: (t, d)."""
+    k = cfg.experts_per_token
+    d = ye_rows.shape[-1]
+    g_sorted = gates.reshape(-1)[order]
+    w = torch.where(keep, g_sorted, torch.zeros_like(g_sorted)).to(
+        ye_rows.dtype)
+    ye_rows = torch.cat([ye_rows, ye_rows.new_zeros((1, d))])
+    out_rows = ye_rows[dest] * w[:, None]
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(t * k, device=order.device)
+    return out_rows[inv].view(t, k, d).sum(dim=1)
+
+
+def moe_gspmd(x, p, cfg: ModelConfig, *, gmm_impl: str = "auto"):
+    """x: (b, s, d) -> (b, s, d), aux_loss."""
+    b, s, d = x.shape
+    t = b * s
+    x2d = x.reshape(t, d)
+    gates, idx, aux = router_topk(x2d, p["router"], cfg)
+    cap = capacity(t, cfg)
+    _, e_sorted, slot, keep, order = build_dispatch(idx, t, cap, cfg)
+    buf, dest = pack(x2d, e_sorted, slot, keep, order, cap, cfg)
+    n_rows = cfg.num_experts * cap
     ye = expert_ffn(buf[:n_rows].view(cfg.num_experts, cap, d),
                     p["experts"], cfg, expert_counts(idx, cap, cfg),
                     gmm_impl=gmm_impl)
-
-    # gather expert outputs back, weighted by gate prob (dropped rows from
-    # a spare zero row, so the kept indices stay unique), then sum each
-    # token's k rows in top-k order
-    g_sorted = gates.reshape(-1)[order]
-    w = torch.where(keep, g_sorted, torch.zeros_like(g_sorted)).to(x.dtype)
-    ye_rows = torch.cat([ye.reshape(n_rows, d), ye.new_zeros((1, d))])
-    out_rows = ye_rows[dest] * w[:, None]
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(t * k, device=x.device)
-    out = out_rows[inv].view(t, k, d).sum(dim=1)
-
+    out = combine(ye.reshape(n_rows, d), gates, keep, order, dest, t, cfg)
     if cfg.num_shared_experts > 0:
         out = out + _shared(x2d, p["shared"], cfg)
     return out.reshape(b, s, d), aux
@@ -154,5 +176,24 @@ def _shared(x2d, shared, cfg: ModelConfig):
 
 
 def moe_block(x, p, cfg: ModelConfig, *, gmm_impl: str = "auto"):
-    """The MoE FFN: the reference's ``moe_block`` without a mesh."""
-    return moe_gspmd(x, p, cfg, gmm_impl=gmm_impl)
+    """The MoE FFN, dispatched as the reference's ``moe_block`` (the
+    module note); a DTensor ``x`` needs a ``ParallelCtx``."""
+    if not isinstance(x, DTensor):
+        return moe_gspmd(x, p, cfg, gmm_impl=gmm_impl)
+    from repro_torch.parallel import moe_ep as ep
+    from repro_torch.parallel.sharding import mesh_axes
+
+    mesh = get_ctx().mesh
+    impl = ep.moe_dispatch(cfg, mesh_axes(mesh))
+    if impl == "ep":
+        return ep.moe_ep(x, p, cfg, mesh, gmm_impl=gmm_impl)
+    if impl == "tp":
+        return ep.moe_tp(x, p, cfg, mesh, gmm_impl=gmm_impl)
+    # the global sort needs every token: run it whole on each rank
+    rep = (Replicate(),) * mesh.ndim
+    leaves, structure = flatten(p)
+    out, aux = run_local(
+        lambda xl, *ls: moe_gspmd(xl, unflatten(structure, ls), cfg,
+                                  gmm_impl=gmm_impl),
+        mesh, (x, *leaves), (rep,) * (1 + len(leaves)), (rep, rep))
+    return out, aux

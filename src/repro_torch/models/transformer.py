@@ -32,6 +32,8 @@ from repro_torch.models.init import check_ported
 from repro_torch.models.layers import (embed_tokens, lm_logits, mlp, norm,
                                        rmsnorm, softmax_xent)
 from repro_torch.models.moe import moe_block
+from repro_torch.parallel.ctx import (get_ctx, parallel_ctx,
+                                      shard_activation)
 from repro_torch.tree import copy_tree_
 
 PyTree = Any
@@ -68,6 +70,7 @@ def decoder_block(x, bp, cfg: ModelConfig, *, moe: bool,
                   gmm_impl: str = "auto"):
     """Pre-norm decoder block. Returns (x, (k, v) | None, aux | None),
     aux the MoE layer's load-balancing loss."""
+    x = shard_activation(x, "act")
     h = norm(x, bp, "ln1", cfg)
     attn_out, kv = self_attention(h, bp["attn"], cfg, attn_impl=attn_impl)
     x = x + attn_out
@@ -81,6 +84,7 @@ def hybrid_block(x, bp, cfg: ModelConfig, collect_state: bool = False,
     GeGLU MLP.  Returns (x, state | None); an attention layer's state is
     its last min(window, s) keys and values.  (Decode runs the layers in
     ``decode_step``.)"""
+    x = shard_activation(x, "act")
     h = norm(x, bp, "ln1", cfg)
     new_state = None
     if "attn" in bp:
@@ -103,6 +107,7 @@ def hybrid_block(x, bp, cfg: ModelConfig, collect_state: bool = False,
 def rwkv_block(x, bp, cfg: ModelConfig, state=None,
                collect_state: bool = False, scan_impl: str = "auto"):
     """RWKV-6 block: time mix + channel mix, each after an RMSNorm."""
+    x = shard_activation(x, "act")
     h = rmsnorm(x, bp["ln1"], cfg.norm_eps)
     tm_out, tm_state = rwkv.time_mix(h, bp["tm"], cfg,
                                      state["tm"] if state else None,
@@ -127,7 +132,15 @@ def _remat(block, cfg: ModelConfig, collect: bool):
     state is not allowed while a CUDA graph is being captured."""
     if not (cfg.remat and torch.is_grad_enabled()) or collect:
         return block
-    return lambda *args: checkpoint(block, *args, use_reentrant=False,
+    # the recompute runs in autograd's backward, on its own thread on
+    # CUDA: it re-installs the forward's ParallelCtx (thread-local)
+    ctx = get_ctx()
+
+    def run(*args):
+        with parallel_ctx(ctx):
+            return block(*args)
+
+    return lambda *args: checkpoint(run, *args, use_reentrant=False,
                                     preserve_rng_state=False)
 
 
@@ -215,11 +228,12 @@ def embed_inputs(params, batch, cfg: ModelConfig):
     d), patch_len): the vlm family prepends ``batch["patches"]`` (b, p,
     d), cast to the compute dtype, and gives p; the others give 0."""
     check_ported(cfg)
-    x = _embed(batch["tokens"], params, cfg)
+    x = _embed(shard_activation(batch["tokens"], "tokens"), params, cfg)
     if cfg.family == "vlm":
         patches = batch["patches"].to(cfg.compute_dtype)
-        return torch.cat([patches, x], dim=1), patches.shape[1]
-    return x, 0
+        return (shard_activation(torch.cat([patches, x], dim=1), "act"),
+                patches.shape[1])
+    return shard_activation(x, "act"), 0
 
 
 def ring_place(kv, seq_end: int, s_slots: int, seq_axis: int):
@@ -287,7 +301,8 @@ def loss_fn(params, batch, cfg: ModelConfig, attn_impl: str = "auto",
             and h.shape[1] > cfg.loss_chunk:
         loss = _chunked_xent(h, labels, params, cfg)
     else:
-        loss = softmax_xent(lm_logits(h, params, cfg), labels)
+        logits = shard_activation(lm_logits(h, params, cfg), "logits")
+        loss = softmax_xent(logits, labels)
     metrics = {"xent": loss, "aux": aux}
     if cfg.num_experts > 0:
         loss = loss + 0.01 * aux
@@ -302,7 +317,8 @@ def _chunked_xent(h, labels, params, cfg: ModelConfig):
     nc = h.shape[1] // c
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(nc):
-        logits = lm_logits(h[:, i * c:(i + 1) * c], params, cfg)
+        logits = shard_activation(
+            lm_logits(h[:, i * c:(i + 1) * c], params, cfg), "logits")
         total = total + softmax_xent(logits, labels[:, i * c:(i + 1) * c])
     return total / nc
 
@@ -333,11 +349,10 @@ def _caches_to_decode_cache(caches, cfg: ModelConfig, seq: int, max_len: int,
         return out
 
     def trim(kv, seq_axis):
-        k, v = kv
-        return {"k": ring_place(k.to(cfg.compute_dtype), seq, s_slots,
-                                seq_axis),
-                "v": ring_place(v.to(cfg.compute_dtype), seq, s_slots,
-                                seq_axis)}
+        return {name: shard_activation(
+                    ring_place(t.to(cfg.compute_dtype), seq, s_slots,
+                               seq_axis), "cache")
+                for name, t in zip(("k", "v"), kv)}
 
     if "dense_layers" in caches:
         out["dense_layers"] = {
@@ -420,6 +435,7 @@ def decode_step(params, token, cache, cfg: ModelConfig, *,
         for i in range(cfg.num_layers):
             bp = params["layers"][str(i)]
             st = cache["layers"][str(i)]
+            x = shard_activation(x, "act")
             h = norm(x, bp, "ln1", cfg)
             if "attn" in bp:
                 out, lc = decode_self_attention(h, bp["attn"], cfg,
@@ -442,6 +458,7 @@ def decode_step(params, token, cache, cfg: ModelConfig, *,
 
     else:
         def layer(x, bp, lc, moe):
+            x = shard_activation(x, "act")
             h = norm(x, bp, "ln1", cfg)
             out, _ = decode_self_attention(h, bp["attn"], cfg,
                                            {**lc, "pos": pos})
@@ -545,6 +562,7 @@ def paged_decode_step(params, token, lengths, k_pages, v_pages, block_tables,
 
     def attn_layer(h, bp, li):
         """li: page-pool layer index (dense layers first, then blocks)."""
+        h = shard_activation(h, "act")
         hn = norm(h, bp, "ln1", cfg)
         q, k, v = project_qkv(hn, bp["attn"], cfg, positions)
         kpi, vpi = k_pages[li], v_pages[li]

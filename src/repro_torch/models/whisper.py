@@ -39,6 +39,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (dense, embed_tokens, layernorm,
                                        lm_logits, mlp, softmax_xent)
 from repro_torch.models.transformer import _remat, _tree_slice, ring_place
+from repro_torch.parallel.ctx import shard_activation
 from repro_torch.tree import copy_tree_
 
 # the reference's prefill ring: prompt + this many slots
@@ -65,6 +66,7 @@ def _sinusoid(positions: int, d: int, device=None):
 
 def _enc_block(x, bp, cfg: ModelConfig, attn_impl: str):
     """One encoder block: non-causal self-attention, MLP."""
+    x = shard_activation(x, "act")
     a, _ = self_attention(_ln(x, bp, "ln1", cfg), bp["attn"], cfg,
                           causal=False, use_rope=False, attn_impl=attn_impl)
     x = x + a
@@ -78,6 +80,7 @@ def encode(params, frames, cfg: ModelConfig, attn_impl: str = "auto"):
     dt = cfg.compute_dtype
     x = frames.to(dt)
     x = x + _sinusoid(x.shape[1], cfg.d_model, x.device).to(dt)
+    x = shard_activation(x, "act")
     block = _remat(lambda h, bp: _enc_block(h, bp, cfg, attn_impl), cfg,
                    False)
     for i in range(cfg.encoder_layers):
@@ -99,6 +102,7 @@ def _enc_kv(bp, enc_out, cfg: ModelConfig):
 def _dec_block(x, bp, cfg: ModelConfig, enc_kv, attn_impl: str = "auto"):
     """One decoder block over a prompt: causal self-attention,
     cross-attention to the encoder, MLP.  Returns (x, (k, v))."""
+    x = shard_activation(x, "act")
     a, kv = self_attention(_ln(x, bp, "ln1", cfg), bp["attn"], cfg,
                            causal=True, use_rope=False, attn_impl=attn_impl)
     x = x + a
@@ -149,8 +153,8 @@ def loss_fn(params, batch, cfg: ModelConfig, attn_impl: str = "auto"):
     enc_out = encode(params, batch["frames"], cfg, attn_impl)
     x, _ = decode_train(params, batch["tokens"], enc_out, cfg,
                         attn_impl=attn_impl)
-    loss = softmax_xent(lm_logits(x[:, :-1], params, cfg),
-                        batch["tokens"][:, 1:])
+    logits = shard_activation(lm_logits(x[:, :-1], params, cfg), "logits")
+    loss = softmax_xent(logits, batch["tokens"][:, 1:])
     return loss, {"xent": loss}
 
 

@@ -127,10 +127,10 @@ def test_skip_reasons_equal_reference(arch, monkeypatch):
 
 
 def test_refused_variant_fails_the_cell():
-    with pytest.raises(ValueError, match="bf16_grad_reduce"):
+    with pytest.raises(ValueError, match="attn_chunk"):
         dryrun.run_cell("smollm-135m", "train_4k",
                         cfg_override=get_smoke("smollm-135m"),
-                        variant="dense_opt")
+                        variant="lc_ac512")
 
 
 def test_fits_against_the_h100():

@@ -1,0 +1,89 @@
+"""Card-only: the sharded train step (``launch.strategy.
+ShardedTrainStep``) through NCCL at world size 1, as ``chip_smoke.py``'s
+``distributed`` phase runs it, at SMOKE widths with head_dim 64 (the
+flash backward's): smollm-135m and deepseek-moe-16b with
+``moe_impl="ep"`` (``moe_ep``'s all-to-alls through NCCL), bf16
+compute.  Both steps are captured CUDA graphs; after 3 steps on the
+same batches from the same state the sharded step's params, m, v, step
+and metrics equal ``TrainStep``'s bit for bit, its collectives include
+the EP step's all-to-alls, and the flash (and for the MoE the grouped
+matmul) kernels were launched.
+
+Every test carries the ``cuda`` marker and skips without a card.  On a
+machine with one:
+
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_sharded_cuda.py
+"""
+import dataclasses
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import get_smoke  # noqa: E402
+from repro_torch.kernels.flash_attention import \
+    flash_attention as fa  # noqa: E402
+from repro_torch.kernels.moe_gmm import moe_gmm as mg  # noqa: E402
+from repro_torch.launch.strategy import (ShardedTrainStep,  # noqa: E402
+                                         TrainStep, init_train_state)
+from repro_torch.optim import AdamWConfig  # noqa: E402
+from repro_torch.tree import flatten, tree_map  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+B, S = 4, 128
+OPT = AdamWConfig(lr=1e-3)
+CASES = {"smollm": ("smollm-135m", {}),
+         "deepseek_ep": ("deepseek-moe-16b", {"moe_impl": "ep"})}
+
+
+@pytest.fixture(scope="module")
+def mesh(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: NCCL and CUDA graphs have no CPU "
+                    "mode")
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed, make_dev_mesh
+
+    store = tmp_path_factory.mktemp("nccl") / "store"
+    init_distributed(init_method=f"file://{store}")
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield make_dev_mesh(1, 1)
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_sharded_step_equals_train_step(mesh, case):
+    arch, knobs = CASES[case]
+    cfg = dataclasses.replace(get_smoke(arch), head_dim=64,
+                              compute_dtype=torch.bfloat16, **knobs)
+    s0 = init_train_state(cfg, torch.Generator("cuda").manual_seed(0),
+                          "cuda")
+    g = torch.Generator().manual_seed(1)
+    batches = [{"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                        generator=g, dtype=torch.int32)}
+               for _ in range(3)]
+    fa.LAUNCHES = mg.LAUNCHES = 0
+    ref = TrainStep(cfg, OPT, s0, B, S, "graph")
+    got = ShardedTrainStep(cfg, OPT, mesh, s0, B, S, "graph")
+    assert fa.LAUNCHES > 0
+    assert (mg.LAUNCHES > 0) == bool(cfg.num_experts)
+    for bt in batches:
+        a = {k: v.clone() for k, v in ref(bt).items()}
+        b = {k: v.clone() for k, v in got(bt).items()}
+        assert a.keys() == b.keys()
+        assert all(torch.equal(a[k], b[k]) for k in a)
+    want = flatten(ref.state)[0]
+    have = flatten(tree_map(lambda t: t.to_local(), got.state))[0]
+    assert len(want) == len(have)
+    assert all(torch.equal(x, y) for x, y in zip(want, have))
+    assert got.graph.replays == 3
+    kinds = got.collectives.stats().count_by_kind
+    if cfg.num_experts:
+        assert kinds.get("all-to-all", 0) > 0

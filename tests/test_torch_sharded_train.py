@@ -1,0 +1,253 @@
+"""The port's sharded train step (``launch.strategy.ShardedTrainStep``)
+on 4 gloo ranks, a (2, 2) ("data", "model") mesh, against the
+reference's ``jit_train_step`` on a 4-device CPU mesh of Auto axes, two
+steps from the reference's initial state on the same (4, 32) batches:
+
+* smollm-135m SMOKE (3 heads, 1 KV head: the heads stay whole on the
+  model axis, the FFN, vocab and embedding split as the rule table
+  says), deepseek-moe-16b SMOKE with ``moe_impl="ep"`` (moe_ep: per-rank
+  routing and capacity, two all-to-alls a layer) and with the default
+  ``moe_impl`` (moe_gspmd on the tokens gathered whole: its global sort
+  needs every token), and smollm with
+  ``bf16_grad_reduce`` (the ``bf16_grads`` variant: ``DenseBf16Grad``
+  and the gradients reduced before the fp32 cast);
+* losses within TOL, every updated parameter and both AdamW moments
+  within PARAM_ATOL (``tests/test_torch_train_step.py``'s tolerances);
+* each rank holds only its blocks: its local parameter bytes equal
+  ``sharded_param_bytes``; the counter sees the FSDP all-gathers and a
+  gradient reduction;
+* smollm's sharded step equals the port's one-process
+  ``make_train_step`` (losses TOL, parameters PARAM_ATOL);
+* with plain tensors a ``ParallelCtx`` changes nothing: the one-process
+  step under an installed context is bit-identical to the step with
+  none (every ``shard_activation`` site is the identity there);
+* at world size 1 (a gloo group in this process, a 1 x 1 mesh, as the
+  card's smoke runs it through NCCL) the sharded step equals
+  ``TrainStep`` bit for bit over 3 steps, the EP step issuing its
+  all-to-alls; a second process group, and a CUDA mesh without a card,
+  are refused.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from tests._torch_mesh import auto_mesh, run_reference, save, spawn  # noqa: E402
+
+CASES = {
+    "smollm": ("smollm-135m", {}),
+    "deepseek_ep": ("deepseek-moe-16b", {"moe_impl": "ep"}),
+    "deepseek_gspmd": ("deepseek-moe-16b", {}),
+    "smollm_bf16_grads": ("smollm-135m", {"bf16_grad_reduce": True}),
+}
+TOL = dict(atol=1e-5, rtol=1e-5)
+PARAM_ATOL = 1e-4
+B, S, STEPS = 4, 32, 2
+
+
+def _cfg(get_smoke, case):
+    arch, knobs = CASES[case]
+    return dataclasses.replace(get_smoke(arch), **knobs)
+
+
+def _tokens(vocab: int):
+    rng = np.random.default_rng(3)
+    return rng.integers(0, vocab, (STEPS, B, S), dtype=np.int32)
+
+
+def reference(out):
+    import jax
+
+    from repro.configs import get_smoke
+    from repro.launch import strategy
+    from repro.models.config import ShapeConfig
+    from repro.optim import AdamWConfig
+    from repro.parallel.ctx import parallel_ctx
+
+    mesh = auto_mesh()
+    res = {}
+    for case in CASES:
+        cfg = _cfg(get_smoke, case)
+        fn, _, ctx = strategy.jit_train_step(
+            cfg, ShapeConfig("t", "train", S, B), mesh, AdamWConfig())
+        state = strategy.init_train_state(cfg, jax.random.PRNGKey(0), mesh)
+        res[case, "state0"] = jax.tree.map(np.asarray, state)
+        losses = []
+        with parallel_ctx(ctx):
+            for toks in _tokens(cfg.vocab_size):
+                state, m = fn(state, {"tokens": toks})
+                losses.append(float(m["loss"]))
+        res[case, "losses"] = losses
+        res[case, "state"] = jax.tree.map(np.asarray, state)
+    save(res, out)
+
+
+def port(rank, mesh, ref):
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import strategy
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.parallel.ctx import parallel_ctx
+    from repro_torch.parallel.sharding import local_bytes, sharded_param_bytes
+    from repro_torch.tree import tree_map
+
+    res = {}
+    for case in CASES:
+        cfg = _cfg(get_smoke, case)
+        state0 = tree_map(lambda a: torch.from_numpy(np.array(a)),
+                          ref[case, "state0"])
+        st = strategy.ShardedTrainStep(cfg, AdamWConfig(), mesh, state0, B,
+                                       S, step_impl="eager")
+        losses = [float(st({"tokens": torch.from_numpy(t)})["loss"])
+                  for t in _tokens(cfg.vocab_size)]
+        res[case] = {
+            "losses": losses,
+            "state": tree_map(lambda t: t.full_tensor().numpy(), st.state),
+            "local_bytes": local_bytes(st.state["params"]),
+            "want_bytes": sharded_param_bytes(cfg, mesh),
+            "kinds": st.collectives.stats().count_by_kind,
+        }
+        if case == "smollm" and rank == 0:
+            step = strategy.make_train_step(cfg, AdamWConfig())
+            ctx = strategy.make_ctx(cfg, mesh)
+            plain, under_ctx = state0, state0
+            one = []
+            for t in _tokens(cfg.vocab_size):
+                batch = {"tokens": torch.from_numpy(t)}
+                plain, m = step(plain, batch)
+                with parallel_ctx(ctx):
+                    under_ctx, _ = step(under_ctx, batch)
+                one.append(float(m["loss"]))
+            res[case, "one"] = {"losses": one, "state": tree_map(
+                lambda t: t.numpy(), plain)}
+            res[case, "ctx_identical"] = all(
+                torch.equal(a, b) for a, b in zip(
+                    _leaves(plain), _leaves(under_ctx)))
+    return res
+
+
+def _leaves(tree):
+    from repro_torch.tree import flatten
+
+    return flatten(tree)[0]
+
+
+@pytest.fixture(scope="module")
+def results(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("sharded_train")
+    ref = run_reference("test_torch_sharded_train", "reference",
+                        tmp / "ref.pkl")
+    return ref, spawn(port, tmp / "port", ref)
+
+
+def _items(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _items(tree[k], f"{prefix}/{k}")
+    else:
+        yield prefix, np.asarray(tree)
+
+
+def _assert_state(got, want):
+    want = dict(_items(want))
+    names = set()
+    for name, v in _items(got):
+        names.add(name)
+        np.testing.assert_allclose(v, want[name], atol=PARAM_ATOL, rtol=0,
+                                   err_msg=name)
+    assert names == set(want)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_sharded_step_matches_reference(results, case):
+    ref, ranks = results
+    got = ranks[0][case]
+    np.testing.assert_allclose(got["losses"], ref[case, "losses"], **TOL)
+    _assert_state(got["state"], ref[case, "state"])
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_each_rank_holds_its_shard(results, case):
+    _, ranks = results
+    for r in ranks:
+        assert r[case]["local_bytes"] == r[case]["want_bytes"]
+    full = sum(np.asarray(v).nbytes
+               for _, v in _items(results[0][case, "state0"]["params"]))
+    assert ranks[0][case]["want_bytes"] < full
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_counter_sees_gathers_and_reductions(results, case):
+    _, ranks = results
+    kinds = ranks[0][case]["kinds"]
+    assert kinds.get("all-gather", 0) > 0
+    assert kinds.get("reduce-scatter", 0) + kinds.get("all-reduce", 0) > 0
+    if case == "deepseek_ep":
+        assert kinds.get("all-to-all", 0) > 0
+
+
+def test_sharded_step_matches_one_process_step(results):
+    _, ranks = results
+    got, one = ranks[0]["smollm"], ranks[0]["smollm", "one"]
+    np.testing.assert_allclose(got["losses"], one["losses"], **TOL)
+    _assert_state(got["state"], one["state"])
+
+
+def test_plain_step_under_context_is_bit_identical(results):
+    _, ranks = results
+    assert ranks[0]["smollm", "ctx_identical"]
+
+
+@pytest.fixture(scope="module")
+def world_one(tmp_path_factory):
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed, make_dev_mesh
+
+    store = tmp_path_factory.mktemp("world1") / "store"
+    init_distributed("cpu", f"file://{store}")
+    try:
+        yield make_dev_mesh(1, 1, device="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_world_one_step_is_train_step_bit_for_bit(world_one, case):
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import strategy
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.tree import tree_map
+
+    cfg = _cfg(get_smoke, case)
+    s0 = strategy.init_train_state(cfg, torch.Generator().manual_seed(0),
+                                   "cpu")
+    ref = strategy.TrainStep(cfg, AdamWConfig(), s0, B, S, "eager")
+    got = strategy.ShardedTrainStep(cfg, AdamWConfig(), world_one, s0, B,
+                                    S, "eager")
+    for t in _tokens(cfg.vocab_size):
+        batch = {"tokens": torch.from_numpy(t)}
+        a = {k: v.clone() for k, v in ref(batch).items()}
+        b = got(batch)
+        assert all(torch.equal(a[k], b[k]) for k in a)
+    assert all(torch.equal(x, y) for x, y in zip(
+        _leaves(ref.state), _leaves(tree_map(lambda t: t.to_local(),
+                                             got.state))))
+    kinds = got.collectives.stats().count_by_kind
+    assert kinds == ({"all-to-all": 12} if cfg.moe_impl == "ep" else {})
+
+
+def test_mesh_refuses_a_second_group_and_a_missing_card(world_one):
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed, make_dev_mesh
+
+    with pytest.raises(RuntimeError, match="already started"):
+        init_distributed("cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make_dev_mesh(1, 1)
+    assert dist.get_backend() == "gloo"

@@ -2,12 +2,13 @@
 the reference's, on the CPU (exact comparisons, no tolerance).
 
 * ``VARIANTS`` has the reference's names; every variant the port accepts
-  gives the reference's field values (dtypes by name); every variant
-  that sets a knob no code of the port reads raises ``ValueError``
-  naming the knob.
+  gives the reference's field values (dtypes by name), those setting a
+  mesh knob (read by the sharded step) included; every variant that
+  sets a knob no code of the port reads (``attn_chunk``,
+  ``decode_unroll``) raises ``ValueError`` naming the knob.
 * No module of the port reads a knob ``apply_variant`` refuses (the cost
   reference's seq points read ``attn_chunk`` as the reference's do; they
-  label no run).
+  label no run); each mesh knob has a reader.
 """
 import dataclasses
 import pathlib
@@ -23,11 +24,18 @@ from repro.launch import variants as jvar  # noqa: E402
 from repro_torch.configs import get_smoke as tsmoke  # noqa: E402
 from repro_torch.launch import variants as tvar  # noqa: E402
 
+# the variants setting a mesh knob, read by the sharded step
+MESH_VARIANTS = ["moe_shard_map", "no_sp", "kv_gather", "bf16_grads",
+                 "moe_sm_mb4", "moe_sm_mb4_losschunk", "moe_sm_losschunk",
+                 "kv_bf16", "dense_opt", "moe_opt", "kvg_opt", "mb2_lc",
+                 "mb8_lc"]
+MESH_KNOBS = ("moe_impl", "seq_shard_activations", "attn_kv_gather",
+              "bf16_grad_reduce")
 ACCEPTED = ["baseline", "microbatch2", "microbatch4", "microbatch8",
-            "loss_chunk512", "no_remat", "mb4_losschunk", "serve_bf16"]
+            "loss_chunk512", "no_remat", "mb4_losschunk",
+            "serve_bf16"] + MESH_VARIANTS
 REFUSED = sorted(set(jvar.VARIANTS) - set(ACCEPTED))
-UNREAD = ("moe_impl", "seq_shard_activations", "attn_kv_gather",
-          "bf16_grad_reduce", "attn_chunk", "decode_unroll")
+UNREAD = ("attn_chunk", "decode_unroll")
 PORT = pathlib.Path(tvar.__file__).resolve().parents[1]
 
 
@@ -72,6 +80,19 @@ def test_refused_variant_names_its_knob(name):
                for w in ("distribution", "chunking", "unrolled"))
 
 
+@pytest.mark.parametrize("name", MESH_VARIANTS)
+def test_mesh_variant_sets_its_knob(name):
+    """A variant setting a mesh knob is accepted and sets it as the
+    reference's does."""
+    base = jsmoke("smollm-135m")
+    want = jvar.apply_variant(base, name)
+    knobs = [k for k in MESH_KNOBS if getattr(want, k) != getattr(base, k)]
+    assert knobs, f"{name} sets no mesh knob"
+    got = tvar.apply_variant(tsmoke("smollm-135m"), name)
+    for k in knobs:
+        assert getattr(got, k) == getattr(want, k), k
+
+
 def test_unknown_variant_raises_key_error():
     with pytest.raises(KeyError):
         tvar.apply_variant(tsmoke("smollm-135m"), "no_such_variant")
@@ -81,14 +102,23 @@ def test_unread_knobs_are_the_module_table():
     assert tuple(tvar.UNREAD_KNOBS) == UNREAD
 
 
+def _readers(knob):
+    pat = re.compile(rf"\.{knob}\b|[\"']{knob}[\"']")
+    return [f"{f.relative_to(PORT)}:{i}"
+            for f in sorted(PORT.rglob("*.py"))
+            if f.name != "variants.py"
+            for i, line in enumerate(f.read_text().splitlines(), 1)
+            if pat.search(line)]
+
+
 @pytest.mark.parametrize("knob", UNREAD)
 def test_unread_knob_has_no_reader(knob):
-    pat = re.compile(rf"\.{knob}\b|[\"']{knob}[\"']")
-    readers = [f"{f.relative_to(PORT)}:{i}"
-               for f in sorted(PORT.rglob("*.py"))
-               if f.name != "variants.py"
-               for i, line in enumerate(f.read_text().splitlines(), 1)
-               if pat.search(line)]
+    readers = _readers(knob)
     if knob == "attn_chunk":        # the cost reference's seq points
         readers = [r for r in readers if not r.startswith("core/costref.py")]
     assert readers == []
+
+
+@pytest.mark.parametrize("knob", MESH_KNOBS)
+def test_mesh_knob_has_a_reader(knob):
+    assert _readers(knob)
