@@ -174,8 +174,8 @@ each of which raises on failure (nothing is caught):
    forward at (1, 4096, 40, 64) with and without the chunk states the
    reverse reads, beside its bound (each plain version timed by the one
    eager call its check or its first row makes); (b) the full model's
-   loss and gradients, at ``SSM_GRAD_LAYERS`` of the 8 layers (the plain
-   WKV loops over the tokens in Python: ~6 s a layer for the four
+   loss and gradients, at ``SSM_GRAD_LAYERS`` (2) of the 8 layers (the
+   plain WKV loops over the tokens in Python: ~6 s a layer for the four
    gradient runs), with the WKV kernels and with the plain versions, as
    in phase 6, decay_b drawn nonzero so that decay_a has a gradient, every
    WKV leaf (``wr``, ``wk``, ``wv``, ``decay_*``, ``bonus``) nonzero, the
@@ -234,8 +234,34 @@ each of which raises on failure (nothing is caught):
    direct call, every flash and grouped-matmul kernel above 0 over the
    phase), the sharded step's collectives by kind (count and bytes; the
    EP step's all-to-alls present), and the final params, m, v, step and
-   metrics bit for bit against ``TrainStep``'s.  The group is destroyed
-   at the end.
+   metrics bit for bit against ``TrainStep``'s.  Then, in the same group,
+   the serving sub-phase ``distributed_serve``: the split softmax of the
+   sharded decode attention (``decode_attention_pieces``, the reductions
+   over the stacked pieces) against the one-piece ``decode_attention``
+   at smollm's (8, 1, 9, 64) and deepseek's (8, 1, 16, 128) queries and
+   a 264-slot cache cut into 4 pieces, fp32 and bf16, with rows of
+   ``n_valid`` 0, rows in one piece and rows of a wrapped ring
+   (``distributed_split_softmax``: the only place the card runs the
+   split, as at world size 1 no sequence is split); then two cells one
+   after the other, each freed before the next, smollm-135m at full
+   width and depth and deepseek-moe-16b at full published width and
+   depth with bf16 params and ``moe_impl="ep"``: the unsharded path
+   (weights drawn on the card from seed 0, ``model.prefill_fn`` as one
+   captured graph and a ``DecodeGraph`` over ``decode_step_inplace``)
+   prefills 8 x 200 tokens into a 264-slot cache and takes 32 greedy
+   steps, keeps logits, tokens and the final cache on the host and frees
+   its weights; then the same weights, drawn again, shared without a
+   copy (at world size 1 each DTensor's local tensor is the card's
+   tensor itself) by a captured
+   ``ShardedPrefillStep`` and a captured ``ShardedDecodeStep``, do the
+   same.  Each line (``distributed_serve_smollm``,
+   ``distributed_serve_deepseek_ep``): every logit, token and cache leaf
+   ``torch.equal``, both paths' prefill and decode-step ms and their
+   ratios, the sharded capture seconds and pool bytes, the peaks and
+   ``at_start_gb``, the flash and grouped-matmul launches (exact per
+   direct call, each above 0), one decode step's collectives by kind
+   (the EP step's all-to-alls present).  The group is destroyed at the
+   end.
 
 Every serving run goes through the executor's ``serving_params`` (the
 weights cast to the compute dtype once) and runs each decode step as a
@@ -3662,10 +3688,10 @@ SSM_TRAIN_BATCH, SSM_TRAIN_SEQ = 1, 4096
 # gradients and casts: ~92 GB) would not fit 80 GB; 8 layers are 1.02 B
 # parameters, the size of the MoE and hybrid cuts
 SSM_TRAIN_LAYERS = 8
-# the kernel-vs-plain gradient check of the ssm runs the first 4 of those
+# the kernel-vs-plain gradient check of the ssm runs the first 2 of those
 # layers: each plain gradient run loops the WKV over the tokens in Python
 # (~6.5 s a layer), and the smoke's time limit is shared by every phase
-SSM_GRAD_LAYERS = 4
+SSM_GRAD_LAYERS = 2
 # the time-mix leaves whose gradient comes through the WKV alone: the
 # r, k, v projections, the decay's LoRA and base, and the bonus
 WKV_LEAVES = ("wr", "wk", "wv", "decay_a", "decay_b", "decay_base", "bonus")
@@ -3993,9 +4019,288 @@ def sharded_vs_train_step(torch, cfg, b: int, s: int, mesh, phase: str):
     return launches
 
 
-def distributed(torch, smollm, moe):
-    """Phase 13 (the module note): the two cells on a 1 x 1 mesh through
-    NCCL; returns the launches made."""
+# the sharded serving cells: 8 prompts of 200 tokens into a 264-slot
+# cache, then greedy decode steps
+DIST_SERVE_BATCH, DIST_SERVE_SEQ, DIST_SERVE_MAX_LEN = 8, 200, 264
+DIST_SERVE_STEPS = 32
+# the kernels the sharded serving steps must have launched
+DIST_SERVE_KERNELS = ("flash_attention", "moe_gmm")
+# the split softmax against the one-piece decode attention: the cache's
+# 264 slots cut into this many pieces, the pieces' reductions done over
+# the stacked pieces.  fp32 sums the same products in another order
+# (1e-5); in bf16 P is rounded to bf16 after a sum l taken in another
+# order, so an element of P may land one bf16 ulp away, and the output,
+# rounded to bf16, one ulp (TOL's bf16 bound)
+SPLIT_PIECES = 4
+SPLIT_TOL = {"torch.float32": dict(atol=1e-5, rtol=1e-5),
+             "torch.bfloat16": dict(atol=1.6e-2, rtol=1e-2)}
+
+
+def split_softmax_cases(torch):
+    """``decode_attention_pieces`` (the sharded decode's split softmax,
+    its reductions over the stacked pieces) against the one-piece
+    ``decode_attention`` on the card: smollm-135m's (8, 1, 9, 64) and
+    deepseek-moe-16b's (8, 1, 16, 128) queries against a
+    ``DIST_SERVE_MAX_LEN``-slot cache cut into ``SPLIT_PIECES`` pieces,
+    fp32 and bf16, rows with ``n_valid`` 0, rows inside the first piece
+    and rows of a wrapped ring (every slot valid)."""
+    from repro_torch.models.attention import (decode_attention,
+                                              decode_attention_pieces)
+
+    slots, b = DIST_SERVE_MAX_LEN, 8
+    s_p = slots // SPLIT_PIECES
+    n_valid = torch.tensor([0, 0, 1, s_p - 1, s_p, slots, slots, 2 * s_p + 3],
+                           dtype=torch.int32, device="cuda")
+    rows = []
+    for arch, hq, hkv, hd in (("smollm-135m", 9, 3, 64),
+                              ("deepseek-moe-16b", 16, 16, 128)):
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator(device="cuda").manual_seed(hq)
+            q, k, v = (torch.randn(shape, generator=g, device="cuda").to(dtype)
+                       for shape in ((b, 1, hq, hd), (b, slots, hkv, hd),
+                                     (b, slots, hkv, hd)))
+
+            def stack(t):
+                return t.reshape(b, SPLIT_PIECES, s_p, hkv, hd).transpose(0, 1)
+
+            got = decode_attention_pieces(
+                q, stack(k), stack(v), n_valid,
+                torch.arange(SPLIT_PIECES, device="cuda") * s_p,
+                lambda t: t.amax(0, keepdim=True).expand_as(t),
+                lambda t: t.sum(0, keepdim=True).expand_as(t))
+            want = decode_attention(q, k, v, n_valid)
+            err = check_close(torch, f"split_softmax {arch} {dtype}", got,
+                              want, SPLIT_TOL[str(dtype)])
+            rows.append({"arch": arch, "dtype": str(dtype), "q": [b, 1, hq, hd],
+                         "cache": [b, slots, hkv, hd],
+                         "pieces": SPLIT_PIECES,
+                         "n_valid": n_valid.tolist(), "max_abs_err": err,
+                         "tol": SPLIT_TOL[str(dtype)]})
+    log({"phase": "distributed_split_softmax", "cases": rows})
+
+
+def _replay_ms(torch, graph, n: int) -> list:
+    """Host wall of ``n`` replays of ``graph``, each synchronised (ms)."""
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph()
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def _greedy(torch, step, first_logits, n: int):
+    """``n`` greedy steps of ``step(token) -> logits`` from
+    ``first_logits``: each step's logits and the tokens fed, on the
+    host, and each step's wall (ms)."""
+    logits, outs, toks, walls = first_logits, [], [], []
+    for _ in range(n):
+        tok = logits.argmax(-1).to(torch.int32)
+        toks.append(tok.cpu())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = step(tok)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+        outs.append(logits.cpu())
+    return outs, toks, walls
+
+
+def unsharded_serve(torch, cfg, prompt):
+    """The unsharded path on weights drawn on the card from seed 0:
+    ``model.prefill_fn`` as one captured graph (``StepGraph``) and a
+    ``DecodeGraph`` over ``decode_step_inplace``, ``DIST_SERVE_STEPS``
+    greedy steps; the logits, tokens and final cache on the host, the
+    weights freed."""
+    from repro_torch.models import model
+    from repro_torch.models.init import init_params
+    from repro_torch.serve.decode_graph import DecodeGraph
+    from repro_torch.step_graph import StepGraph
+    from repro_torch.tree import copy_tree_
+
+    dev = torch.device("cuda")
+    params = init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    b = prompt.shape[0]
+    pfn = model.prefill_fn(cfg, DIST_SERVE_MAX_LEN)
+    dfn = model.decode_inplace_fn(cfg)
+    pre = {"params": params, "batch": {"tokens": prompt.to(dev)},
+           "cache": model.init_cache(cfg, b, DIST_SERVE_MAX_LEN, dev),
+           "logits": torch.zeros((b, cfg.vocab_size), device=dev)}
+
+    def prefill(bufs):
+        logits, cache = pfn(bufs["params"], bufs["batch"])
+        bufs["logits"].copy_(logits)
+        copy_tree_(bufs["cache"], cache, "cache")
+
+    pg = StepGraph(prefill, pre, dev, "graph")
+    dec = {"params": params, "token": torch.zeros((b,), dtype=torch.int32,
+                                                   device=dev),
+           "cache": model.init_cache(cfg, b, DIST_SERVE_MAX_LEN, dev),
+           "logits": torch.zeros((b, cfg.vocab_size), device=dev)}
+
+    def decode(bufs):
+        bufs["logits"].copy_(dfn(bufs["params"], bufs["token"],
+                                 bufs["cache"]))
+
+    dg = DecodeGraph(decode, dec, dev, "graph")
+    pg()
+    prefill_ms = _replay_ms(torch, pg, 3)
+    first = pre["logits"].clone()
+    copy_tree_(dec["cache"], pre["cache"], "cache")
+
+    def step(tok):
+        dec["token"].copy_(tok)
+        dg()
+        return dec["logits"]
+
+    outs, toks, walls = _greedy(torch, step, first, DIST_SERVE_STEPS)
+    out = {"logits": [first.cpu()] + outs, "tokens": toks,
+           "cache": _host(dec["cache"]),
+           "row": {"prefill_ms": float(sum(prefill_ms) / len(prefill_ms)),
+                   "prefill_ms_all": prefill_ms,
+                   "decode_ms": float(sum(walls[1:]) / (len(walls) - 1)),
+                   "capture_s": pg.capture_s + dg.capture_s,
+                   "capture_gb": (pg.capture_bytes + dg.capture_bytes) / 1e9,
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9}}
+    del params, pre, dec, pg, dg, first, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_vs_unsharded_serve(torch, cfg, mesh, phase: str):
+    """Phase 13's serving cell (the module note): the unsharded path
+    first (:func:`unsharded_serve`), then the same weights drawn again on
+    the card and shared, without a copy, by a captured
+    ``ShardedPrefillStep`` and a captured
+    ``ShardedDecodeStep``: the prefill, the cache loaded, the same
+    greedy steps.  Every logit, token and cache leaf must be
+    bit-identical; the line gives both paths' prefill and decode-step ms
+    and their ratios, the sharded capture seconds and pool bytes, the
+    peaks, one decode step's collectives by kind and the kernels'
+    launches (exact per direct call; replays counted).  Returns the
+    launches made."""
+    from repro_torch.launch.strategy import (ShardedDecodeStep,
+                                             ShardedPrefillStep)
+    from repro_torch.models.init import init_params
+    from repro_torch.tree import flatten
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    at_start = {"allocated": torch.cuda.memory_allocated() / 1e9,
+                "reserved": torch.cuda.memory_reserved() / 1e9}
+    t_cell = time.perf_counter()
+    b = DIST_SERVE_BATCH
+    prompt = torch.randint(0, cfg.vocab_size, (b, DIST_SERVE_SEQ),
+                           generator=torch.Generator().manual_seed(7),
+                           dtype=torch.int32)
+    torch.cuda.reset_peak_memory_stats()
+    ref = unsharded_serve(torch, cfg, prompt)
+    torch.cuda.reset_peak_memory_stats()
+    dev = torch.device("cuda")
+    params = init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    pre = ShardedPrefillStep(cfg, mesh, params, b, DIST_SERVE_SEQ,
+                             DIST_SERVE_MAX_LEN, "graph")
+    dec = ShardedDecodeStep(cfg, mesh, params, b, DIST_SERVE_MAX_LEN, "graph")
+    build_s = time.perf_counter() - t0
+    peak_build = torch.cuda.max_memory_allocated() / 1e9
+    pre({"tokens": prompt})
+    prefill_ms = _replay_ms(torch, pre.graph, 3)
+    first = pre.logits.clone()
+    dec.load_cache(pre.cache)
+    outs, toks, walls = _greedy(torch, dec, first, DIST_SERVE_STEPS)
+    counts, tc_counts = read_counts(), read_tc_counts()
+    n_moe = cfg.num_layers - cfg.first_k_dense if cfg.num_experts else 0
+    per_pre = {"flash_attention": cfg.num_layers, "moe_gmm": 3 * n_moe}
+    per_dec = {"flash_attention": 0, "moe_gmm": 3 * n_moe}
+    pg, dg = pre.graph, dec.graph
+    want = {k: pg.calls * per_pre[k] + dg.calls * per_dec[k]
+            for k in DIST_SERVE_KERNELS}
+    got = {k: counts[k] for k in DIST_SERVE_KERNELS}
+    if got != want or {k: tc_counts[k] for k in want} != want:
+        raise AssertionError(f"{phase}: launches {got} (tensor cores "
+                             f"{tc_counts}), want {want} per direct call")
+    launches = {k: (pg.calls + pg.replays) * per_pre[k]
+                + (dg.calls + dg.replays) * per_dec[k]
+                for k in DIST_SERVE_KERNELS}
+    cache = _local_host(dec.cache)
+    logits = [first.cpu()] + outs
+    differ = [f"logits {i}" for i, (x, y) in enumerate(
+        zip(ref["logits"], logits)) if not torch.equal(x, y)]
+    differ += [f"token {i}" for i, (x, y) in enumerate(
+        zip(ref["tokens"], toks)) if not torch.equal(x, y)]
+    names = flatten(_leaf_names(cache))[0]
+    differ += [f"cache {n}" for n, x, y in zip(
+        names, flatten(ref["cache"])[0], flatten(cache)[0])
+        if not torch.equal(x, y)]
+    c = dec.collectives.stats()
+    row = {"prefill_ms": float(sum(prefill_ms) / len(prefill_ms)),
+           "prefill_ms_all": prefill_ms,
+           "decode_ms": float(sum(walls[1:]) / (len(walls) - 1)),
+           "build_s": build_s,
+           "prefill_capture_s": pg.capture_s,
+           "decode_capture_s": dg.capture_s,
+           "prefill_capture_gb": pg.capture_bytes / 1e9,
+           "decode_capture_gb": dg.capture_bytes / 1e9,
+           "peak_build_gb": peak_build,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "decode_collectives": {"count_by_kind": c.count_by_kind,
+                                  "bytes_by_kind": c.bytes_by_kind},
+           "prefill_collectives": pre.collectives.stats().count_by_kind}
+    log({"phase": phase, "arch": cfg.name, "num_layers": cfg.num_layers,
+         "param_dtype": str(cfg.param_dtype), "moe_impl": cfg.moe_impl,
+         "batch": b, "seq": DIST_SERVE_SEQ, "max_len": DIST_SERVE_MAX_LEN,
+         "steps": DIST_SERVE_STEPS,
+         "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+         "at_start_gb": at_start, "unsharded": ref["row"], "sharded": row,
+         "prefill_ms_ratio": row["prefill_ms"] / ref["row"]["prefill_ms"],
+         "decode_ms_ratio": row["decode_ms"] / ref["row"]["decode_ms"],
+         "launches_per_call": {"prefill": per_pre, "decode": per_dec},
+         "launches": launches, "identical": not differ,
+         "differ": differ[:20], "cache_leaves": len(names),
+         "seconds": time.perf_counter() - t_cell})
+    if differ:
+        raise AssertionError(f"{phase}: the sharded steps differ from the "
+                             f"unsharded path in {len(differ)} places: "
+                             f"{differ[:20]}")
+    if cfg.num_experts and cfg.moe_impl == "ep" and not c.count_by_kind.get(
+            "all-to-all"):
+        raise AssertionError(f"{phase}: no all-to-all in the EP decode "
+                             f"step's collectives {c.count_by_kind}")
+    del pre, dec, params, ref, cache, logits, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def distributed_serve(torch, mesh, smollm, moe):
+    """Phase 13's serving sub-phase: the split softmax held on the card,
+    then smollm-135m and deepseek-moe-16b through the sharded prefill and
+    decode steps against the unsharded path; returns the launches
+    made."""
+    t0 = time.perf_counter()
+    split_softmax_cases(torch)
+    launches = {}
+    for cfg, phase in ((smollm, "distributed_serve_smollm"),
+                       (moe, "distributed_serve_deepseek_ep")):
+        for k, n in sharded_vs_unsharded_serve(torch, cfg, mesh,
+                                               phase).items():
+            launches[k] = launches.get(k, 0) + n
+    missing = [k for k in DIST_SERVE_KERNELS if not launches.get(k)]
+    log({"phase": "distributed_serve", "seconds": time.perf_counter() - t0,
+         "launches": launches})
+    if missing:
+        raise AssertionError(f"distributed_serve: {missing} never launched")
+    return launches
+
+
+def distributed(torch, smollm, moe, serve_smollm, serve_moe):
+    """Phase 13 (the module note): the two training cells and the serving
+    sub-phase on a 1 x 1 mesh through NCCL; returns the launches made."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import init_distributed, make_dev_mesh
@@ -4028,6 +4333,9 @@ def distributed(torch, smollm, moe):
              "launches": {k: launches.get(k, 0) for k in DIST_KERNELS}})
         if missing:
             raise AssertionError(f"distributed: {missing} never launched")
+        for k, n in distributed_serve(torch, mesh, serve_smollm,
+                                      serve_moe).items():
+            launches[k] = launches.get(k, 0) + n
         done = True
     finally:
         # on a failure the traceback ends the run: destroying the group
@@ -4333,8 +4641,8 @@ def main() -> int:
                      m_train_encdec, m_train_vlm])
 
     # phase 13: the sharded train step through NCCL at world size 1
-    c_dist = distributed(torch, cfg, dataclasses.replace(dst,
-                                                         moe_impl="ep"))
+    c_dist = distributed(torch, cfg, dataclasses.replace(dst, moe_impl="ep"),
+                         cfg, dataclasses.replace(ds, moe_impl="ep"))
 
     # the summary: the main paths' shapes and dtypes (bf16 flash at the
     # longest smollm prompt, bf16 paged at smollm's mixed batch, the bf16

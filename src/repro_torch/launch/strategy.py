@@ -10,9 +10,14 @@ and batch, updated in place, one captured CUDA graph on the card.
 (``repro_torch.parallel.sharding``), the batch is split by
 ``batch_placements``, and the step runs under the mesh's
 :class:`~repro_torch.parallel.ctx.ParallelCtx`, also captured as one
-CUDA graph (its NCCL collectives included).  The sharded prefill and
-decode steps (``jit_prefill_step`` / ``jit_decode_step``) and
-``lower_cell`` come with later parts of the distribution work
+CUDA graph (its NCCL collectives included).  :class:`ShardedPrefillStep`
+and :class:`ShardedDecodeStep` are ``jit_prefill_step`` and
+``jit_decode_step`` for the dense and MoE families, built the same way:
+DTensor params by the rule table, the prompt batch and the token by
+``batch_placements``, the decode cache by ``cache_placements`` (its
+sequence split over model, the decode attention's softmax split with
+it: ``repro_torch.models.attention``).  The other families on a mesh
+and ``lower_cell`` come with later parts of the distribution work
 (ROADMAP.md, Queue 1).
 
 Mixed precision as the reference's: the loss is differentiated with
@@ -291,18 +296,18 @@ def _local_metrics(step: Callable) -> Callable:
     return run
 
 
-def _sharded_step(step: Callable, ctx: ParallelCtx,
+def _sharded_step(run: Callable, ctx: ParallelCtx,
                   counters: list, bufs: Dict[str, Any]) -> None:
-    """One step under ``ctx``; the first call (a warm-up, or the one
-    direct call) also runs under a ``CollectiveCounter``, kept in
-    ``counters``."""
+    """``run(bufs)``, one step in place, under ``ctx``; the first call (a
+    warm-up, or the one direct call) also runs under a
+    ``CollectiveCounter``, kept in ``counters``."""
     if counters:
         with parallel_ctx(ctx):
-            _step_in_place(step, bufs)
+            run(bufs)
         return
     counter = CollectiveCounter()
     with parallel_ctx(ctx), counter:
-        _step_in_place(step, bufs)
+        run(bufs)
     counters.append(counter)
     # the counted call leaves reference cycles that hold a step's tensors
     # (a train state's worth on the card); StepGraph's capture runs with
@@ -361,8 +366,9 @@ class ShardedTrainStep:
         self.metrics: Dict[str, torch.Tensor] = {}
         counters: list = []
         self.graph = StepGraph(
-            functools.partial(_sharded_step, _local_metrics(
-                make_train_step(cfg, opt_cfg)), self.ctx, counters),
+            functools.partial(_sharded_step, functools.partial(
+                _step_in_place, _local_metrics(make_train_step(
+                    cfg, opt_cfg))), self.ctx, counters),
             {"state": self.state, "batch": self.batch,
              "metrics": self.metrics},
             device, step_impl, option="step_impl")
@@ -396,3 +402,179 @@ def _static(t, plc, mesh: DeviceMesh, device) -> DTensor:
                                   tuple(plc), run_check=False,
                                   shape=t.shape, stride=t.stride())
     return shlib.distribute(t, plc, mesh, device)
+
+
+# ---------------------------------------------------------------------------
+# serving: the sharded prefill and decode steps
+# ---------------------------------------------------------------------------
+
+def _serving_params(params: PyTree, cfg: ModelConfig, mesh: DeviceMesh,
+                    device, rules) -> PyTree:
+    """``params`` (full tensors or DTensors) as DTensors by
+    ``param_placements`` on ``device``, sharing the caller's memory where
+    it can, as a serving step only reads them: a full tensor's block is
+    a view of it where it is contiguous on ``device`` (at world size 1,
+    with the params on the card, the tensor itself), else a copy; a
+    DTensor already so placed is itself."""
+    def one(t, plc):
+        if isinstance(t, DTensor):
+            if tuple(t.placements) == tuple(plc) \
+                    and t.to_local().device == device:
+                return t
+            return _static(t, plc, mesh, device)
+        local = shlib.local_slice(t, plc, mesh).detach().to(device)
+        return DTensor.from_local(local.contiguous(), mesh, tuple(plc),
+                                  run_check=False, shape=t.shape,
+                                  stride=t.contiguous().stride())
+
+    return tree_map(one, params, shlib.param_placements(cfg, mesh, rules))
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in ("dense", "moe"):
+        raise ValueError(f"the sharded serving steps run the dense and MoE "
+                         f"families; {cfg.name} is {cfg.family}")
+
+
+def _whole(t) -> torch.Tensor:
+    """A DTensor's whole value on this rank (a plain tensor as it is)."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _prefill_in_place(pfn: Callable, bufs: Dict[str, Any]) -> None:
+    logits, cache = pfn(bufs["params"], bufs["batch"])
+    bufs["logits"].copy_(_whole(logits))
+    _load(bufs["cache"], cache, "cache")
+
+
+def _decode_in_place(dfn: Callable, bufs: Dict[str, Any]) -> None:
+    bufs["logits"].copy_(_whole(dfn(bufs["params"], bufs["token"],
+                                    bufs["cache"])))
+
+
+def _placed_cache(cfg: ModelConfig, mesh: DeviceMesh, batch: int,
+                  max_len: int, device) -> PyTree:
+    """A zero decode cache of ``model.init_cache``'s tree, each leaf a
+    DTensor placed by ``cache_placements`` holding its own block."""
+    full = model.init_cache(cfg, batch, max_len, device)
+    return tree_map(lambda t, pt: _static(t, shlib.placements(pt, mesh),
+                                          mesh, device),
+                    full, shlib.cache_placements(cfg, full, mesh))
+
+
+class ShardedPrefillStep:
+    """The prefill on a mesh (the reference's ``jit_prefill_step``, called
+    under its ``make_ctx``): ``model.prefill_fn(cfg, max_len)`` over the
+    params as DTensors by the rule table (sharing the caller's memory
+    where it can: :func:`_serving_params`) and a static (batch,
+    seq) prompt batch split by ``batch_placements``, run under the
+    mesh's :class:`ParallelCtx` as one captured CUDA graph of that shape
+    (``step_impl`` as :class:`ShardedTrainStep`'s: "auto" is the graph on
+    CUDA, a direct call on the CPU).  Dense and MoE families only.
+
+    Each call writes ``self.logits``, the last position's whole (b, V)
+    fp32 logits on every rank, and ``self.cache``, the decode cache as
+    DTensors placed by ``cache_placements`` (the batch over the data
+    axes, the cached sequence over model), each rank holding its blocks.
+    ``self.collectives`` is the first call's ``CollectiveCounter``."""
+
+    def __init__(self, cfg: ModelConfig, mesh: DeviceMesh, params: PyTree,
+                 batch: int, seq: int, max_len: int,
+                 step_impl: str = "auto", rules=None):
+        _check_family(cfg)
+        device = _mesh_device(mesh)
+        self.ctx = make_ctx(cfg, mesh)
+        self.params = _serving_params(params, cfg, mesh, device, rules)
+        full = model.input_specs(
+            cfg, ShapeConfig("prefill", "prefill", seq, batch),
+            abstract=False, device=device)
+        self.batch = tree_map(
+            lambda t, pt: _static(t, shlib.placements(pt, mesh), mesh,
+                                  device),
+            full, shlib.batch_placements(full, mesh))
+        self.cache = _placed_cache(cfg, mesh, batch, max_len, device)
+        self.logits = torch.zeros((batch, cfg.vocab_size),
+                                  dtype=torch.float32, device=device)
+        counters: list = []
+        self.graph = StepGraph(
+            functools.partial(_sharded_step, functools.partial(
+                _prefill_in_place, model.prefill_fn(cfg, max_len)),
+                self.ctx, counters),
+            {"params": self.params, "batch": self.batch,
+             "cache": self.cache, "logits": self.logits},
+            device, step_impl, option="step_impl")
+        if self.graph.mode == "eager":
+            self.graph()
+        self.collectives = counters[0]
+        gc.collect()
+
+    def __call__(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The prefill of ``batch`` (the full prompt batch, the same on
+        every rank, of the static batch's keys, shapes and dtypes);
+        returns ``self.logits`` (``self.cache`` holds the cache)."""
+        _load(self.batch, batch, "batch")
+        self.graph()
+        return self.logits
+
+
+class ShardedDecodeStep:
+    """The decode step on a mesh (the reference's ``jit_decode_step`` with
+    its cache donated): ``model.decode_inplace_fn(cfg)`` over the params
+    as DTensors by the rule table (sharing the caller's memory, as
+    :class:`ShardedPrefillStep`'s), a static (batch,) token split by
+    ``batch_placements`` and a static cache of ``model.init_cache(cfg,
+    batch, max_len)``'s tree placed by ``cache_placements``, run under
+    the mesh's :class:`ParallelCtx` as one captured CUDA graph, its NCCL
+    collectives included.  Every cache leaf, each rank's block of it,
+    stays at its address: the new K/V are written in place by the rank
+    that holds their slot.  Dense and MoE families only.
+
+    Construction warms up and captures (each call a step that advances
+    the cache), then zeroes the cache; :meth:`load_cache` puts a
+    prefill's in.  ``self.logits`` holds the whole (b, V) fp32 logits of
+    the last step on every rank; ``self.collectives`` the first call's
+    ``CollectiveCounter``: every collective one step issues, this
+    rank's."""
+
+    def __init__(self, cfg: ModelConfig, mesh: DeviceMesh, params: PyTree,
+                 batch: int, max_len: int, step_impl: str = "auto",
+                 rules=None):
+        _check_family(cfg)
+        device = _mesh_device(mesh)
+        self.ctx = make_ctx(cfg, mesh)
+        self.params = _serving_params(params, cfg, mesh, device, rules)
+        tok = {"token": torch.zeros((batch,), dtype=torch.int32,
+                                    device=device)}
+        self.token = _static(tok["token"], shlib.placements(
+            shlib.batch_placements(tok, mesh)["token"], mesh), mesh, device)
+        self.cache = _placed_cache(cfg, mesh, batch, max_len, device)
+        self.logits = torch.zeros((batch, cfg.vocab_size),
+                                  dtype=torch.float32, device=device)
+        counters: list = []
+        self.graph = StepGraph(
+            functools.partial(_sharded_step, functools.partial(
+                _decode_in_place, model.decode_inplace_fn(cfg)),
+                self.ctx, counters),
+            {"params": self.params, "token": self.token,
+             "cache": self.cache, "logits": self.logits},
+            device, step_impl, option="step_impl")
+        if self.graph.mode == "eager":
+            self.graph()
+        self.collectives = counters[0]
+        gc.collect()
+        for t in flatten(self.cache)[0]:
+            t.to_local().zero_()
+
+    def load_cache(self, cache: PyTree) -> None:
+        """Copy ``cache`` (full tensors or DTensors, e.g. a
+        :class:`ShardedPrefillStep`'s) into the static cache;
+        ``ValueError``, copying nothing, where its keys or a leaf's shape
+        or dtype differ."""
+        _load(self.cache, cache, "cache")
+
+    def __call__(self, token: torch.Tensor) -> torch.Tensor:
+        """One step on ``token`` (the full (batch,) int32 tokens, the same
+        on every rank); returns ``self.logits``."""
+        _load({"token": self.token}, {"token": token}, "token")
+        self.graph()
+        return self.logits

@@ -14,14 +14,28 @@ are laid out as the reference's ``act_heads`` spec (batch over the data
 axes, heads over the model axis; heads replicated when the query or KV
 head count does not divide the model axis), and the flash kernel runs on
 each rank's heads and rows (``repro_torch.parallel.ctx.run_local``).
+
+A decode step against a DTensor cache (``cache_placements``: the batch
+over the data axes, the cached sequence over model where it divides)
+runs on each rank's rows and slots: each row's new K/V is written, in
+place, by the model rank that owns its slot, and the softmax is split
+over the slots (:func:`decode_attention_pieces`): the row maxima and the
+exponentials' sums are all-reduced over model, each rank's P (rounded to
+v's dtype, as the reference rounds it) meets its V, and the fp32 outputs
+are summed over model.  That is what the reference's GSPMD makes of
+``decode_attention`` on the same layout (partial sums and a small
+reduction).  Where the sequence is not split the one-piece
+:func:`decode_attention` runs on each rank's block.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
-from torch.distributed.tensor import DTensor
+import torch.distributed._functional_collectives as funcol
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch.core.collectives import region
 from repro_torch.kernels.flash_attention.ops import flash_attention_bshd
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense, rope
@@ -161,6 +175,10 @@ def decode_self_attention(x, p, cfg: ModelConfig, cache, use_rope=True,
     pos = torch.as_tensor(cache["pos"], device=x.device)
     rows_pos = pos.expand(b) if pos.dim() == 0 else pos
     q, k, v = project_qkv(x, p, cfg, rows_pos[:, None].long(), use_rope)
+    if isinstance(k_cache, DTensor):
+        o = _decode_sharded(q, k, v, k_cache, v_cache, pos)
+        return merge_heads_out(o, p), {"k": k_cache, "v": v_cache,
+                                       "pos": pos}
     rows = torch.arange(b, device=x.device)
     slot = (rows_pos % S).long()
     k_cache[rows, slot] = k[:, 0].to(k_cache.dtype)
@@ -169,3 +187,85 @@ def decode_self_attention(x, p, cfg: ModelConfig, cache, use_rope=True,
                else torch.minimum(pos + 1, ring))
     o = decode_attention(q, k_cache, v_cache, n_valid)
     return merge_heads_out(o, p), {"k": k_cache, "v": v_cache, "pos": pos}
+
+
+def decode_attention_pieces(q, k_pieces, v_pieces, n_valid, offsets,
+                            reduce_max, reduce_sum):
+    """:func:`decode_attention` over a cache cut into pieces of its slots:
+    ``k_pieces``, ``v_pieces`` (P, b, S_p, hkv, hd), piece j holding the
+    slots ``offsets[j]`` .. ``offsets[j] + S_p - 1`` (``offsets`` a (P,)
+    tensor), the mask taken on those global slot indices.  ``reduce_max``
+    and ``reduce_sum`` reduce a (P, ...) tensor over every piece, the
+    ones here and the ones on other ranks, and give each piece the
+    result: the row maxima M and the sums l of exp(s - M) are reduced,
+    P = exp(s - M) / (l + 1e-30) is rounded to v's dtype and multiplied
+    with each piece's V in fp32, and those outputs are reduced.  A row
+    with ``n_valid == 0`` gets the uniform mean of the whole cache, as
+    the one-piece form gives it; a piece whose slots are all masked adds
+    exp(-1e30 - M) = 0.  Returns (b, 1, hq, hd) in q's dtype."""
+    b, _, hq, hd = q.shape
+    S, hkv = k_pieces.shape[2], k_pieces.shape[3]
+    g = hq // hkv
+    qg = (q * hd ** -0.5).reshape(b, hkv, g, hd)
+    scores = torch.einsum("bhgd,pbkhd->pbhgk", qg.float(), k_pieces.float())
+    slots = offsets.reshape(-1, 1) + torch.arange(S, device=q.device)
+    n_valid = torch.as_tensor(n_valid, device=q.device)
+    mask = slots[:, None, :] < n_valid.reshape(1, -1, 1)
+    scores = torch.where(mask[:, :, None, None, :], scores,
+                         torch.full_like(scores, NEG_INF))
+    m = reduce_max(torch.amax(scores, dim=-1, keepdim=True))
+    e = torch.exp(scores - m)
+    probs = e / (reduce_sum(torch.sum(e, dim=-1, keepdim=True)) + 1e-30)
+    out = reduce_sum(torch.einsum("pbhgk,pbkhd->pbhgd",
+                                  probs.to(v_pieces.dtype).float(),
+                                  v_pieces.float()))
+    return out[0].to(q.dtype).reshape(b, 1, hq, hd)
+
+
+def _all_reduce(t, op: str, group):
+    out = funcol.all_reduce(t, op, group)
+    return out.wait() if isinstance(out, funcol.AsyncCollectiveTensor) \
+        else out
+
+
+def _decode_sharded(q, k, v, k_cache, v_cache, pos):
+    """The decode write and attention of DTensor q (b, 1, hq, hd), new k,
+    v (b, 1, hkv, hd) against a DTensor cache (b, S, hkv, hd) at the
+    DTensor positions ``pos`` (b,), on each rank's rows and slots (the
+    module note); q's heads are gathered whole on model for the product,
+    and the output (b, 1, hq, hd) comes back in q's placements."""
+    mesh = k_cache.device_mesh
+    c_plc = tuple(k_cache.placements)
+    rows = tuple(Shard(0) if p == Shard(0) else Replicate() for p in c_plc)
+    split = [i for i, p in enumerate(c_plc) if p == Shard(1)]
+    group = mesh.get_group(split[0]) if split else None
+    S = k_cache.shape[1]
+
+    def body(ql, kl, vl, kc, vc, pl):
+        b = ql.shape[0]
+        r = torch.arange(b, device=ql.device)
+        slot = (pl % S).long()
+        n_valid = torch.clamp(pl + 1, max=S)
+        if group is None:
+            kc[r, slot] = kl[:, 0].to(kc.dtype)
+            vc[r, slot] = vl[:, 0].to(vc.dtype)
+            return decode_attention(ql, kc, vc, n_valid)
+        s_loc = kc.shape[1]
+        offset = mesh.get_local_rank(split[0]) * s_loc
+        # each row's slot is written by the rank that holds it; the other
+        # ranks write their block's own values back (unique rows: no
+        # collision), so every block stays where it lies
+        at = (slot - offset).clamp(0, s_loc - 1)
+        mine = ((slot >= offset) & (slot < offset + s_loc))[:, None, None]
+        kc[r, at] = torch.where(mine, kl[:, 0].to(kc.dtype), kc[r, at])
+        vc[r, at] = torch.where(mine, vl[:, 0].to(vc.dtype), vc[r, at])
+        with region("decode_attention"):
+            return decode_attention_pieces(
+                ql, kc[None], vc[None], n_valid,
+                torch.full((1,), offset, device=ql.device),
+                lambda t: _all_reduce(t, "max", group),
+                lambda t: _all_reduce(t, "sum", group))
+
+    o = run_local(body, mesh, (q, k, v, k_cache, v_cache, pos),
+                  (rows, rows, rows, c_plc, c_plc, rows), rows)
+    return o.redistribute(mesh, tuple(q.placements))

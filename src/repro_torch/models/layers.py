@@ -114,11 +114,16 @@ def mlp(x, p, cfg: ModelConfig):
 def rope(x, positions, theta: float):
     """Rotary embedding. x: (..., seq, heads, head_dim); positions: (..., seq).
     A DTensor ``x`` (seq and head_dim whole on each rank) rotates its
-    blocks in place of the whole."""
+    blocks in place of the whole; DTensor ``positions`` (a decode step's
+    (b, 1) rows) are placed on x's batch split, whole elsewhere."""
     if isinstance(x, DTensor):
         plc = tuple(x.placements)
+        pos_plc = None
+        if isinstance(positions, DTensor):
+            pos_plc = tuple(Shard(0) if p == Shard(0) else Replicate()
+                            for p in plc)
         return run_local(lambda t, pos: rope(t, pos, theta), x.device_mesh,
-                         (x, positions), (plc, None), plc)
+                         (x, positions), (plc, pos_plc), plc)
     head_dim = x.shape[-1]
     half = head_dim // 2
     freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,

@@ -20,6 +20,7 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.paged_attention.ops import paged_attention_decode
@@ -34,7 +35,9 @@ from repro_torch.models.layers import (embed_tokens, lm_logits, mlp, norm,
 from repro_torch.models.moe import moe_block
 from repro_torch.parallel.ctx import (get_ctx, parallel_ctx,
                                       shard_activation)
-from repro_torch.tree import copy_tree_
+from repro_torch.parallel.sharding import (cache_placements, distribute,
+                                           placements)
+from repro_torch.tree import copy_tree_, flatten, tree_map
 
 PyTree = Any
 
@@ -349,16 +352,40 @@ def _caches_to_decode_cache(caches, cfg: ModelConfig, seq: int, max_len: int,
         return out
 
     def trim(kv, seq_axis):
-        return {name: shard_activation(
+        # the dense layers' 4-D KV takes the "cache" kind, as the
+        # reference constrains it; the stacked KV is placed below
+        return {name: (shard_activation(t, "cache") if seq_axis == 1
+                       else t)
+                for name, t in zip(("k", "v"), (
                     ring_place(t.to(cfg.compute_dtype), seq, s_slots,
-                               seq_axis), "cache")
-                for name, t in zip(("k", "v"), kv)}
+                               seq_axis) for t in kv))}
 
     if "dense_layers" in caches:
         out["dense_layers"] = {
             str(i): trim(kv, 1) for i, kv in enumerate(caches["dense_layers"])}
     out["blocks"] = trim(caches["blocks"], 2)
-    return out
+    return _place_cache(out, cfg)
+
+
+def _place_cache(cache, cfg: ModelConfig):
+    """Under a ``ParallelCtx`` with a dense / MoE prefill's DTensor KV,
+    every leaf placed as ``cache_placements`` of the tree says (the layout the reference's
+    GSPMD gives the prefill's cache: the batch over the data axes, the
+    cached sequence over model), ``pos`` a DTensor on the batch; else
+    the cache as it is."""
+    ctx = get_ctx()
+    if ctx is None or not any(isinstance(t, DTensor)
+                              for t in flatten(cache)[0]):
+        return cache
+    mesh = ctx.mesh
+
+    def place(t, parts):
+        plc = placements(parts, mesh)
+        if isinstance(t, DTensor):
+            return t.redistribute(mesh, plc)
+        return distribute(t, plc, mesh)
+
+    return tree_map(place, cache, cache_placements(cfg, cache, mesh))
 
 
 def _tree_device(tree) -> torch.device:

@@ -25,6 +25,8 @@ other tokens (``shard_map``'s transpose of a replicated input).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 from torch.distributed._functional_collectives import \
     all_to_all_single_autograd
@@ -65,16 +67,23 @@ def _route(x2d, router_w, cfg: ModelConfig):
 def moe_ep(x, p, cfg: ModelConfig, mesh, *, gmm_impl: str = "auto"):
     """x: DTensor (b, s, d) -> (out, aux).  Requires num_experts % |model|
     == 0; tokens are split on the batch over (pod, data) and on the
-    sequence over model."""
+    sequence over model, each evenly (``ValueError`` otherwise, as the
+    reference's ``shard_map`` refuses it: a decode step's sequence of 1
+    on |model| > 1 among them), so every rank's capacity is the same
+    inside one all-to-all."""
     names = tuple(mesh.mesh_dim_names)
     n_model = mesh.size(names.index("model"))
     if cfg.num_experts % n_model:
         raise ValueError(f"{cfg.num_experts} experts do not split over "
                          f"{n_model} model ranks")
+    dp = [a for a in ("pod", "data") if a in names]
+    n_dp = math.prod(mesh.size(names.index(a)) for a in dp)
+    if x.shape[1] % n_model or x.shape[0] % n_dp:
+        raise ValueError(f"moe_ep: tokens {tuple(x.shape[:2])} do not split "
+                         f"evenly over {n_dp} data x {n_model} model ranks")
     e_loc = cfg.num_experts // n_model
     n_ranks = mesh.size()
     group = mesh.get_group("model")
-    dp = [a for a in ("pod", "data") if a in names]
     x_plc = placements(((tuple(dp) if len(dp) > 1 else dp[0])
                         if dp else None, "model", None), mesh)
     rep = (Replicate(),) * mesh.ndim

@@ -9,6 +9,15 @@ and metrics equal ``TrainStep``'s bit for bit, its collectives include
 the EP step's all-to-alls, and the flash (and for the MoE the grouped
 matmul) kernels were launched.
 
+The sharded serving steps (``ShardedPrefillStep``,
+``ShardedDecodeStep``), as phase 13's ``distributed_serve`` runs them:
+smollm-135m and deepseek-moe-16b (``moe_impl="ep"``) at the same SMOKE
+widths, the caller's parameters shared by both captured steps, a
+(4, 128) prompt into a 160-slot cache and 4 greedy steps: every logit,
+token and cache leaf equal to the unsharded ``prefill_fn`` and
+``decode_step_inplace`` (one captured graph each) bit for bit, the flash
+and (for the MoE) grouped-matmul kernels launched in the sharded steps.
+
 Every test carries the ``cuda`` marker and skips without a card.  On a
 machine with one:
 
@@ -87,3 +96,63 @@ def test_sharded_step_equals_train_step(mesh, case):
     kinds = got.collectives.stats().count_by_kind
     if cfg.num_experts:
         assert kinds.get("all-to-all", 0) > 0
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_sharded_serving_steps_equal_unsharded(mesh, case):
+    from repro_torch.launch.strategy import (ShardedDecodeStep,
+                                             ShardedPrefillStep)
+    from repro_torch.models import model
+    from repro_torch.models.init import init_params
+    from repro_torch.serve.decode_graph import DecodeGraph
+    from repro_torch.step_graph import StepGraph
+    from repro_torch.tree import copy_tree_
+
+    arch, knobs = CASES[case]
+    cfg = dataclasses.replace(get_smoke(arch), head_dim=64,
+                              compute_dtype=torch.bfloat16, **knobs)
+    dev = torch.device("cuda")
+    max_len = S + 32
+    params = init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    prompt = torch.randint(0, cfg.vocab_size, (B, S),
+                           generator=torch.Generator().manual_seed(1),
+                           dtype=torch.int32)
+    pfn, dfn = model.prefill_fn(cfg, max_len), model.decode_inplace_fn(cfg)
+    bufs = {"batch": {"tokens": prompt.to(dev)},
+            "cache": model.init_cache(cfg, B, max_len, dev),
+            "logits": torch.zeros((B, cfg.vocab_size), device=dev),
+            "token": torch.zeros((B,), dtype=torch.int32, device=dev)}
+
+    def prefill(b):
+        logits, cache = pfn(params, b["batch"])
+        b["logits"].copy_(logits)
+        copy_tree_(b["cache"], cache, "cache")
+
+    def decode(b):
+        b["logits"].copy_(dfn(params, b["token"], b["cache"]))
+
+    pg = StepGraph(prefill, bufs, dev, "graph")
+    dg = DecodeGraph(decode, bufs, dev, "graph")
+    fa.LAUNCHES = mg.LAUNCHES = 0
+    pre = ShardedPrefillStep(cfg, mesh, params, B, S, max_len, "graph")
+    dec = ShardedDecodeStep(cfg, mesh, params, B, max_len, "graph")
+    assert fa.LAUNCHES > 0
+    assert (mg.LAUNCHES > 0) == bool(cfg.num_experts)
+    # the unsharded graphs' warm-ups advanced their cache: run the prefill
+    # again, which rewrites it
+    pg()
+    got = pre({"tokens": prompt})
+    assert torch.equal(got, bufs["logits"])
+    dec.load_cache(pre.cache)
+    for _ in range(4):
+        tok = bufs["logits"].argmax(-1).to(torch.int32)
+        assert torch.equal(tok, got.argmax(-1).to(torch.int32))
+        bufs["token"].copy_(tok)
+        dg()
+        got = dec(tok)
+        assert torch.equal(got, bufs["logits"])
+    want = flatten(bufs["cache"])[0]
+    have = flatten(tree_map(lambda t: t.to_local(), dec.cache))[0]
+    assert len(want) == len(have)
+    assert all(torch.equal(x, y) for x, y in zip(want, have))
+    assert (pre.graph.replays, dec.graph.replays) == (1, 4)
