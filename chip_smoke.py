@@ -229,12 +229,18 @@ each of which raises on failure (nothing is caught):
    2048, and deepseek-moe-16b at its published widths, depth 2, 4 x
    2048, with ``moe_impl="ep"`` (``moe_ep``: 64 local experts, both
    all-to-alls through NCCL, the grouped matmul forward and backward on
-   the local rows).  Each line: both steps' ms and their ratio, build
-   and capture seconds, pool bytes, peak memory, the launches (exact per
-   direct call, every flash and grouped-matmul kernel above 0 over the
-   phase), the sharded step's collectives by kind (count and bytes; the
-   EP step's all-to-alls present), and the final params, m, v, step and
-   metrics bit for bit against ``TrainStep``'s.  Then, in the same group,
+   the local rows); then recurrentgemma-2b (``distributed_hybrid``:
+   published widths, depth 3, two RG-LRU layers and one local-attention
+   layer, 1 x 4096, window 2048) and rwkv6-3b (``distributed_ssm``:
+   depth 2, 1 x 4096), the scans and their reverses on each rank's
+   channels / heads through ``run_local``.  Each line: both steps' ms and
+   their ratio, build and capture seconds, pool bytes, peak memory, the
+   launches (exact per direct call; the sharded steps' own, where every
+   flash, grouped-matmul, RG-LRU and WKV kernel, forward and reverse,
+   must be above 0 over the phase), the sharded step's collectives by
+   kind (count and bytes; the EP step's all-to-alls present), and the
+   final params, m, v, step and metrics bit for bit against
+   ``TrainStep``'s.  Then, in the same group,
    the serving sub-phase ``distributed_serve``: the split softmax of the
    sharded decode attention (``decode_attention_pieces``, the reductions
    over the stacked pieces) against the one-piece ``decode_attention``
@@ -242,10 +248,18 @@ each of which raises on failure (nothing is caught):
    a 264-slot cache cut into 4 pieces, fp32 and bf16, with rows of
    ``n_valid`` 0, rows in one piece and rows of a wrapped ring
    (``distributed_split_softmax``: the only place the card runs the
-   split, as at world size 1 no sequence is split); then two cells one
-   after the other, each freed before the next, smollm-135m at full
-   width and depth and deepseek-moe-16b at full published width and
-   depth with bf16 params and ``moe_impl="ep"``: the unsharded path
+   split, as at world size 1 no sequence is split); the scans on the
+   blocks a 2-rank model axis holds (``distributed_split_scans``): the
+   RG-LRU forward and reverse at (1, 4096, 2560) on the two channel
+   halves and the WKV forward at (1, 4096, 40, 64) on the two head
+   halves, each stitched back bit for bit against the whole call, the
+   WKV reverse bit for bit where ``bwd_segments`` cuts the half as the
+   whole, else within ``WKV_BWD_RTOL``, both segment counts logged;
+   then four cells one after the other, each freed before the next,
+   smollm-135m at full width and depth, deepseek-moe-16b at full
+   published width and depth with bf16 params and ``moe_impl="ep"``,
+   and recurrentgemma-2b and rwkv6-3b at full width and depth with bf16
+   params: the unsharded path
    (weights drawn on the card from seed 0, ``model.prefill_fn`` as one
    captured graph and a ``DecodeGraph`` over ``decode_step_inplace``)
    prefills 8 x 200 tokens into a 264-slot cache and takes 32 greedy
@@ -255,13 +269,15 @@ each of which raises on failure (nothing is caught):
    tensor itself) by a captured
    ``ShardedPrefillStep`` and a captured ``ShardedDecodeStep``, do the
    same.  Each line (``distributed_serve_smollm``,
-   ``distributed_serve_deepseek_ep``): every logit, token and cache leaf
+   ``distributed_serve_deepseek_ep``, ``distributed_serve_recurrentgemma``,
+   ``distributed_serve_rwkv6``): every logit, token and cache leaf
+   (the recurrent states and the hybrid's window ring included)
    ``torch.equal``, both paths' prefill and decode-step ms and their
    ratios, the sharded capture seconds and pool bytes, the peaks and
-   ``at_start_gb``, the flash and grouped-matmul launches (exact per
-   direct call, each above 0), one decode step's collectives by kind
-   (the EP step's all-to-alls present).  The group is destroyed at the
-   end.
+   ``at_start_gb``, the flash, grouped-matmul, RG-LRU and WKV launches
+   (exact per direct call, each above 0 over the sub-phase), one decode
+   step's collectives by kind (the EP step's all-to-alls present).  The
+   group is destroyed at the end.
 
 Every serving run goes through the executor's ``serving_params`` (the
 weights cast to the compute dtype once) and runs each decode step as a
@@ -3906,9 +3922,15 @@ FLASH_VLM_CASES = [("llava_train", VLM_TRAIN_BATCH, 32, 8, VLM_TRAIN_SEQ,
 # phase 13: distribution (the sharded train step at world size 1)
 # ---------------------------------------------------------------------------
 
-# the kernels the sharded steps must have launched over the phase
+# the kernels the sharded train steps must have launched over the phase
 DIST_KERNELS = ("flash_attention", "flash_attention_bwd", "moe_gmm",
-                "moe_gmm_bwd")
+                "moe_gmm_bwd", "rglru_scan", "rglru_scan_bwd", "rwkv6_wkv",
+                "rwkv6_wkv_bwd")
+# the recurrent families' train cells: published widths, depth cut to 3
+# (layers 0-2: RG-LRU, RG-LRU, local attention) and 2, one 4,096-token
+# sequence each, as phases 8 and 9 train them
+DIST_HYBRID_LAYERS = 3
+DIST_SSM_LAYERS = 2
 
 
 def _local_host(tree):
@@ -3929,7 +3951,7 @@ def sharded_vs_train_step(torch, cfg, b: int, s: int, mesh, phase: str):
     call, every bf16 one on the tensor cores), the sharded step's
     collectives of one step, and the final params, m, v, step and
     metrics, which must be bit-identical.  Returns the launches made
-    (replays counted)."""
+    (replays counted): both steps', and the sharded step's alone."""
     import numpy as np
 
     from repro_torch.launch.strategy import (ShardedTrainStep, TrainStep,
@@ -3937,13 +3959,14 @@ def sharded_vs_train_step(torch, cfg, b: int, s: int, mesh, phase: str):
     from repro_torch.optim import AdamWConfig
     from repro_torch.tree import flatten
 
+    t_cell = time.perf_counter()
     opt = AdamWConfig(lr=1e-3)
     s0 = _host(init_train_state(
         cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"))
     batches = train_batches(torch, cfg, b, s, 7, 3)
     gc.collect()
     torch.cuda.empty_cache()
-    launches, seen = {}, {}
+    launches, seen, own = {}, {}, {}
     for kind in ("train_step", "sharded"):
         reset_counts()
         torch.cuda.reset_peak_memory_stats()
@@ -3966,8 +3989,9 @@ def sharded_vs_train_step(torch, cfg, b: int, s: int, mesh, phase: str):
         if (g.calls, g.replays) != (3, 3):
             raise AssertionError(f"{phase} {kind}: {g.calls} calls, "
                                  f"{g.replays} replays")
-        for k, n in check_train_counts(cfg, f"{phase} {kind}", g.calls,
-                                       g.replays).items():
+        own[kind] = check_train_counts(cfg, f"{phase} {kind}", g.calls,
+                                       g.replays)
+        for k, n in own[kind].items():
             launches[k] = launches.get(k, 0) + n
         row = {"step_ms": float(np.mean(walls[1:])), "step_ms_all": walls,
                "build_s": build_s, "capture_s": g.capture_s,
@@ -4005,8 +4029,9 @@ def sharded_vs_train_step(torch, cfg, b: int, s: int, mesh, phase: str):
          "step_ms_ratio": row_s["step_ms"] / row_t["step_ms"],
          "launches_per_call": {k: n for k, n in per_call.items() if n},
          "launches": {k: n for k, n in launches.items() if n},
+         "sharded_launches": {k: n for k, n in own["sharded"].items() if n},
          "identical": not differ, "differ": differ[:20],
-         "leaves": len(names)})
+         "leaves": len(names), "seconds": time.perf_counter() - t_cell})
     if differ:
         raise AssertionError(f"{phase}: the sharded step differs from "
                              f"TrainStep in {len(differ)} leaves or "
@@ -4016,7 +4041,7 @@ def sharded_vs_train_step(torch, cfg, b: int, s: int, mesh, phase: str):
         raise AssertionError(f"{phase}: no all-to-all in the EP step's "
                              f"collectives {kinds}")
     del seen, s0
-    return launches
+    return launches, own["sharded"]
 
 
 # the sharded serving cells: 8 prompts of 200 tokens into a 264-slot
@@ -4024,7 +4049,8 @@ def sharded_vs_train_step(torch, cfg, b: int, s: int, mesh, phase: str):
 DIST_SERVE_BATCH, DIST_SERVE_SEQ, DIST_SERVE_MAX_LEN = 8, 200, 264
 DIST_SERVE_STEPS = 32
 # the kernels the sharded serving steps must have launched
-DIST_SERVE_KERNELS = ("flash_attention", "moe_gmm")
+DIST_SERVE_KERNELS = ("flash_attention", "moe_gmm", "rglru_scan",
+                      "rwkv6_wkv")
 # the split softmax against the one-piece decode attention: the cache's
 # 264 slots cut into this many pieces, the pieces' reductions done over
 # the stacked pieces.  fp32 sums the same products in another order
@@ -4077,6 +4103,103 @@ def split_softmax_cases(torch):
                          "n_valid": n_valid.tolist(), "max_abs_err": err,
                          "tol": SPLIT_TOL[str(dtype)]})
     log({"phase": "distributed_split_softmax", "cases": rows})
+
+
+# the scans on the blocks a 2-rank model axis holds: the RG-LRU on
+# channel halves, the WKV on head halves, each a contiguous copy
+SPLIT_SCAN_RANKS = 2
+
+
+def _halves(tensors, dim):
+    """Each rank's contiguous block of every tensor, split on ``dim``."""
+    return [[t.chunk(SPLIT_SCAN_RANKS, dim)[i].contiguous()
+             for t in tensors] for i in range(SPLIT_SCAN_RANKS)]
+
+
+def split_scan_cases(torch):
+    """The recurrences on the blocks a 2-rank model axis would hold
+    (``act_rnn``: the channels, or the heads, split in two), the only
+    place the card runs them split (at world size 1 nothing is):
+    ``rglru_scan`` and ``rglru_scan_bwd`` at the hybrid's training shape
+    (1, 4096, 2560) on the two channel halves, fp32, stitched back equal
+    to the whole call bit for bit (both are per channel); the WKV
+    forward with its chunk states at the ssm's (1, 4096, 40, 64) on the
+    two halves of the heads, bit for bit (per head); its reverse bit for
+    bit where ``bwd_segments`` cuts the half as the whole, else within
+    ``WKV_BWD_RTOL`` of each gradient's largest element (the segments
+    join in another order, and du sums the same terms in another order),
+    both segment counts logged."""
+    from repro_torch.kernels.rglru_scan import rglru_scan as rs
+    from repro_torch.kernels.rwkv6_wkv import rwkv6_wkv as wk
+
+    dev = torch.device("cuda")
+    b, s, w = HYBRID_TRAIN_BATCH, HYBRID_TRAIN_SEQ, 2560
+    g = torch.Generator(device=dev).manual_seed(11)
+    a = 0.85 + 0.149 * torch.rand((b, s, w), generator=g, device=dev)
+    x = 0.1 * torch.randn((b, s, w), generator=g, device=dev)
+    dh = torch.randn((b, s, w), generator=g, device=dev)
+    whole = (rs.rglru_scan(a, x),)
+    whole += rs.rglru_scan_bwd(a, whole[0], dh)[:2]
+    parts = []
+    for ah, xh, dhh in _halves((a, x, dh), 2):
+        hh = rs.rglru_scan(ah, xh)
+        parts.append((hh, *rs.rglru_scan_bwd(ah, hh, dhh)[:2]))
+    rows = [{"kernel": "rglru_scan", "shape": [b, s, w],
+             "split": f"channels / {SPLIT_SCAN_RANKS}",
+             **{name: torch.equal(torch.cat([p[i] for p in parts], 2),
+                                  whole[i])
+                for i, name in enumerate(("h", "da", "db"))}}]
+    del a, x, dh, whole, parts
+
+    b, s, h, n = SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, 40, 64
+    r, k, v, logw, u, do, _, _ = _wkv_bwd_inputs(torch, b, s, h, n, False,
+                                                 (-6.0, -1.0), 17)
+    fwd = wk.rwkv6_wkv(r, k, v, logw, u, states=True)
+    bwd = wk.rwkv6_wkv_bwd(r, k, v, logw, u, do, fwd[2])[:5]
+    parts_f, parts_b = [], []
+    for rh, kh, vh, lh, doh, uh in zip(
+            *zip(*_halves((r, k, v, logw, do), 2)),
+            (c.contiguous() for c in u.chunk(SPLIT_SCAN_RANKS, 0))):
+        f = wk.rwkv6_wkv(rh, kh, vh, lh, uh, states=True)
+        parts_f.append(f)
+        parts_b.append(wk.rwkv6_wkv_bwd(rh, kh, vh, lh, uh, doh, f[2])[:5])
+    fwd_same = {name: torch.equal(torch.cat([p[i] for p in parts_f], d),
+                                  fwd[i])
+                for i, (name, d) in enumerate((("o", 2), ("state", 1),
+                                               ("chunk_states", 1)))}
+    segs = (wk.bwd_segments(b, s, h, n)[0],
+            wk.bwd_segments(b, s, h // SPLIT_SCAN_RANKS, n)[0])
+    errs, rel, same = {}, {}, {}
+    for i, (name, d) in enumerate((("dr", 2), ("dk", 2), ("dv", 2),
+                                   ("dlogw", 2), ("du", 0))):
+        got = torch.cat([p[i] for p in parts_b], d)
+        same[name] = torch.equal(got, bwd[i])
+        err = (got - bwd[i]).abs()
+        errs[name] = err.max().item()
+        rel[name] = errs[name] / bwd[i].abs().max().item()
+        lim = WKV_BWD_RTOL * (bwd[i].abs().max() + bwd[i].abs())
+        if not bool((err <= lim).all()) or (segs[0] == segs[1]
+                                            and not same[name]):
+            raise AssertionError(f"split rwkv6_wkv_bwd {name}: the halves "
+                                 f"differ from the whole call by "
+                                 f"{errs[name]} (segments {segs})")
+    rows.append({"kernel": "rwkv6_wkv", "shape": [b, s, h, n],
+                 "split": f"heads / {SPLIT_SCAN_RANKS}", **fwd_same})
+    rows.append({"kernel": "rwkv6_wkv_bwd", "shape": [b, s, h, n],
+                 "split": f"heads / {SPLIT_SCAN_RANKS}",
+                 "segments_whole": segs[0], "segments_half": segs[1],
+                 "bit_identical": same, "max_abs_err": errs,
+                 "max_err_of_largest": rel,
+                 "rtol_of_largest": WKV_BWD_RTOL})
+    log({"phase": "distributed_split_scans", "cases": rows})
+    bad = [(row["kernel"], key) for row in rows[:2]
+           for key, same_bits in row.items() if same_bits is False]
+    if bad:
+        raise AssertionError(f"split scans: {bad} differ from the whole "
+                             f"call")
+    del r, k, v, logw, u, do, fwd, bwd, parts_f, parts_b
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _replay_ms(torch, graph, n: int) -> list:
@@ -4215,13 +4338,19 @@ def sharded_vs_unsharded_serve(torch, cfg, mesh, phase: str):
     outs, toks, walls = _greedy(torch, dec, first, DIST_SERVE_STEPS)
     counts, tc_counts = read_counts(), read_tc_counts()
     n_moe = cfg.num_layers - cfg.first_k_dense if cfg.num_experts else 0
-    per_pre = {"flash_attention": cfg.num_layers, "moe_gmm": 3 * n_moe}
-    per_dec = {"flash_attention": 0, "moe_gmm": 3 * n_moe}
+    n_attn = n_attention_layers(cfg)
+    per_pre = {"flash_attention": n_attn, "moe_gmm": 3 * n_moe,
+               "rglru_scan": (cfg.num_layers - n_attn
+                              if cfg.family == "hybrid" else 0),
+               "rwkv6_wkv": cfg.num_layers if cfg.family == "ssm" else 0}
+    per_dec = {"flash_attention": 0, "moe_gmm": 3 * n_moe, "rglru_scan": 0,
+               "rwkv6_wkv": 0}
     pg, dg = pre.graph, dec.graph
     want = {k: pg.calls * per_pre[k] + dg.calls * per_dec[k]
             for k in DIST_SERVE_KERNELS}
     got = {k: counts[k] for k in DIST_SERVE_KERNELS}
-    if got != want or {k: tc_counts[k] for k in want} != want:
+    if got != want or {k: tc_counts[k] for k in TC_KERNELS} != {
+            k: want[k] for k in TC_KERNELS}:
         raise AssertionError(f"{phase}: launches {got} (tensor cores "
                              f"{tc_counts}), want {want} per direct call")
     launches = {k: (pg.calls + pg.replays) * per_pre[k]
@@ -4277,16 +4406,17 @@ def sharded_vs_unsharded_serve(torch, cfg, mesh, phase: str):
     return launches
 
 
-def distributed_serve(torch, mesh, smollm, moe):
-    """Phase 13's serving sub-phase: the split softmax held on the card,
-    then smollm-135m and deepseek-moe-16b through the sharded prefill and
-    decode steps against the unsharded path; returns the launches
-    made."""
+def distributed_serve(torch, mesh, cells):
+    """Phase 13's serving sub-phase: the split softmax and the split scans
+    held on the card, then each (cfg, phase) of ``cells`` (smollm-135m,
+    deepseek-moe-16b, recurrentgemma-2b, rwkv6-3b) through the sharded
+    prefill and decode steps against the unsharded path; returns the
+    launches made."""
     t0 = time.perf_counter()
     split_softmax_cases(torch)
+    split_scan_cases(torch)
     launches = {}
-    for cfg, phase in ((smollm, "distributed_serve_smollm"),
-                       (moe, "distributed_serve_deepseek_ep")):
+    for cfg, phase in cells:
         for k, n in sharded_vs_unsharded_serve(torch, cfg, mesh,
                                                phase).items():
             launches[k] = launches.get(k, 0) + n
@@ -4298,9 +4428,10 @@ def distributed_serve(torch, mesh, smollm, moe):
     return launches
 
 
-def distributed(torch, smollm, moe, serve_smollm, serve_moe):
-    """Phase 13 (the module note): the two training cells and the serving
-    sub-phase on a 1 x 1 mesh through NCCL; returns the launches made."""
+def distributed(torch, train_cells, serve_cells):
+    """Phase 13 (the module note): the training cells ((cfg, batch, seq,
+    phase) each) and the serving sub-phase (``serve_cells``, (cfg, phase)
+    each) on a 1 x 1 mesh through NCCL; returns the launches made."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import init_distributed, make_dev_mesh
@@ -4320,21 +4451,22 @@ def distributed(torch, smollm, moe, serve_smollm, serve_moe):
              "at_start_gb": {
                  "allocated": torch.cuda.memory_allocated() / 1e9,
                  "reserved": torch.cuda.memory_reserved() / 1e9}})
-        launches = {}
-        for cfg, b, s, phase in (
-                (smollm, TRAIN_BATCH, TRAIN_SEQ, "distributed_smollm"),
-                (moe, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ,
-                 "distributed_deepseek_ep")):
-            for k, n in sharded_vs_train_step(torch, cfg, b, s, mesh,
-                                              phase).items():
+        launches, sharded = {}, {}
+        for cfg, b, s, phase in train_cells:
+            both, own = sharded_vs_train_step(torch, cfg, b, s, mesh, phase)
+            for k, n in both.items():
                 launches[k] = launches.get(k, 0) + n
-        missing = [k for k in DIST_KERNELS if not launches.get(k)]
+            for k, n in own.items():
+                sharded[k] = sharded.get(k, 0) + n
+        missing = [k for k in DIST_KERNELS if not sharded.get(k)]
         log({"phase": "distributed", "seconds": time.perf_counter() - t0,
-             "launches": {k: launches.get(k, 0) for k in DIST_KERNELS}})
+             "launches": {k: launches.get(k, 0) for k in DIST_KERNELS},
+             "sharded_launches": {k: sharded.get(k, 0)
+                                  for k in DIST_KERNELS}})
         if missing:
-            raise AssertionError(f"distributed: {missing} never launched")
-        for k, n in distributed_serve(torch, mesh, serve_smollm,
-                                      serve_moe).items():
+            raise AssertionError(f"distributed: {missing} never launched "
+                                 f"inside the sharded steps")
+        for k, n in distributed_serve(torch, mesh, serve_cells).items():
             launches[k] = launches.get(k, 0) + n
         done = True
     finally:
@@ -4640,9 +4772,23 @@ def main() -> int:
     analysis(torch, [m_train, m_train_moe, m_train_hyb, m_train_ssm,
                      m_train_encdec, m_train_vlm])
 
-    # phase 13: the sharded train step through NCCL at world size 1
-    c_dist = distributed(torch, cfg, dataclasses.replace(dst, moe_impl="ep"),
-                         cfg, dataclasses.replace(ds, moe_impl="ep"))
+    # phase 13: the sharded steps through NCCL at world size 1
+    bf16_params = {"param_dtype": torch.bfloat16}
+    c_dist = distributed(torch, (
+        (cfg, TRAIN_BATCH, TRAIN_SEQ, "distributed_smollm"),
+        (dataclasses.replace(dst, moe_impl="ep"), MOE_TRAIN_BATCH,
+         MOE_TRAIN_SEQ, "distributed_deepseek_ep"),
+        (dataclasses.replace(hyb, num_layers=DIST_HYBRID_LAYERS),
+         HYBRID_TRAIN_BATCH, HYBRID_TRAIN_SEQ, "distributed_hybrid"),
+        (dataclasses.replace(ssm, num_layers=DIST_SSM_LAYERS),
+         SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, "distributed_ssm")), (
+        (cfg, "distributed_serve_smollm"),
+        (dataclasses.replace(ds, moe_impl="ep"),
+         "distributed_serve_deepseek_ep"),
+        (dataclasses.replace(rg, **bf16_params),
+         "distributed_serve_recurrentgemma"),
+        (dataclasses.replace(rw, **bf16_params),
+         "distributed_serve_rwkv6")))
 
     # the summary: the main paths' shapes and dtypes (bf16 flash at the
     # longest smollm prompt, bf16 paged at smollm's mixed batch, the bf16

@@ -5,6 +5,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import _build
 
@@ -41,6 +42,11 @@ def stream_of(t: torch.Tensor) -> int:
 def require_cuda(kernel: str, *tensors: torch.Tensor) -> None:
     dev = tensors[0].device
     for t in tensors:
+        if isinstance(t, DTensor):
+            raise TypeError(
+                f"{kernel}: the kernel reads raw pointers and takes each "
+                f"rank's block of a DTensor, not the DTensor "
+                f"(repro_torch.parallel.ctx.run_local)")
         if t.device.type != "cuda" or t.device != dev:
             raise ValueError(
                 f"{kernel}: the kernel takes CUDA tensors on one device, got "

@@ -12,13 +12,16 @@ and batch, updated in place, one captured CUDA graph on the card.
 :class:`~repro_torch.parallel.ctx.ParallelCtx`, also captured as one
 CUDA graph (its NCCL collectives included).  :class:`ShardedPrefillStep`
 and :class:`ShardedDecodeStep` are ``jit_prefill_step`` and
-``jit_decode_step`` for the dense and MoE families, built the same way:
-DTensor params by the rule table, the prompt batch and the token by
-``batch_placements``, the decode cache by ``cache_placements`` (its
-sequence split over model, the decode attention's softmax split with
-it: ``repro_torch.models.attention``).  The other families on a mesh
-and ``lower_cell`` come with later parts of the distribution work
-(ROADMAP.md, Queue 1).
+``jit_decode_step``, built the same way: DTensor params by the rule
+table, the prompt batch and the token by ``batch_placements``, the
+decode cache by ``cache_placements`` (the KV's sequence, or the hybrid's
+window slots, split over model, the decode attention's softmax split
+with it: ``repro_torch.models.attention``; recurrent states on the batch
+only).  The three sharded steps run the dense, MoE, hybrid and ssm
+families (``SHARDED_FAMILIES``; the recurrences on each rank's channels
+or heads: ``repro_torch.models.rglru``, ``rwkv``) and refuse the enc-dec
+and vlm families, which a later part of the distribution work holds
+against the reference, as it does ``lower_cell`` (ROADMAP.md, Queue 1).
 
 Mixed precision as the reference's: the loss is differentiated with
 respect to compute-dtype copies of every fp32 parameter with more than
@@ -200,6 +203,19 @@ def init_train_state(cfg: ModelConfig, generator: torch.Generator,
     return state
 
 
+SHARDED_FAMILIES = ("dense", "moe", "hybrid", "ssm")
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    """``ValueError`` for a family the sharded steps do not run yet (the
+    enc-dec and the vlm: not yet held against the reference on a
+    mesh)."""
+    if cfg.family not in SHARDED_FAMILIES:
+        raise ValueError(f"the sharded steps run the "
+                         f"{', '.join(SHARDED_FAMILIES)} families; "
+                         f"{cfg.name} is {cfg.family}")
+
+
 def _mesh_device(mesh: DeviceMesh) -> torch.device:
     if mesh.device_type == "cuda":
         return torch.device("cuda", torch.cuda.current_device())
@@ -339,7 +355,7 @@ class ShardedTrainStep:
     :class:`TrainStep`'s: "auto" is the graph on CUDA, a direct call on
     the CPU).  Every rank constructs it with the same full ``state`` (or
     an already sharded one) and calls it with the same full batch; each
-    keeps its blocks.
+    keeps its blocks.  ``SHARDED_FAMILIES`` only (``ValueError``).
 
     ``self.collectives`` is the ``CollectiveCounter`` of the first
     (warm-up) step: every collective one step issues, this rank's.
@@ -351,6 +367,7 @@ class ShardedTrainStep:
     def __init__(self, cfg: ModelConfig, opt_cfg: AdamWConfig,
                  mesh: DeviceMesh, state: PyTree, batch: int, seq: int,
                  step_impl: str = "auto", rules=None):
+        _check_family(cfg)
         device = _mesh_device(mesh)
         self.ctx = make_ctx(cfg, mesh)
         self.state = tree_map(
@@ -430,12 +447,6 @@ def _serving_params(params: PyTree, cfg: ModelConfig, mesh: DeviceMesh,
     return tree_map(one, params, shlib.param_placements(cfg, mesh, rules))
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe"):
-        raise ValueError(f"the sharded serving steps run the dense and MoE "
-                         f"families; {cfg.name} is {cfg.family}")
-
-
 def _whole(t) -> torch.Tensor:
     """A DTensor's whole value on this rank (a plain tensor as it is)."""
     return t.full_tensor() if isinstance(t, DTensor) else t
@@ -470,12 +481,13 @@ class ShardedPrefillStep:
     seq) prompt batch split by ``batch_placements``, run under the
     mesh's :class:`ParallelCtx` as one captured CUDA graph of that shape
     (``step_impl`` as :class:`ShardedTrainStep`'s: "auto" is the graph on
-    CUDA, a direct call on the CPU).  Dense and MoE families only.
+    CUDA, a direct call on the CPU).  ``SHARDED_FAMILIES`` only.
 
     Each call writes ``self.logits``, the last position's whole (b, V)
     fp32 logits on every rank, and ``self.cache``, the decode cache as
     DTensors placed by ``cache_placements`` (the batch over the data
-    axes, the cached sequence over model), each rank holding its blocks.
+    axes, the cached sequence or window slots over model, recurrent
+    states on the batch only), each rank holding its blocks.
     ``self.collectives`` is the first call's ``CollectiveCounter``."""
 
     def __init__(self, cfg: ModelConfig, mesh: DeviceMesh, params: PyTree,
@@ -527,7 +539,8 @@ class ShardedDecodeStep:
     the mesh's :class:`ParallelCtx` as one captured CUDA graph, its NCCL
     collectives included.  Every cache leaf, each rank's block of it,
     stays at its address: the new K/V are written in place by the rank
-    that holds their slot.  Dense and MoE families only.
+    that holds their slot, new recurrent states copied into each rank's
+    block.  ``SHARDED_FAMILIES`` only.
 
     Construction warms up and captures (each call a step that advances
     the cache), then zeroes the cache; :meth:`load_cache` puts a

@@ -18,7 +18,8 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.parallel.ctx import get_ctx, run_local
+from repro_torch.parallel.ctx import (get_ctx, param_grad_placements,
+                                      run_local)
 
 
 def rmsnorm(x, w, eps: float):
@@ -64,11 +65,14 @@ class DenseBf16Grad(torch.autograd.Function):
         return gx, gw
 
 
-def _rows_whole(x):
+def seq_whole(x):
     """DTensor ``x`` (b, ..., d) with its middle dims gathered (the
     sequence of Megatron's sequence parallelism, before a column-parallel
-    product): the product flattens (b, ...) into rows, which a split
-    past the first dim does not survive."""
+    product or the RWKV token shift): the product flattens (b, ...) into
+    rows, which a split past the first dim does not survive; a plain
+    tensor as it is."""
+    if not isinstance(x, DTensor):
+        return x
     plc = tuple(Replicate() if isinstance(p, Shard)
                 and 0 < p.dim < x.dim() - 1 else p for p in x.placements)
     if plc == tuple(x.placements):
@@ -82,7 +86,7 @@ def dense(x, w, b=None):
     :class:`DenseBf16Grad`."""
     ctx = get_ctx()
     if isinstance(x, DTensor) and x.dim() > 2:
-        x = _rows_whole(x)
+        x = seq_whole(x)
     if ctx is not None and ctx.bf16_grad and w.dim() == 2 \
             and w.dtype == x.dtype:
         y = DenseBf16Grad.apply(x, w)
@@ -171,8 +175,7 @@ def _embed_sharded(tokens, w):
     out_plc = tuple(Partial() if i in vocab_dims else
                     Shard(0) if i in batch else Replicate()
                     for i in range(mesh.ndim))
-    w_grad = tuple(Partial() if i in batch else w_plc[i]
-                   for i in range(mesh.ndim))
+    w_grad = param_grad_placements(t_plc, w_plc)
     block = _block(mesh, vocab_dims)
 
     def body(tok, wl):
@@ -261,15 +264,13 @@ def _logits_sharded(x, head):
     vocab_dims = {i for i, p in enumerate(head.placements)
                   if isinstance(p, Shard) and p.dim == 1}
     x_plc = ctx.placements("kv_rep", nd)
-    batch = {i for i, p in enumerate(x_plc) if isinstance(p, Shard)}
     h_plc = tuple(Shard(1) if i in vocab_dims else Replicate()
                   for i in range(mesh.ndim))
     out_plc = tuple(Shard(nd - 1) if i in vocab_dims else x_plc[i]
                     for i in range(mesh.ndim))
     x_grad = tuple(Partial() if i in vocab_dims else x_plc[i]
                    for i in range(mesh.ndim))
-    h_grad = tuple(Partial() if i in batch else h_plc[i]
-                   for i in range(mesh.ndim))
+    h_grad = param_grad_placements(x_plc, h_plc)
     return run_local(_head, mesh, (x, head), (x_plc, h_plc), out_plc,
                      (x_grad, h_grad))
 

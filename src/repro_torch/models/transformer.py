@@ -20,7 +20,7 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.paged_attention.ops import paged_attention_decode
@@ -33,7 +33,7 @@ from repro_torch.models.init import check_ported
 from repro_torch.models.layers import (embed_tokens, lm_logits, mlp, norm,
                                        rmsnorm, softmax_xent)
 from repro_torch.models.moe import moe_block
-from repro_torch.parallel.ctx import (get_ctx, parallel_ctx,
+from repro_torch.parallel.ctx import (get_ctx, parallel_ctx, run_local,
                                       shard_activation)
 from repro_torch.parallel.sharding import (cache_placements, distribute,
                                            placements)
@@ -343,13 +343,14 @@ def _caches_to_decode_cache(caches, cfg: ModelConfig, seq: int, max_len: int,
         w = min(cfg.attention_window, max_len)
         out["layers"] = {
             str(i): (st if "h" in st else
-                     {name: ring_place(st[name].to(cfg.compute_dtype), seq,
-                                       w, 1) for name in ("k", "v")})
+                     {name: _ring_place_rows(st[name].to(cfg.compute_dtype),
+                                             seq, w)
+                      for name in ("k", "v")})
             for i, st in enumerate(caches["layers"])}
-        return out
+        return _place_cache(out, cfg)
     if cfg.family == "ssm":
         out["blocks"] = caches["blocks"]
-        return out
+        return _place_cache(out, cfg)
 
     def trim(kv, seq_axis):
         # the dense layers' 4-D KV takes the "cache" kind, as the
@@ -367,12 +368,25 @@ def _caches_to_decode_cache(caches, cfg: ModelConfig, seq: int, max_len: int,
     return _place_cache(out, cfg)
 
 
+def _ring_place_rows(kv, seq_end: int, s_slots: int):
+    """:func:`ring_place` of (b, s, hkv, hd) ``kv`` on its seq axis; a
+    DTensor on each rank's block, its sequence gathered first."""
+    if not isinstance(kv, DTensor):
+        return ring_place(kv, seq_end, s_slots, 1)
+    plc = tuple(Replicate() if q == Shard(1) else q for q in kv.placements)
+    return run_local(lambda t: ring_place(t, seq_end, s_slots, 1),
+                     kv.device_mesh, (kv,), (plc,), plc)
+
+
 def _place_cache(cache, cfg: ModelConfig):
-    """Under a ``ParallelCtx`` with a dense / MoE prefill's DTensor KV,
-    every leaf placed as ``cache_placements`` of the tree says (the layout the reference's
+    """Under a ``ParallelCtx`` with a prefill's DTensor states (any
+    family of this module: the dense / MoE KV, the hybrid's window K/V
+    and recurrent states, the ssm's stacked states), every leaf placed
+    as ``cache_placements`` of the tree says (the layout the reference's
     GSPMD gives the prefill's cache: the batch over the data axes, the
-    cached sequence over model), ``pos`` a DTensor on the batch; else
-    the cache as it is."""
+    cached sequence, or the hybrid's window slots, over model; recurrent
+    states on the batch only), ``pos`` a DTensor on the batch; else the
+    cache as it is."""
     ctx = get_ctx()
     if ctx is None or not any(isinstance(t, DTensor)
                               for t in flatten(cache)[0]):

@@ -10,8 +10,9 @@ every call is the identity, so single-device code never sees a mesh.
 :func:`run_local` is the counterpart of ``shard_map``: a function of
 plain tensors run under ``local_map`` on each rank's blocks of DTensor
 arguments; the model's kernels (flash attention, the grouped matmul,
-the logits head) and the ops DTensor has no sharding rule for (the
-embedding lookup, RoPE, the loss, the MoE dispatch) go through it.
+the RG-LRU scan, the WKV, the logits head) and the ops DTensor has no
+sharding rule for (the embedding lookup, RoPE, the loss, the MoE
+dispatch, the causal conv, the reshapes to heads) go through it.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ import threading
 from typing import Any, Optional, Sequence
 
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import DTensor, Placement
+from torch.distributed.tensor import DTensor, Partial, Placement
 from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.parallel.sharding import placements
@@ -108,6 +109,18 @@ def shard_activation(x, kind: str):
     if tuple(x.placements) == plc:
         return x
     return x.redistribute(ctx.mesh, plc)
+
+
+def param_grad_placements(act_plc: Sequence[Any],
+                          param_plc: Sequence[Any]) -> tuple:
+    """The placements of the gradient that a ``run_local`` body computes
+    for a parameter block of placements ``param_plc`` read by every
+    element of an activation block of placements ``act_plc``: the sum
+    over this rank's elements only, a ``Partial`` over each mesh dim
+    that splits the activation but not the parameter (``shard_map``'s
+    transpose sums it there)."""
+    return tuple(Partial() if a.is_shard() and not p.is_shard() else p
+                 for a, p in zip(act_plc, param_plc))
 
 
 def run_local(fn, mesh: DeviceMesh, args: Sequence[Any],

@@ -18,6 +18,16 @@ token and cache leaf equal to the unsharded ``prefill_fn`` and
 ``decode_step_inplace`` (one captured graph each) bit for bit, the flash
 and (for the MoE) grouped-matmul kernels launched in the sharded steps.
 
+The recurrent families (recurrentgemma-2b with head_dim 64, rwkv6-3b,
+SMOKE widths, bf16 compute) take the same three steps against the
+unsharded ones bit for bit, the RG-LRU scan and its reverse, or the WKV
+and its reverse, launched inside the sharded steps (on each rank's
+block through ``run_local``).  The scans on the halves a 2-rank model
+axis would hold (the RG-LRU's channels, the WKV's heads), stitched
+back, equal the whole call: bit for bit, but the WKV reverse where
+``bwd_segments`` cuts the half otherwise, held within the smoke's
+``WKV_BWD_RTOL`` of each gradient's largest element.
+
 Every test carries the ``cuda`` marker and skips without a card.  On a
 machine with one:
 
@@ -33,6 +43,8 @@ from repro_torch.configs import get_smoke  # noqa: E402
 from repro_torch.kernels.flash_attention import \
     flash_attention as fa  # noqa: E402
 from repro_torch.kernels.moe_gmm import moe_gmm as mg  # noqa: E402
+from repro_torch.kernels.rglru_scan import rglru_scan as rs  # noqa: E402
+from repro_torch.kernels.rwkv6_wkv import rwkv6_wkv as wk  # noqa: E402
 from repro_torch.launch.strategy import (ShardedTrainStep,  # noqa: E402
                                          TrainStep, init_train_state)
 from repro_torch.optim import AdamWConfig  # noqa: E402
@@ -43,7 +55,25 @@ pytestmark = pytest.mark.cuda
 B, S = 4, 128
 OPT = AdamWConfig(lr=1e-3)
 CASES = {"smollm": ("smollm-135m", {}),
-         "deepseek_ep": ("deepseek-moe-16b", {"moe_impl": "ep"})}
+         "deepseek_ep": ("deepseek-moe-16b", {"moe_impl": "ep"}),
+         "hybrid": ("recurrentgemma-2b", {}),
+         "ssm": ("rwkv6-3b", {})}
+# the kernel modules each case's steps launch (forward counters)
+KERNELS = {"smollm": (fa,), "deepseek_ep": (fa, mg), "hybrid": (fa, rs),
+           "ssm": (wk,)}
+MODULES = (fa, mg, rs, wk)
+# the smoke's bound of the reverse WKV against another summation order
+WKV_BWD_RTOL = 1e-4
+
+
+def _reset():
+    for mod in MODULES:
+        mod.LAUNCHES = 0
+        mod.LAUNCHES_BWD = 0
+
+
+def _launched(counter="LAUNCHES"):
+    return {mod for mod in MODULES if getattr(mod, counter)}
 
 
 @pytest.fixture(scope="module")
@@ -78,11 +108,12 @@ def test_sharded_step_equals_train_step(mesh, case):
     batches = [{"tokens": torch.randint(0, cfg.vocab_size, (B, S),
                                         generator=g, dtype=torch.int32)}
                for _ in range(3)]
-    fa.LAUNCHES = mg.LAUNCHES = 0
     ref = TrainStep(cfg, OPT, s0, B, S, "graph")
+    _reset()
     got = ShardedTrainStep(cfg, OPT, mesh, s0, B, S, "graph")
-    assert fa.LAUNCHES > 0
-    assert (mg.LAUNCHES > 0) == bool(cfg.num_experts)
+    # the forward and reverse kernels, inside the sharded step
+    assert _launched() == set(KERNELS[case])
+    assert _launched("LAUNCHES_BWD") == set(KERNELS[case])
     for bt in batches:
         a = {k: v.clone() for k, v in ref(bt).items()}
         b = {k: v.clone() for k, v in got(bt).items()}
@@ -133,11 +164,10 @@ def test_sharded_serving_steps_equal_unsharded(mesh, case):
 
     pg = StepGraph(prefill, bufs, dev, "graph")
     dg = DecodeGraph(decode, bufs, dev, "graph")
-    fa.LAUNCHES = mg.LAUNCHES = 0
+    _reset()
     pre = ShardedPrefillStep(cfg, mesh, params, B, S, max_len, "graph")
     dec = ShardedDecodeStep(cfg, mesh, params, B, max_len, "graph")
-    assert fa.LAUNCHES > 0
-    assert (mg.LAUNCHES > 0) == bool(cfg.num_experts)
+    assert _launched() == set(KERNELS[case])
     # the unsharded graphs' warm-ups advanced their cache: run the prefill
     # again, which rewrites it
     pg()
@@ -156,3 +186,54 @@ def test_sharded_serving_steps_equal_unsharded(mesh, case):
     assert len(want) == len(have)
     assert all(torch.equal(x, y) for x, y in zip(want, have))
     assert (pre.graph.replays, dec.graph.replays) == (1, 4)
+
+
+def _stitch(parts, i, dim):
+    return torch.cat([p[i] for p in parts], dim)
+
+
+def test_split_rglru_scan_equals_the_whole(mesh):
+    g = torch.Generator("cuda").manual_seed(2)
+    a = 0.85 + 0.149 * torch.rand((2, 300, 256), generator=g, device="cuda")
+    x = 0.1 * torch.randn((2, 300, 256), generator=g, device="cuda")
+    dh = torch.randn((2, 300, 256), generator=g, device="cuda")
+    h = rs.rglru_scan(a, x)
+    whole = (h, *rs.rglru_scan_bwd(a, h, dh)[:2])
+    parts = []
+    for ah, xh, dhh in zip(*(t.chunk(2, 2) for t in (a, x, dh))):
+        ah, xh, dhh = ah.contiguous(), xh.contiguous(), dhh.contiguous()
+        hh = rs.rglru_scan(ah, xh)
+        parts.append((hh, *rs.rglru_scan_bwd(ah, hh, dhh)[:2]))
+    for i in range(3):
+        assert torch.equal(_stitch(parts, i, 2), whole[i]), i
+
+
+def test_split_wkv_equals_the_whole(mesh):
+    g = torch.Generator("cuda").manual_seed(3)
+    b, s, h, n = 2, 300, 8, 64
+    r, k, v, do = (0.5 * torch.randn((b, s, h, n), generator=g,
+                                     device="cuda") for _ in range(4))
+    logw = -torch.exp(torch.empty((b, s, h, n), device="cuda")
+                      .uniform_(-6.0, -1.0, generator=g))
+    u = 0.1 * torch.randn((h, n), generator=g, device="cuda")
+    fwd = wk.rwkv6_wkv(r, k, v, logw, u, states=True)
+    bwd = wk.rwkv6_wkv_bwd(r, k, v, logw, u, do, fwd[2])[:5]
+    parts_f, parts_b = [], []
+    for j in range(2):
+        heads = slice(j * h // 2, (j + 1) * h // 2)
+        rh, kh, vh, lh, doh = (t[:, :, heads].contiguous()
+                               for t in (r, k, v, logw, do))
+        uh = u[heads].contiguous()
+        f = wk.rwkv6_wkv(rh, kh, vh, lh, uh, states=True)
+        parts_f.append(f)
+        parts_b.append(wk.rwkv6_wkv_bwd(rh, kh, vh, lh, uh, doh, f[2])[:5])
+    for i, d in enumerate((2, 1, 1)):        # o, state, chunk states
+        assert torch.equal(_stitch(parts_f, i, d), fwd[i]), i
+    same_cut = (wk.bwd_segments(b, s, h, n)[0]
+                == wk.bwd_segments(b, s, h // 2, n)[0])
+    for i, d in enumerate((2, 2, 2, 2, 0)):  # dr, dk, dv, dlogw, du
+        got, want = _stitch(parts_b, i, d), bwd[i]
+        if same_cut:
+            assert torch.equal(got, want), i
+        lim = WKV_BWD_RTOL * (want.abs().max() + want.abs())
+        assert bool(((got - want).abs() <= lim).all()), i
