@@ -233,7 +233,12 @@ each of which raises on failure (nothing is caught):
    published widths, depth 3, two RG-LRU layers and one local-attention
    layer, 1 x 4096, window 2048) and rwkv6-3b (``distributed_ssm``:
    depth 2, 1 x 4096), the scans and their reverses on each rank's
-   channels / heads through ``run_local``.  Each line: both steps' ms and
+   channels / heads through ``run_local``; then whisper-medium
+   (``distributed_encdec``: published widths, encoder and decoder cut to
+   6 layers each, 8 x 448 tokens beside 8 x 1500 frames) and
+   llava-next-mistral-7b (``distributed_vlm``: depth 2, one stream of
+   1152 patches and 2,944 tokens), flash and its backward on each rank's
+   heads.  Each line: ``at_start_gb``, both steps' ms and
    their ratio, build and capture seconds, pool bytes, peak memory, the
    launches (exact per direct call; the sharded steps' own, where every
    flash, grouped-matmul, RG-LRU and WKV kernel, forward and reverse,
@@ -255,29 +260,36 @@ each of which raises on failure (nothing is caught):
    halves, each stitched back bit for bit against the whole call, the
    WKV reverse bit for bit where ``bwd_segments`` cuts the half as the
    whole, else within ``WKV_BWD_RTOL``, both segment counts logged;
-   then four cells one after the other, each freed before the next,
+   then six cells one after the other, each freed before the next,
    smollm-135m at full width and depth, deepseek-moe-16b at full
    published width and depth with bf16 params and ``moe_impl="ep"``,
-   and recurrentgemma-2b and rwkv6-3b at full width and depth with bf16
-   params: the unsharded path
-   (weights drawn on the card from seed 0, ``model.prefill_fn`` as one
-   captured graph and a ``DecodeGraph`` over ``decode_step_inplace``)
-   prefills 8 x 200 tokens into a 264-slot cache and takes 32 greedy
-   steps, keeps logits, tokens and the final cache on the host and frees
-   its weights; then the same weights, drawn again, shared without a
-   copy (at world size 1 each DTensor's local tensor is the card's
-   tensor itself) by a captured
+   and recurrentgemma-2b, rwkv6-3b, whisper-medium and
+   llava-next-mistral-7b at full width and depth with bf16 params: the
+   unsharded path (weights drawn on the card from seed 0,
+   ``model.prefill_fn`` as one captured graph and a ``DecodeGraph`` over
+   ``decode_step_inplace``) prefills 8 x 200 tokens into a 264-slot
+   cache and takes 32 greedy steps (whisper: beside 8 x 1500 frames,
+   its ring the prompt + 64 = 264 slots of a 328-slot buffer, 72 steps,
+   so that every row decodes past its ring; llava: 1152 patches before
+   the tokens, a 1,384-slot cache), keeps logits, tokens and the final
+   cache on the host and frees its weights; then the same weights,
+   drawn again, shared without a copy (at world size 1 each DTensor's
+   local tensor is the card's tensor itself) by a captured
    ``ShardedPrefillStep`` and a captured ``ShardedDecodeStep``, do the
    same.  Each line (``distributed_serve_smollm``,
    ``distributed_serve_deepseek_ep``, ``distributed_serve_recurrentgemma``,
-   ``distributed_serve_rwkv6``): every logit, token and cache leaf
-   (the recurrent states and the hybrid's window ring included)
+   ``distributed_serve_rwkv6``, ``distributed_serve_whisper``,
+   ``distributed_serve_llava``): every logit, token and cache leaf
+   (the recurrent states, the hybrid's window ring, whisper's encoder
+   states, positions and rings included)
    ``torch.equal``, both paths' prefill and decode-step ms and their
    ratios, the sharded capture seconds and pool bytes, the peaks and
    ``at_start_gb``, the flash, grouped-matmul, RG-LRU and WKV launches
-   (exact per direct call, each above 0 over the sub-phase), one decode
-   step's collectives by kind (the EP step's all-to-alls present).  The
-   group is destroyed at the end.
+   (exact per direct call, each above 0 over the sub-phase; whisper's
+   decode step runs flash in each decoder layer's cross-attention), one
+   decode step's collectives by kind (the EP step's all-to-alls
+   present), and for whisper that every row's position passed its ring.
+   The group is destroyed at the end.
 
 Every serving run goes through the executor's ``serving_params`` (the
 weights cast to the compute dtype once) and runs each decode step as a
@@ -3919,7 +3931,7 @@ FLASH_VLM_CASES = [("llava_train", VLM_TRAIN_BATCH, 32, 8, VLM_TRAIN_SEQ,
 
 
 # ---------------------------------------------------------------------------
-# phase 13: distribution (the sharded train step at world size 1)
+# phase 13: distribution (the sharded steps at world size 1)
 # ---------------------------------------------------------------------------
 
 # the kernels the sharded train steps must have launched over the phase
@@ -3959,6 +3971,10 @@ def sharded_vs_train_step(torch, cfg, b: int, s: int, mesh, phase: str):
     from repro_torch.optim import AdamWConfig
     from repro_torch.tree import flatten
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    at_start = {"allocated": torch.cuda.memory_allocated() / 1e9,
+                "reserved": torch.cuda.memory_reserved() / 1e9}
     t_cell = time.perf_counter()
     opt = AdamWConfig(lr=1e-3)
     s0 = _host(init_train_state(
@@ -4023,9 +4039,10 @@ def sharded_vs_train_step(torch, cfg, b: int, s: int, mesh, phase: str):
     per_call = train_counts_per_call(cfg)
     kinds = row_s["collectives"]["count_by_kind"]
     log({"phase": phase, "arch": cfg.name, "num_layers": cfg.num_layers,
+         "encoder_layers": cfg.encoder_layers,
          "batch": b, "seq": s, "moe_impl": cfg.moe_impl,
          "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
-         "train_step": row_t, "sharded": row_s,
+         "at_start_gb": at_start, "train_step": row_t, "sharded": row_s,
          "step_ms_ratio": row_s["step_ms"] / row_t["step_ms"],
          "launches_per_call": {k: n for k, n in per_call.items() if n},
          "launches": {k: n for k, n in launches.items() if n},
@@ -4045,9 +4062,20 @@ def sharded_vs_train_step(torch, cfg, b: int, s: int, mesh, phase: str):
 
 
 # the sharded serving cells: 8 prompts of 200 tokens into a 264-slot
-# cache, then greedy decode steps
+# cache, then greedy decode steps; whisper's beside 8 x 1500 frames, its
+# ring the prompt + 64 = 264 slots of a 328-slot buffer, decoded past
+# the ring's end (the ring wraps at step 65); llava's 1152 patches
+# before the tokens, the cache holding the patches, the tokens and the
+# new ones
 DIST_SERVE_BATCH, DIST_SERVE_SEQ, DIST_SERVE_MAX_LEN = 8, 200, 264
 DIST_SERVE_STEPS = 32
+DIST_WHISPER_STEPS = 72
+# the enc-dec and vlm train cells: published widths, whisper's encoder
+# and decoder cut to 6 layers each (8 x 448 beside 8 x 1500 frames, as
+# phase 10), llava to 2 (one stream of 1152 patches and 2,944 tokens,
+# as phase 11)
+DIST_ENCDEC_LAYERS = 6
+DIST_VLM_LAYERS = 2
 # the kernels the sharded serving steps must have launched
 DIST_SERVE_KERNELS = ("flash_attention", "moe_gmm", "rglru_scan",
                       "rwkv6_wkv")
@@ -4231,12 +4259,42 @@ def _greedy(torch, step, first_logits, n: int):
     return outs, toks, walls
 
 
-def unsharded_serve(torch, cfg, prompt):
+def dist_serve_shape(cfg):
+    """(prompt positions, max_len, greedy steps) of a serving cell: the
+    vlm's positions are its patches and 200 tokens, its cache holds them
+    and the steps' tokens; whisper decodes past its ring."""
+    if cfg.family == "vlm":
+        seq = cfg.num_patches + DIST_SERVE_SEQ
+        return seq, seq + DIST_SERVE_STEPS, DIST_SERVE_STEPS
+    steps = (DIST_WHISPER_STEPS if cfg.family == "encdec"
+             else DIST_SERVE_STEPS)
+    return DIST_SERVE_SEQ, DIST_SERVE_MAX_LEN, steps
+
+
+def dist_serve_prompt(torch, cfg, b: int, seq: int):
+    """A host prompt batch of ``b`` rows and ``seq`` positions: tokens
+    from a generator seeded with 7 (the vlm's seq - num_patches of
+    them), then, from the same generator as ``train_batches`` draws
+    them, the enc-dec family's ``frames`` (b, 1500, d) or the vlm's
+    ``patches`` (b, num_patches, d) in bf16: rows that differ."""
+    gen = torch.Generator().manual_seed(7)
+    n_tok = seq - cfg.num_patches if cfg.family == "vlm" else seq
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, n_tok),
+                                     generator=gen, dtype=torch.int32)}
+    stub = {"encdec": ("frames", cfg.encoder_positions),
+            "vlm": ("patches", cfg.num_patches)}.get(cfg.family)
+    if stub:
+        batch[stub[0]] = torch.randn((b, stub[1], cfg.d_model),
+                                     generator=gen).to(torch.bfloat16)
+    return batch
+
+
+def unsharded_serve(torch, cfg, prompt, max_len: int, steps: int):
     """The unsharded path on weights drawn on the card from seed 0:
-    ``model.prefill_fn`` as one captured graph (``StepGraph``) and a
-    ``DecodeGraph`` over ``decode_step_inplace``, ``DIST_SERVE_STEPS``
-    greedy steps; the logits, tokens and final cache on the host, the
-    weights freed."""
+    ``model.prefill_fn`` of the host batch ``prompt`` as one captured
+    graph (``StepGraph``) and a ``DecodeGraph`` over
+    ``decode_step_inplace``, ``steps`` greedy steps; the logits, tokens
+    and final cache on the host, the weights freed."""
     from repro_torch.models import model
     from repro_torch.models.init import init_params
     from repro_torch.serve.decode_graph import DecodeGraph
@@ -4245,11 +4303,12 @@ def unsharded_serve(torch, cfg, prompt):
 
     dev = torch.device("cuda")
     params = init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
-    b = prompt.shape[0]
-    pfn = model.prefill_fn(cfg, DIST_SERVE_MAX_LEN)
+    b = prompt["tokens"].shape[0]
+    pfn = model.prefill_fn(cfg, max_len)
     dfn = model.decode_inplace_fn(cfg)
-    pre = {"params": params, "batch": {"tokens": prompt.to(dev)},
-           "cache": model.init_cache(cfg, b, DIST_SERVE_MAX_LEN, dev),
+    pre = {"params": params,
+           "batch": {k: v.to(dev) for k, v in prompt.items()},
+           "cache": model.init_cache(cfg, b, max_len, dev),
            "logits": torch.zeros((b, cfg.vocab_size), device=dev)}
 
     def prefill(bufs):
@@ -4260,7 +4319,7 @@ def unsharded_serve(torch, cfg, prompt):
     pg = StepGraph(prefill, pre, dev, "graph")
     dec = {"params": params, "token": torch.zeros((b,), dtype=torch.int32,
                                                    device=dev),
-           "cache": model.init_cache(cfg, b, DIST_SERVE_MAX_LEN, dev),
+           "cache": model.init_cache(cfg, b, max_len, dev),
            "logits": torch.zeros((b, cfg.vocab_size), device=dev)}
 
     def decode(bufs):
@@ -4278,7 +4337,7 @@ def unsharded_serve(torch, cfg, prompt):
         dg()
         return dec["logits"]
 
-    outs, toks, walls = _greedy(torch, step, first, DIST_SERVE_STEPS)
+    outs, toks, walls = _greedy(torch, step, first, steps)
     out = {"logits": [first.cpu()] + outs, "tokens": toks,
            "cache": _host(dec["cache"]),
            "row": {"prefill_ms": float(sum(prefill_ms) / len(prefill_ms)),
@@ -4303,8 +4362,11 @@ def sharded_vs_unsharded_serve(torch, cfg, mesh, phase: str):
     bit-identical; the line gives both paths' prefill and decode-step ms
     and their ratios, the sharded capture seconds and pool bytes, the
     peaks, one decode step's collectives by kind and the kernels'
-    launches (exact per direct call; replays counted).  Returns the
-    launches made."""
+    launches (exact per direct call; replays counted).  The shapes are
+    :func:`dist_serve_shape`'s, the prompt :func:`dist_serve_prompt`'s
+    (with whisper's frames or llava's patches); whisper's cell also
+    checks that every row decoded past its ring.  Returns the launches
+    made."""
     from repro_torch.launch.strategy import (ShardedDecodeStep,
                                              ShardedPrefillStep)
     from repro_torch.models.init import init_params
@@ -4316,26 +4378,24 @@ def sharded_vs_unsharded_serve(torch, cfg, mesh, phase: str):
                 "reserved": torch.cuda.memory_reserved() / 1e9}
     t_cell = time.perf_counter()
     b = DIST_SERVE_BATCH
-    prompt = torch.randint(0, cfg.vocab_size, (b, DIST_SERVE_SEQ),
-                           generator=torch.Generator().manual_seed(7),
-                           dtype=torch.int32)
+    seq, max_len, steps = dist_serve_shape(cfg)
+    prompt = dist_serve_prompt(torch, cfg, b, seq)
     torch.cuda.reset_peak_memory_stats()
-    ref = unsharded_serve(torch, cfg, prompt)
+    ref = unsharded_serve(torch, cfg, prompt, max_len, steps)
     torch.cuda.reset_peak_memory_stats()
     dev = torch.device("cuda")
     params = init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
     reset_counts()
     t0 = time.perf_counter()
-    pre = ShardedPrefillStep(cfg, mesh, params, b, DIST_SERVE_SEQ,
-                             DIST_SERVE_MAX_LEN, "graph")
-    dec = ShardedDecodeStep(cfg, mesh, params, b, DIST_SERVE_MAX_LEN, "graph")
+    pre = ShardedPrefillStep(cfg, mesh, params, b, seq, max_len, "graph")
+    dec = ShardedDecodeStep(cfg, mesh, params, b, max_len, "graph")
     build_s = time.perf_counter() - t0
     peak_build = torch.cuda.max_memory_allocated() / 1e9
-    pre({"tokens": prompt})
+    pre(prompt)
     prefill_ms = _replay_ms(torch, pre.graph, 3)
     first = pre.logits.clone()
     dec.load_cache(pre.cache)
-    outs, toks, walls = _greedy(torch, dec, first, DIST_SERVE_STEPS)
+    outs, toks, walls = _greedy(torch, dec, first, steps)
     counts, tc_counts = read_counts(), read_tc_counts()
     n_moe = cfg.num_layers - cfg.first_k_dense if cfg.num_experts else 0
     n_attn = n_attention_layers(cfg)
@@ -4343,8 +4403,11 @@ def sharded_vs_unsharded_serve(torch, cfg, mesh, phase: str):
                "rglru_scan": (cfg.num_layers - n_attn
                               if cfg.family == "hybrid" else 0),
                "rwkv6_wkv": cfg.num_layers if cfg.family == "ssm" else 0}
-    per_dec = {"flash_attention": 0, "moe_gmm": 3 * n_moe, "rglru_scan": 0,
-               "rwkv6_wkv": 0}
+    # whisper's decode step runs flash in each decoder layer's
+    # cross-attention (one query against the 1500 encoder states)
+    per_dec = {"flash_attention": (cfg.num_layers if cfg.family == "encdec"
+                                   else 0),
+               "moe_gmm": 3 * n_moe, "rglru_scan": 0, "rwkv6_wkv": 0}
     pg, dg = pre.graph, dec.graph
     want = {k: pg.calls * per_pre[k] + dg.calls * per_dec[k]
             for k in DIST_SERVE_KERNELS}
@@ -4366,6 +4429,9 @@ def sharded_vs_unsharded_serve(torch, cfg, mesh, phase: str):
     differ += [f"cache {n}" for n, x, y in zip(
         names, flatten(ref["cache"])[0], flatten(cache)[0])
         if not torch.equal(x, y)]
+    # whisper: each row's last write went past its ring's end (wrapped)
+    ring_crossed = (bool((cache["pos"] > cache["ring"]).all())
+                    if "ring" in cache else None)
     c = dec.collectives.stats()
     row = {"prefill_ms": float(sum(prefill_ms) / len(prefill_ms)),
            "prefill_ms_all": prefill_ms,
@@ -4382,8 +4448,8 @@ def sharded_vs_unsharded_serve(torch, cfg, mesh, phase: str):
            "prefill_collectives": pre.collectives.stats().count_by_kind}
     log({"phase": phase, "arch": cfg.name, "num_layers": cfg.num_layers,
          "param_dtype": str(cfg.param_dtype), "moe_impl": cfg.moe_impl,
-         "batch": b, "seq": DIST_SERVE_SEQ, "max_len": DIST_SERVE_MAX_LEN,
-         "steps": DIST_SERVE_STEPS,
+         "batch": b, "seq": seq, "max_len": max_len, "steps": steps,
+         "ring_crossed": ring_crossed,
          "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
          "at_start_gb": at_start, "unsharded": ref["row"], "sharded": row,
          "prefill_ms_ratio": row["prefill_ms"] / ref["row"]["prefill_ms"],
@@ -4396,6 +4462,10 @@ def sharded_vs_unsharded_serve(torch, cfg, mesh, phase: str):
         raise AssertionError(f"{phase}: the sharded steps differ from the "
                              f"unsharded path in {len(differ)} places: "
                              f"{differ[:20]}")
+    if ring_crossed is False:
+        raise AssertionError(f"{phase}: rows at {cache['pos'].tolist()} did "
+                             f"not decode past their rings "
+                             f"{cache['ring'].tolist()}")
     if cfg.num_experts and cfg.moe_impl == "ep" and not c.count_by_kind.get(
             "all-to-all"):
         raise AssertionError(f"{phase}: no all-to-all in the EP decode "
@@ -4409,9 +4479,9 @@ def sharded_vs_unsharded_serve(torch, cfg, mesh, phase: str):
 def distributed_serve(torch, mesh, cells):
     """Phase 13's serving sub-phase: the split softmax and the split scans
     held on the card, then each (cfg, phase) of ``cells`` (smollm-135m,
-    deepseek-moe-16b, recurrentgemma-2b, rwkv6-3b) through the sharded
-    prefill and decode steps against the unsharded path; returns the
-    launches made."""
+    deepseek-moe-16b, recurrentgemma-2b, rwkv6-3b, whisper-medium,
+    llava-next-mistral-7b) through the sharded prefill and decode steps
+    against the unsharded path; returns the launches made."""
     t0 = time.perf_counter()
     split_softmax_cases(torch)
     split_scan_cases(torch)
@@ -4781,14 +4851,23 @@ def main() -> int:
         (dataclasses.replace(hyb, num_layers=DIST_HYBRID_LAYERS),
          HYBRID_TRAIN_BATCH, HYBRID_TRAIN_SEQ, "distributed_hybrid"),
         (dataclasses.replace(ssm, num_layers=DIST_SSM_LAYERS),
-         SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, "distributed_ssm")), (
+         SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, "distributed_ssm"),
+        (dataclasses.replace(wht, encoder_layers=DIST_ENCDEC_LAYERS,
+                             num_layers=DIST_ENCDEC_LAYERS),
+         ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ, "distributed_encdec"),
+        (dataclasses.replace(llt, num_layers=DIST_VLM_LAYERS),
+         VLM_TRAIN_BATCH, VLM_TRAIN_SEQ, "distributed_vlm")), (
         (cfg, "distributed_serve_smollm"),
         (dataclasses.replace(ds, moe_impl="ep"),
          "distributed_serve_deepseek_ep"),
         (dataclasses.replace(rg, **bf16_params),
          "distributed_serve_recurrentgemma"),
         (dataclasses.replace(rw, **bf16_params),
-         "distributed_serve_rwkv6")))
+         "distributed_serve_rwkv6"),
+        (dataclasses.replace(wh, **bf16_params),
+         "distributed_serve_whisper"),
+        (dataclasses.replace(ll, **bf16_params),
+         "distributed_serve_llava")))
 
     # the summary: the main paths' shapes and dtypes (bf16 flash at the
     # longest smollm prompt, bf16 paged at smollm's mixed batch, the bf16

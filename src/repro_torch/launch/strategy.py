@@ -16,12 +16,13 @@ and :class:`ShardedDecodeStep` are ``jit_prefill_step`` and
 table, the prompt batch and the token by ``batch_placements``, the
 decode cache by ``cache_placements`` (the KV's sequence, or the hybrid's
 window slots, split over model, the decode attention's softmax split
-with it: ``repro_torch.models.attention``; recurrent states on the batch
-only).  The three sharded steps run the dense, MoE, hybrid and ssm
-families (``SHARDED_FAMILIES``; the recurrences on each rank's channels
-or heads: ``repro_torch.models.rglru``, ``rwkv``) and refuse the enc-dec
-and vlm families, which a later part of the distribution work holds
-against the reference, as it does ``lower_cell`` (ROADMAP.md, Queue 1).
+with it: ``repro_torch.models.attention``; recurrent states, whisper's
+encoder states, positions and rings on the batch only).  The three
+sharded steps run all six families: the recurrences on each rank's
+channels or heads (``repro_torch.models.rglru``, ``rwkv``), whisper's
+encoder, self- and cross-attention on each rank's heads
+(``repro_torch.models.whisper``), the vlm's patches split with its
+tokens' batch.
 
 Mixed precision as the reference's: the loss is differentiated with
 respect to compute-dtype copies of every fp32 parameter with more than
@@ -203,19 +204,6 @@ def init_train_state(cfg: ModelConfig, generator: torch.Generator,
     return state
 
 
-SHARDED_FAMILIES = ("dense", "moe", "hybrid", "ssm")
-
-
-def _check_family(cfg: ModelConfig) -> None:
-    """``ValueError`` for a family the sharded steps do not run yet (the
-    enc-dec and the vlm: not yet held against the reference on a
-    mesh)."""
-    if cfg.family not in SHARDED_FAMILIES:
-        raise ValueError(f"the sharded steps run the "
-                         f"{', '.join(SHARDED_FAMILIES)} families; "
-                         f"{cfg.name} is {cfg.family}")
-
-
 def _mesh_device(mesh: DeviceMesh) -> torch.device:
     if mesh.device_type == "cuda":
         return torch.device("cuda", torch.cuda.current_device())
@@ -355,7 +343,7 @@ class ShardedTrainStep:
     :class:`TrainStep`'s: "auto" is the graph on CUDA, a direct call on
     the CPU).  Every rank constructs it with the same full ``state`` (or
     an already sharded one) and calls it with the same full batch; each
-    keeps its blocks.  ``SHARDED_FAMILIES`` only (``ValueError``).
+    keeps its blocks.
 
     ``self.collectives`` is the ``CollectiveCounter`` of the first
     (warm-up) step: every collective one step issues, this rank's.
@@ -367,7 +355,6 @@ class ShardedTrainStep:
     def __init__(self, cfg: ModelConfig, opt_cfg: AdamWConfig,
                  mesh: DeviceMesh, state: PyTree, batch: int, seq: int,
                  step_impl: str = "auto", rules=None):
-        _check_family(cfg)
         device = _mesh_device(mesh)
         self.ctx = make_ctx(cfg, mesh)
         self.state = tree_map(
@@ -481,7 +468,7 @@ class ShardedPrefillStep:
     seq) prompt batch split by ``batch_placements``, run under the
     mesh's :class:`ParallelCtx` as one captured CUDA graph of that shape
     (``step_impl`` as :class:`ShardedTrainStep`'s: "auto" is the graph on
-    CUDA, a direct call on the CPU).  ``SHARDED_FAMILIES`` only.
+    CUDA, a direct call on the CPU).
 
     Each call writes ``self.logits``, the last position's whole (b, V)
     fp32 logits on every rank, and ``self.cache``, the decode cache as
@@ -493,7 +480,6 @@ class ShardedPrefillStep:
     def __init__(self, cfg: ModelConfig, mesh: DeviceMesh, params: PyTree,
                  batch: int, seq: int, max_len: int,
                  step_impl: str = "auto", rules=None):
-        _check_family(cfg)
         device = _mesh_device(mesh)
         self.ctx = make_ctx(cfg, mesh)
         self.params = _serving_params(params, cfg, mesh, device, rules)
@@ -540,7 +526,7 @@ class ShardedDecodeStep:
     collectives included.  Every cache leaf, each rank's block of it,
     stays at its address: the new K/V are written in place by the rank
     that holds their slot, new recurrent states copied into each rank's
-    block.  ``SHARDED_FAMILIES`` only.
+    block.
 
     Construction warms up and captures (each call a step that advances
     the cache), then zeroes the cache; :meth:`load_cache` puts a
@@ -552,7 +538,6 @@ class ShardedDecodeStep:
     def __init__(self, cfg: ModelConfig, mesh: DeviceMesh, params: PyTree,
                  batch: int, max_len: int, step_impl: str = "auto",
                  rules=None):
-        _check_family(cfg)
         device = _mesh_device(mesh)
         self.ctx = make_ctx(cfg, mesh)
         self.params = _serving_params(params, cfg, mesh, device, rules)

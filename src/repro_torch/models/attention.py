@@ -117,12 +117,10 @@ def self_attention(x, p, cfg: ModelConfig, *, positions=None, causal=True,
 
 def cross_attention(x, p, cfg: ModelConfig, k, v, attn_impl: str = "auto"):
     """Attention of x (b, s, d) to given keys and values k, v (b, t, hkv,
-    hd) (the encoder's states, projected): q from x, every query sees
-    every key (non-causal, no window), through the flash kernel; s and t
-    need not be equal.  Returns (b, s, d)."""
-    b, s, _ = x.shape
-    q = dense(x, p["wq"], p.get("bq")).reshape(b, s, cfg.num_heads,
-                                              cfg.head_dim)
+    hd) (the encoder's states, projected, laid out by ``_split_heads``):
+    q from x, every query sees every key (non-causal, no window), through
+    the flash kernel; s and t need not be equal.  Returns (b, s, d)."""
+    q = _split_heads(dense(x, p["wq"], p.get("bq")), cfg, cfg.num_heads)
     o = _attend(q, k, v, causal=False, window=0, impl=attn_impl)
     return merge_heads_out(o, p)
 
@@ -176,7 +174,7 @@ def decode_self_attention(x, p, cfg: ModelConfig, cache, use_rope=True,
     rows_pos = pos.expand(b) if pos.dim() == 0 else pos
     q, k, v = project_qkv(x, p, cfg, rows_pos[:, None].long(), use_rope)
     if isinstance(k_cache, DTensor):
-        o = _decode_sharded(q, k, v, k_cache, v_cache, pos)
+        o = _decode_sharded(q, k, v, k_cache, v_cache, pos, ring)
         return merge_heads_out(o, p), {"k": k_cache, "v": v_cache,
                                        "pos": pos}
     rows = torch.arange(b, device=x.device)
@@ -228,24 +226,32 @@ def _all_reduce(t, op: str, group):
         else out
 
 
-def _decode_sharded(q, k, v, k_cache, v_cache, pos):
+def _decode_sharded(q, k, v, k_cache, v_cache, pos, ring=None):
     """The decode write and attention of DTensor q (b, 1, hq, hd), new k,
     v (b, 1, hkv, hd) against a DTensor cache (b, S, hkv, hd) at the
     DTensor positions ``pos`` (b,), on each rank's rows and slots (the
-    module note); q's heads are gathered whole on model for the product,
-    and the output (b, 1, hq, hd) comes back in q's placements."""
+    module note): each row's ring is S, or its entry of the DTensor
+    ``ring`` (b,), the first ``ring`` slots of the S (whisper's); q's
+    heads are gathered whole on model for the product, and the output
+    (b, 1, hq, hd) comes back in q's placements."""
     mesh = k_cache.device_mesh
     c_plc = tuple(k_cache.placements)
     rows = tuple(Shard(0) if p == Shard(0) else Replicate() for p in c_plc)
     split = [i for i, p in enumerate(c_plc) if p == Shard(1)]
     group = mesh.get_group(split[0]) if split else None
     S = k_cache.shape[1]
+    args = (q, k, v, k_cache, v_cache, pos)
+    plcs = (rows, rows, rows, c_plc, c_plc, rows)
+    if ring is not None:
+        args += (ring,)
+        plcs += (rows if isinstance(ring, DTensor) else None,)
 
-    def body(ql, kl, vl, kc, vc, pl):
+    def body(ql, kl, vl, kc, vc, pl, rl=None):
         b = ql.shape[0]
         r = torch.arange(b, device=ql.device)
-        slot = (pl % S).long()
-        n_valid = torch.clamp(pl + 1, max=S)
+        ring_len = S if rl is None else rl
+        slot = (pl % ring_len).long()
+        n_valid = torch.clamp(pl + 1, max=ring_len)
         if group is None:
             kc[r, slot] = kl[:, 0].to(kc.dtype)
             vc[r, slot] = vl[:, 0].to(vc.dtype)
@@ -266,6 +272,5 @@ def _decode_sharded(q, k, v, k_cache, v_cache, pos):
                 lambda t: _all_reduce(t, "max", group),
                 lambda t: _all_reduce(t, "sum", group))
 
-    o = run_local(body, mesh, (q, k, v, k_cache, v_cache, pos),
-                  (rows, rows, rows, c_plc, c_plc, rows), rows)
+    o = run_local(body, mesh, args, plcs, rows)
     return o.redistribute(mesh, tuple(q.placements))

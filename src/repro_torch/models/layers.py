@@ -147,13 +147,19 @@ def embed_tokens(tokens, w, compute_dtype):
     return w[tokens].to(compute_dtype)
 
 
-def _block(mesh, dims) -> int:
-    """This rank's block index of a dim split over the mesh dims
-    ``dims`` (outer first)."""
-    block = 0
+def _vocab_offset(mesh, dims, vocab: int) -> int:
+    """The first vocab id of this rank's block of a vocab of ``vocab``
+    ids split over the mesh dims ``dims`` (outer first);
+    ``ValueError`` where the split is uneven, whose blocks no one
+    offset rule addresses."""
+    n, block = 1, 0
     for i in sorted(dims):
+        n *= mesh.size(i)
         block = block * mesh.size(i) + mesh.get_local_rank(i)
-    return block
+    if vocab % n:
+        raise ValueError(f"a vocab of {vocab} does not split evenly over "
+                         f"{n} ranks")
+    return block * (vocab // n)
 
 
 def _embed_sharded(tokens, w):
@@ -176,10 +182,10 @@ def _embed_sharded(tokens, w):
                     Shard(0) if i in batch else Replicate()
                     for i in range(mesh.ndim))
     w_grad = param_grad_placements(t_plc, w_plc)
-    block = _block(mesh, vocab_dims)
+    offset = _vocab_offset(mesh, vocab_dims, w.shape[0])
 
     def body(tok, wl):
-        idx = tok.long() - block * wl.shape[0]
+        idx = tok.long() - offset
         ok = (idx >= 0) & (idx < wl.shape[0])
         rows = wl[idx.clamp(0, wl.shape[0] - 1)]
         return torch.where(ok[..., None], rows, rows.new_zeros(()))
@@ -292,7 +298,8 @@ def _xent_sharded(logits, labels):
     fall in it; the blocks' log-sum-exps are gathered and combined, the
     gold logits summed (a ``Partial``), and each batch rank's mean,
     weighted by its share of the tokens, summed into the loss.  With one
-    vocab block it is the plain loss, bit for bit."""
+    vocab block it is the plain loss, bit for bit; an uneven vocab split
+    is refused (``ValueError``: the "logits" kind never makes one)."""
     ctx = get_ctx()
     mesh = logits.device_mesh
     nd = logits.dim()
@@ -304,12 +311,12 @@ def _xent_sharded(logits, labels):
                   for i in range(mesh.ndim))
     gold_plc = tuple(Partial() if i in vocab_dims else row_plc[i]
                      for i in range(mesh.ndim))
-    block = _block(mesh, vocab_dims)
+    offset = _vocab_offset(mesh, vocab_dims, logits.shape[-1])
 
     def parts(lg, lab):
         lg = lg.float()
         lse = torch.logsumexp(lg, dim=-1, keepdim=True)
-        idx = lab.long() - block * lg.shape[-1]
+        idx = lab.long() - offset
         ok = (idx >= 0) & (idx < lg.shape[-1])
         gold = torch.gather(lg, -1, idx.clamp(0, lg.shape[-1] - 1)[..., None])
         return lse, torch.where(ok, gold[..., 0], gold.new_zeros(()))

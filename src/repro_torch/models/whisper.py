@@ -31,15 +31,16 @@ import math
 from typing import Any, Dict
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from repro_torch.models.attention import (cross_attention,
+from repro_torch.models.attention import (_split_heads, cross_attention,
                                           decode_self_attention,
                                           self_attention)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (dense, embed_tokens, layernorm,
                                        lm_logits, mlp, softmax_xent)
 from repro_torch.models.transformer import _remat, _tree_slice, ring_place
-from repro_torch.parallel.ctx import shard_activation
+from repro_torch.parallel.ctx import run_local, shard_activation
 from repro_torch.tree import copy_tree_
 
 # the reference's prefill ring: prompt + this many slots
@@ -79,8 +80,13 @@ def encode(params, frames, cfg: ModelConfig, attn_impl: str = "auto"):
     ``transformer._remat`` (the reference's ``jax.checkpoint``)."""
     dt = cfg.compute_dtype
     x = frames.to(dt)
-    x = x + _sinusoid(x.shape[1], cfg.d_model, x.device).to(dt)
-    x = shard_activation(x, "act")
+    table = _sinusoid(x.shape[1], cfg.d_model, x.device).to(dt)
+    if isinstance(x, DTensor):
+        # a constant every rank computes whole: a replicated DTensor
+        table = DTensor.from_local(table, x.device_mesh,
+                                   (Replicate(),) * x.device_mesh.ndim,
+                                   run_check=False)
+    x = shard_activation(x + table, "act")
     block = _remat(lambda h, bp: _enc_block(h, bp, cfg, attn_impl), cfg,
                    False)
     for i in range(cfg.encoder_layers):
@@ -91,12 +97,12 @@ def encode(params, frames, cfg: ModelConfig, attn_impl: str = "auto"):
 
 def _enc_kv(bp, enc_out, cfg: ModelConfig):
     """One decoder layer's cross-attention keys and values of the encoder
-    states: (b, T, hkv, hd) each."""
-    b, t, _ = enc_out.shape
-    shape = (b, t, cfg.num_kv_heads, cfg.head_dim)
+    states: (b, T, hkv, hd) each, laid out as the queries' heads
+    (``attention._split_heads``)."""
     k = dense(enc_out, bp["xattn"]["wk"], bp["xattn"].get("bk"))
     v = dense(enc_out, bp["xattn"]["wv"], bp["xattn"].get("bv"))
-    return k.reshape(shape), v.reshape(shape)
+    return (_split_heads(k, cfg, cfg.num_kv_heads),
+            _split_heads(v, cfg, cfg.num_kv_heads))
 
 
 def _dec_block(x, bp, cfg: ModelConfig, enc_kv, attn_impl: str = "auto"):
@@ -205,6 +211,22 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device=None):
     }
 
 
+def _rows(table, pos):
+    """``table[pos]`` (b, d), each index clamped to the table as the
+    reference's dynamic slice clamps it; a DTensor table is gathered
+    whole and read at each rank's rows of the DTensor ``pos`` (b,)."""
+    def rows(t, p):
+        return t[torch.clamp(p.long(), 0, t.shape[0] - 1)]
+
+    if not isinstance(table, DTensor):
+        return rows(table, pos)
+    mesh = table.device_mesh
+    whole = (Replicate(),) * mesh.ndim
+    p_plc = tuple(pos.placements)
+    out = tuple(Shard(0) if p == Shard(0) else Replicate() for p in p_plc)
+    return run_local(rows, mesh, (table, pos), (whole, p_plc), out)
+
+
 def decode_step(params, token, cache, cfg: ModelConfig,
                 attn_impl: str = "auto"):
     """One decoder token per row, token (b,), against the self-attention
@@ -217,8 +239,7 @@ def decode_step(params, token, cache, cfg: ModelConfig,
     pos, ring = cache["pos"], cache["ring"]
     pos_dec = params["embed"]["pos_dec"]
     x = embed_tokens(token[:, None], params["embed"]["tok"], dt)
-    row_pos = torch.clamp(pos.long(), 0, pos_dec.shape[0] - 1)
-    x = x + pos_dec[row_pos][:, None].to(dt)
+    x = x + _rows(pos_dec, pos)[:, None].to(dt)
     enc_out = cache["enc_out"]
     ks, vs = cache["blocks"]["k"], cache["blocks"]["v"]
     for i in range(cfg.num_layers):

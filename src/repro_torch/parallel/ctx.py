@@ -49,7 +49,13 @@ class ParallelCtx:
         self.sp_axis = sp_axis if (sp_axis and sp_axis in names) else None
         self.bf16_grad = bf16_grad
 
-    def spec(self, kind: str) -> tuple:
+    def spec(self, kind: str, shape: Optional[Sequence[int]] = None
+             ) -> tuple:
+        """The parts of ``kind``; with the tensor's ``shape``, the
+        "logits" vocab stays whole where the model axis does not divide
+        it (as ``assign_axes`` keeps a parameter's dim and
+        ``_split_heads`` the heads: an uneven block has no one offset
+        rule)."""
         dp = self.dp_axes if len(self.dp_axes) > 1 else (
             self.dp_axes[0] if self.dp_axes else None)
         if kind == "tokens":          # (b, s)
@@ -59,7 +65,8 @@ class ParallelCtx:
         if kind == "act_heads":       # (b, s, h, hd)
             return (dp, None, self.tp_axis, None)
         if kind == "logits":          # (b, s, vocab), vocab over tp
-            return (dp, None, self.tp_axis)
+            even = shape is None or shape[-1] % self.size(self.tp_axis) == 0
+            return (dp, None, self.tp_axis if even else None)
         if kind == "cache":           # (b, S, hkv, hd), seq-sharded KV
             return (dp, self.tp_axis, None, None)
         if kind == "cache_batch":     # (b, S, hkv, hd), batch only
@@ -70,9 +77,11 @@ class ParallelCtx:
             return (dp, None, self.tp_axis)
         raise KeyError(kind)
 
-    def placements(self, kind: str, ndim: int):
-        """DTensor placements of ``kind`` for a tensor of ``ndim`` dims."""
-        spec = self.spec(kind)[:ndim]
+    def placements(self, kind: str, ndim: int,
+                   shape: Optional[Sequence[int]] = None):
+        """DTensor placements of ``kind`` for a tensor of ``ndim`` dims
+        (of ``shape``, where given: :meth:`spec`)."""
+        spec = self.spec(kind, shape)[:ndim]
         return placements(spec + (None,) * (ndim - len(spec)), self.mesh)
 
     def size(self, axis: Optional[str]) -> int:
@@ -105,7 +114,7 @@ def shard_activation(x, kind: str):
     ctx = get_ctx()
     if ctx is None or not isinstance(x, DTensor):
         return x
-    plc = ctx.placements(kind, x.dim())
+    plc = ctx.placements(kind, x.dim(), x.shape)
     if tuple(x.placements) == plc:
         return x
     return x.redistribute(ctx.mesh, plc)

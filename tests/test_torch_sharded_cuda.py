@@ -28,6 +28,14 @@ back, equal the whole call: bit for bit, but the WKV reverse where
 ``bwd_segments`` cuts the half otherwise, held within the smoke's
 ``WKV_BWD_RTOL`` of each gradient's largest element.
 
+The enc-dec and vlm families (whisper-medium and llava-next-mistral-7b,
+head_dim 64, SMOKE widths, bf16 compute; each batch with its frames or
+patches drawn from a normal, rows that differ) take the same three
+steps against the unsharded ones bit for bit, flash and its backward
+launched inside the sharded steps; whisper's decode runs 68 steps from a
+128-token prompt, past the end of its 192-slot ring (the prompt + 64)
+in a 224-slot buffer.
+
 Every test carries the ``cuda`` marker and skips without a card.  On a
 machine with one:
 
@@ -57,13 +65,32 @@ OPT = AdamWConfig(lr=1e-3)
 CASES = {"smollm": ("smollm-135m", {}),
          "deepseek_ep": ("deepseek-moe-16b", {"moe_impl": "ep"}),
          "hybrid": ("recurrentgemma-2b", {}),
-         "ssm": ("rwkv6-3b", {})}
+         "ssm": ("rwkv6-3b", {}),
+         "encdec": ("whisper-medium", {}),
+         "vlm": ("llava-next-mistral-7b", {})}
 # the kernel modules each case's steps launch (forward counters)
 KERNELS = {"smollm": (fa,), "deepseek_ep": (fa, mg), "hybrid": (fa, rs),
-           "ssm": (wk,)}
+           "ssm": (wk,), "encdec": (fa,), "vlm": (fa,)}
+# greedy steps of the serving test: whisper's past its ring's end
+DECODE = {"encdec": 68}
 MODULES = (fa, mg, rs, wk)
 # the smoke's bound of the reverse WKV against another summation order
 WKV_BWD_RTOL = 1e-4
+
+
+def _batch(cfg, g):
+    """A host batch of B x S positions: tokens (the vlm's S - num_patches
+    of them), and the enc-dec family's frames or the vlm's patches drawn
+    from a normal in bf16."""
+    n_tok = S - cfg.num_patches if cfg.family == "vlm" else S
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, n_tok),
+                                     generator=g, dtype=torch.int32)}
+    stub = {"encdec": ("frames", cfg.encoder_positions),
+            "vlm": ("patches", cfg.num_patches)}.get(cfg.family)
+    if stub:
+        batch[stub[0]] = torch.randn((B, stub[1], cfg.d_model),
+                                     generator=g).to(torch.bfloat16)
+    return batch
 
 
 def _reset():
@@ -105,9 +132,7 @@ def test_sharded_step_equals_train_step(mesh, case):
     s0 = init_train_state(cfg, torch.Generator("cuda").manual_seed(0),
                           "cuda")
     g = torch.Generator().manual_seed(1)
-    batches = [{"tokens": torch.randint(0, cfg.vocab_size, (B, S),
-                                        generator=g, dtype=torch.int32)}
-               for _ in range(3)]
+    batches = [_batch(cfg, g) for _ in range(3)]
     ref = TrainStep(cfg, OPT, s0, B, S, "graph")
     _reset()
     got = ShardedTrainStep(cfg, OPT, mesh, s0, B, S, "graph")
@@ -145,11 +170,10 @@ def test_sharded_serving_steps_equal_unsharded(mesh, case):
     dev = torch.device("cuda")
     max_len = S + 32
     params = init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
-    prompt = torch.randint(0, cfg.vocab_size, (B, S),
-                           generator=torch.Generator().manual_seed(1),
-                           dtype=torch.int32)
+    prompt = _batch(cfg, torch.Generator().manual_seed(1))
+    steps = DECODE.get(case, 4)
     pfn, dfn = model.prefill_fn(cfg, max_len), model.decode_inplace_fn(cfg)
-    bufs = {"batch": {"tokens": prompt.to(dev)},
+    bufs = {"batch": {k: v.to(dev) for k, v in prompt.items()},
             "cache": model.init_cache(cfg, B, max_len, dev),
             "logits": torch.zeros((B, cfg.vocab_size), device=dev),
             "token": torch.zeros((B,), dtype=torch.int32, device=dev)}
@@ -171,10 +195,10 @@ def test_sharded_serving_steps_equal_unsharded(mesh, case):
     # the unsharded graphs' warm-ups advanced their cache: run the prefill
     # again, which rewrites it
     pg()
-    got = pre({"tokens": prompt})
+    got = pre(prompt)
     assert torch.equal(got, bufs["logits"])
     dec.load_cache(pre.cache)
-    for _ in range(4):
+    for _ in range(steps):
         tok = bufs["logits"].argmax(-1).to(torch.int32)
         assert torch.equal(tok, got.argmax(-1).to(torch.int32))
         bufs["token"].copy_(tok)
@@ -185,7 +209,10 @@ def test_sharded_serving_steps_equal_unsharded(mesh, case):
     have = flatten(tree_map(lambda t: t.to_local(), dec.cache))[0]
     assert len(want) == len(have)
     assert all(torch.equal(x, y) for x, y in zip(want, have))
-    assert (pre.graph.replays, dec.graph.replays) == (1, 4)
+    assert (pre.graph.replays, dec.graph.replays) == (1, steps)
+    if cfg.family == "encdec":
+        # every row wrote past its ring's end
+        assert bool((bufs["cache"]["pos"] > bufs["cache"]["ring"]).all())
 
 
 def _stitch(parts, i, dim):

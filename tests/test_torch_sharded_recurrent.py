@@ -32,8 +32,10 @@ initial state, a prefill into the reference's default 96-slot cache and
   hold them), forward and reverse through autograd, stitched back equal
   the whole call;
 * at world size 1 (a gloo group in this process) the three steps equal
-  the unsharded ones bit for bit; the enc-dec and vlm families are
-  refused by all three with ``ValueError``.
+  the unsharded ones bit for bit.
+
+The enc-dec and vlm families' sharded steps are held in
+``tests/test_torch_sharded_encdec.py``.
 """
 from __future__ import annotations
 
@@ -486,26 +488,3 @@ def test_world_one_serving_steps_are_unsharded_bit_for_bit(world_one, case):
     assert all(torch.equal(a, b.to_local()) for a, b in zip(
         _leaves(cache), _leaves(dec.cache)))
     assert dec.collectives.stats().count_by_kind == {}
-
-
-@pytest.mark.parametrize("arch", ["whisper-medium", "llava-next-mistral-7b"])
-@pytest.mark.parametrize("step", ["train", "prefill", "decode"])
-def test_encdec_and_vlm_are_refused(world_one, arch, step):
-    from repro_torch.configs import get_smoke
-    from repro_torch.launch import strategy
-    from repro_torch.models import model
-    from repro_torch.optim import AdamWConfig
-
-    cfg = get_smoke(arch)
-    params = model.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    make = {
-        "train": lambda: strategy.ShardedTrainStep(
-            cfg, AdamWConfig(), world_one,
-            {"params": params, "opt": None}, B, S, "eager"),
-        "prefill": lambda: strategy.ShardedPrefillStep(
-            cfg, world_one, params, B, S, MAX_LEN, "eager"),
-        "decode": lambda: strategy.ShardedDecodeStep(
-            cfg, world_one, params, B, MAX_LEN, "eager"),
-    }[step]
-    with pytest.raises(ValueError, match=f"{cfg.name} is {cfg.family}"):
-        make()

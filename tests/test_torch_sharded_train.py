@@ -25,7 +25,12 @@ steps from the reference's initial state on the same (4, 32) batches:
   card's smoke runs it through NCCL) the sharded step equals
   ``TrainStep`` bit for bit over 3 steps, the EP step issuing its
   all-to-alls; a second process group, and a CUDA mesh without a card,
-  are refused.
+  are refused;
+* granite-3-8b SMOKE, whose vocab of 129 the model axis does not
+  divide: the "logits" kind keeps the vocab whole (split on the batch
+  only), so the loss and the step match the reference; on fixed logits
+  at V = 127 the sharded ``softmax_xent`` equals the plain one, and
+  ``_xent_sharded`` refuses logits whose vocab is split unevenly.
 """
 from __future__ import annotations
 
@@ -43,6 +48,9 @@ CASES = {
     "deepseek_ep": ("deepseek-moe-16b", {"moe_impl": "ep"}),
     "deepseek_gspmd": ("deepseek-moe-16b", {}),
     "smollm_bf16_grads": ("smollm-135m", {"bf16_grad_reduce": True}),
+    # an odd vocab (129), which the model axis does not divide: the
+    # logits keep it whole
+    "granite": ("granite-3-8b", {}),
 }
 TOL = dict(atol=1e-5, rtol=1e-5)
 PARAM_ATOL = 1e-4
@@ -126,7 +134,43 @@ def port(rank, mesh, ref):
             res[case, "ctx_identical"] = all(
                 torch.equal(a, b) for a, b in zip(
                     _leaves(plain), _leaves(under_ctx)))
+    res["xent"] = _uneven_xent(mesh)
     return res
+
+
+def _uneven_xent(mesh):
+    """``softmax_xent`` of fixed (B, 8, 127) logits under the mesh's
+    context: the plain value, the sharded one (the logits laid out by
+    the "logits" kind), their placements there and at 128, and the
+    error of logits split unevenly on the vocab."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import strategy
+    from repro_torch.models import layers
+    from repro_torch.parallel.ctx import parallel_ctx, shard_activation
+    from repro_torch.parallel.sharding import distribute
+
+    g = torch.Generator().manual_seed(1)
+    logits = 3 * torch.randn(B, 8, 128, generator=g)
+    labels = torch.randint(0, 127, (B, 8), generator=g, dtype=torch.int32)
+    rows = (Shard(0), Replicate())
+    out = {"plain": float(layers.softmax_xent(logits[..., :127], labels))}
+    with parallel_ctx(strategy.make_ctx(get_smoke("smollm-135m"), mesh)):
+        lab = distribute(labels, rows, mesh)
+        for v in (127, 128):
+            lg = shard_activation(distribute(logits[..., :v].contiguous(),
+                                             rows, mesh), "logits")
+            out[v, "placements"] = tuple(lg.placements)
+            out[v, "sharded"] = float(layers.softmax_xent(lg, lab)
+                                      .to_local())
+        uneven = distribute(logits[..., :127].contiguous(), rows,
+                            mesh).redistribute(mesh, (Shard(0), Shard(2)))
+        try:
+            layers.softmax_xent(uneven, lab)
+        except ValueError as e:
+            out["refused"] = str(e)
+    return out
 
 
 def _leaves(tree):
@@ -194,6 +238,23 @@ def test_sharded_step_matches_one_process_step(results):
     got, one = ranks[0]["smollm"], ranks[0]["smollm", "one"]
     np.testing.assert_allclose(got["losses"], one["losses"], **TOL)
     _assert_state(got["state"], one["state"])
+
+
+def test_sharded_xent_at_an_uneven_vocab_equals_plain(results):
+    from torch.distributed.tensor import Replicate, Shard
+
+    _, ranks = results
+    for r in ranks:
+        x = r["xent"]
+        assert x[127, "placements"] == (Shard(0), Replicate())
+        assert x[128, "placements"] == (Shard(0), Shard(2))
+        np.testing.assert_allclose(x[127, "sharded"], x["plain"], **TOL)
+
+
+def test_xent_refuses_an_uneven_vocab_block(results):
+    _, ranks = results
+    for r in ranks:
+        assert "does not split evenly" in r["xent"].get("refused", "")
 
 
 def test_plain_step_under_context_is_bit_identical(results):
