@@ -217,7 +217,22 @@ each of which raises on failure (nothing is caught):
    (``RooflineCell``: compute, memory and lower-bound times, the
    dominant term, the useful share, ``pg_measured`` = t_ideal over the
    measured step; a lower bound above the step fails), and the seconds
-   each count took;
+   each count took (the counts made beside phase 1's build, in a
+   subprocess that sees no card, ``CUDA_VISIBLE_DEVICES`` empty, on host
+   cores the build leaves idle, joined before phase 2 so that no timed
+   phase shares the host with it); and the dry run's mesh records
+   (``repro_torch.launch.dryrun``), made beside the build the same way,
+   in a subprocess of their own (a fake default process group cannot
+   share a process with phase 13's NCCL group):
+   smollm-135m ``train_4k`` on the "cuda"-typed 16 x 16 mesh over a fake
+   group of 256 ranks, and the 1 x 1 record of phase 13's smollm 8 x
+   2048 train cell; the ``dryrun_mesh`` line, after phase 13: the 16 x
+   16 record's collectives by kind (count and bytes), argument, temp and
+   peak bytes per rank against 80 GiB, its top 3 collectives and its
+   seconds, the 1 x 1 record's argument bytes, which must equal
+   ``distributed_smollm``'s static state plus batch exactly, with no
+   collective, and the subprocess's wall and the seconds the smoke
+   waited for it after the build; a failed subprocess fails the smoke;
 13. distribution (``distributed``), on a freed card: the default process
    group started through NCCL at world size 1 (a file store; its
    seconds and ``torch.cuda.nccl.version()`` logged), a 1 x 1
@@ -432,7 +447,14 @@ SSM_FP32_SHARE = 0.1
 WKV_FP32_TOL = dict(atol=1e-4, rtol=1e-4)
 
 
+# every line but the kernels' summary carries ``t_s``, the seconds since
+# the smoke started: the phases' walls are their lines' differences
+_T0 = time.perf_counter()
+
+
 def log(obj) -> None:
+    if "kernels" not in obj:
+        obj = {**obj, "t_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -478,6 +500,11 @@ def graph_ms(torch, fn, reps: int = 20, replays: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (reps * replays)
+
+
+# the plain versions' timings: a few replays of two calls (each call is
+# 0.05-15 ms, far above a replay's overhead)
+PLAIN_REPS = dict(reps=2, replays=3)
 
 
 def graph_wall_ms(torch, fn, iters: int = 20) -> float:
@@ -630,7 +657,7 @@ def flash_cases(torch):
                 "kernel_call_ms": cuda_ms(torch, lambda: fa.flash_attention(
                     q, k, v, **kw)),
                 "plain_ms": graph_ms(torch, lambda: attention_ref(
-                    q, k, v, **kw)),
+                    q, k, v, **kw), **PLAIN_REPS),
                 "library_ms": graph_ms(
                     torch, lambda: F.scaled_dot_product_attention(
                         q, k, v, enable_gqa=True, **sdpa_kw)),
@@ -696,7 +723,7 @@ def paged_cases(torch):
                 "kernel_call_ms": cuda_ms(torch, lambda: pa.paged_attention(
                     *args, window=window)),
                 "plain_ms": graph_ms(torch, lambda: paged_attention_ref(
-                    *args, window=window)),
+                    *args, window=window), **PLAIN_REPS),
                 "library_ms": None,    # no one PyTorch call takes a block table
                 "bound_ms": bound_ms, "bound_by": bound_by})
             log(rows[-1])
@@ -757,7 +784,8 @@ def gmm_cases(torch):
                 "kernel_call_ms": cuda_ms(torch,
                                           lambda: mg.moe_gmm(x, w, counts)),
                 "plain_ms": graph_ms(torch,
-                                     lambda: moe_gmm_ref(x, w, counts)),
+                                     lambda: moe_gmm_ref(x, w, counts),
+                                     **PLAIN_REPS),
                 "library_ms": graph_ms(torch, lambda: torch.bmm(x, w)),
                 "bound_ms": bound_ms, "bound_by": bound_by}
             if counts is not None:
@@ -825,7 +853,7 @@ def rglru_cases(torch, floor_ms, shapes=RGLRU_SERVE_SHAPES):
                 "kernel_call_ms": cuda_ms(torch,
                                           lambda: rs.rglru_scan(a, x, h0)),
                 "plain_ms": graph_ms(torch, lambda: rglru_scan_ref(a, x, h0),
-                                     reps=2, replays=3),
+                                     **PLAIN_REPS),
                 "library_ms": None,    # no one PyTorch call scans a recurrence
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "bound_ratio": kernel_ms / bound_ms,
@@ -890,7 +918,7 @@ def wkv_cases(torch):
                 "kernel_call_ms": cuda_ms(torch,
                                           lambda: wk.rwkv6_wkv(*args)),
                 "plain_ms": graph_ms(torch, lambda: rwkv6_wkv_ref(*args),
-                                     reps=2, replays=3),
+                                     **PLAIN_REPS),
                 "library_ms": None,    # no one PyTorch call computes it
                 "bound_ms": bound_ms, "bound_by": bound_by})
             log(rows[-1])
@@ -1868,9 +1896,10 @@ def logits_kernel_vs_plain(torch, cfg, params, serving, tol):
                 "eager_ms": cuda_ms(torch, step, 20),
                 "device_ms": graph_ms(torch, step, 5),
                 "graph_wall_ms": graph_wall_ms(torch, step)}
+            # a prefill is 5-60 ms: a few calls time it
             timing["prefill_s200"][tree_name] = {
-                "eager_ms": cuda_ms(torch, pre200, 20),
-                "device_ms": graph_ms(torch, pre200, 5)}
+                "eager_ms": cuda_ms(torch, pre200, 5, warmup=2),
+                "device_ms": graph_ms(torch, pre200, 2, replays=3)}
         if cfg.family in ("encdec", "vlm"):
             # where the cast tree's device time goes, by kernel class
             # (eager calls: the kernels a graph replay runs)
@@ -2235,7 +2264,7 @@ def flash_bwd_cases(torch, cases=FLASH_BWD_CASES, expand_kv=False,
                     torch, lambda: fa.flash_attention_bwd(
                         *args, **kw), 10 if big else 50),
                 "plain_ms": graph_ms(torch, lambda: attention_bwd_ref(
-                    *args, **kw), reps=2, replays=3),
+                    *args, **kw), **PLAIN_REPS),
                 "library_ms": cuda_ms(torch, lambda: torch.autograd.grad(
                     so, leaves, do, retain_graph=True), 10, 2),
                 "library": f"SDPA backward ({backend}"
@@ -3244,7 +3273,7 @@ def gmm_bwd_cases(torch, part_fns, ptxas_report: str = ""):
                    "errs": errs, "tol": TOL[str(dtype)],
                    "kernel_ms": kernel_ms, "kernel_split_ms": split,
                    "plain_ms": graph_ms(torch, lambda: moe_gmm_bwd_ref(
-                       x, w, dy, counts), reps=2, replays=3),
+                       x, w, dy, counts), **PLAIN_REPS),
                    "library_ms": lib["dx"] + lib["dw"],
                    "library_dx_ms": lib["dx"], "library_dw_ms": lib["dw"],
                    "bound_ms": bound_ms, "bound_by": bound_by,
@@ -3277,7 +3306,7 @@ def gmm_bwd_cases(torch, part_fns, ptxas_report: str = ""):
                         "tol": TOL[str(dtype)], "kernel_ms": graph_ms(
                             torch, fcall),
                         "plain_ms": graph_ms(torch, lambda: moe_gmm_ref(
-                            x, w, counts), reps=2, replays=3),
+                            x, w, counts), **PLAIN_REPS),
                         "library_ms": graph_ms(torch,
                                                lambda: torch.bmm(x, w)),
                         "bound_ms": fb[0], "bound_by": fb[1]}
@@ -3543,7 +3572,7 @@ def measured_step(phase: str, cfg, b: int, s: int, step_s: float,
 # phase 12: the compile-time analysis of the training cells
 # ---------------------------------------------------------------------------
 
-def analysis(torch, cells):
+def analysis(torch, cells, counts):
     """The reference's compile-time analysis of each training cell the
     smoke ran (``cells``: ``measured_step``'s records), on the host, no
     step run: ``H100_SXM.hbm_bytes`` against the card's total memory
@@ -3555,9 +3584,10 @@ def analysis(torch, cells):
     kernel at its byte model), the one-H100 ``RooflineCell`` of them
     (t_compute, t_memory, t_lower_bound, t_ideal, the dominant term,
     useful_ratio, pg_overlap) and ``pg_measured`` = t_ideal / the
-    measured step.  A lower bound above the measured step fails: the
-    counts would not describe the step that ran."""
-    from repro_torch.core.costref import cost_reference
+    measured step.  The counts (``counts``: :func:`analysis_counts`'s,
+    made beside the build) must hold every cell.  A lower bound above
+    the measured step fails: the counts would not describe the step
+    that ran."""
     from repro_torch.core.flops import model_flops
     from repro_torch.core.roofline import RooflineCell
     from repro_torch.models.config import ShapeConfig
@@ -3577,9 +3607,11 @@ def analysis(torch, cells):
         cfg, b, s, step_s = m["cfg"], m["batch"], m["seq"], m["step_s"]
         shape = ShapeConfig("smoke_train", "train", s, b)
         mf = model_flops(cfg, shape)
-        t0 = time.perf_counter()
-        cost = cost_reference(cfg, shape, use_cache=False)
-        count_s = time.perf_counter() - t0
+        cost = counts.get(cell_key(cfg, b, s))
+        if cost is None:
+            raise AssertionError(f"analysis: no count of {m['phase']}'s "
+                                 f"cell (train_cells differs from it)")
+        count_s = cost["count_s"]
         cell = RooflineCell(arch=cfg.name, shape=shape.name, mesh="1",
                             chips=1, hlo_flops=cost["flops"],
                             hlo_bytes=cost["bytes"],
@@ -3617,6 +3649,146 @@ def analysis(torch, cells):
                 f"the step that ran")
     log({"phase": "analysis_total", "cells": len(cells),
          "seconds": time.perf_counter() - t_phase})
+
+
+# the host-only work that runs beside the build, in subprocesses that see
+# no card: each takes ~30 s on the card machine's host alone
+HOST_WORK_TIMEOUT = 600
+
+
+def start_host_work(fn: str):
+    """``chip_smoke.<fn>(out)`` started in a subprocess that sees no card
+    (``CUDA_VISIBLE_DEVICES`` empty), ``out`` a JSON file under
+    ``build/``: returns (process, out, start time)."""
+    import os
+
+    out = ROOT / "build" / f"{fn}.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.unlink(missing_ok=True)
+    proc = subprocess.Popen(
+        [sys.executable, "-c",
+         f"import chip_smoke; chip_smoke.{fn}({str(out)!r})"],
+        cwd=ROOT, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    return proc, out, time.perf_counter()
+
+
+def join_host_work(started) -> dict:
+    """Waits for a :func:`start_host_work` subprocess; returns what it
+    wrote, with its wall (``subprocess_s``) and the seconds waited for
+    it (``waited_s``).  Fails where it failed."""
+    proc, out, t0 = started
+    t_wait = time.perf_counter()
+    try:
+        rc = proc.wait(timeout=max(1.0, HOST_WORK_TIMEOUT - (t_wait - t0)))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if rc:
+        raise AssertionError(f"{out.stem}: the subprocess exited {rc}")
+    return {**json.loads(out.read_text()),
+            "subprocess_s": time.perf_counter() - t0,
+            "waited_s": time.perf_counter() - t_wait}
+
+
+def dryrun_mesh_records(out: str) -> None:
+    """Host work: the dry run's mesh records (the module note), as JSON
+    at ``out``."""
+    import torch
+
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.models.config import ShapeConfig
+
+    torch.set_num_threads(1)
+    recs = {"16x16": run_cell("smollm-135m", "train_4k", False, save=False),
+            "1x1": run_cell("smollm-135m", ShapeConfig(
+                "distributed_smollm", "train", TRAIN_SEQ, TRAIN_BATCH),
+                save=False, mesh_shape=(1, 1))}
+    Path(out).write_text(json.dumps(recs))
+
+
+def train_cells():
+    """The six training cells as phases 6-11 train them: (config, batch,
+    seq), smollm-135m at full width, the others at their published
+    widths with their phases' depth cuts."""
+    from repro_torch.configs import get_config
+
+    def cut(arch, n):
+        return dataclasses.replace(get_config(arch), num_layers=n)
+
+    return [(get_config("smollm-135m"), TRAIN_BATCH, TRAIN_SEQ),
+            (cut("deepseek-moe-16b", MOE_TRAIN_LAYERS), MOE_TRAIN_BATCH,
+             MOE_TRAIN_SEQ),
+            (cut("recurrentgemma-2b", HYBRID_TRAIN_LAYERS),
+             HYBRID_TRAIN_BATCH, HYBRID_TRAIN_SEQ),
+            (cut("rwkv6-3b", SSM_TRAIN_LAYERS), SSM_TRAIN_BATCH,
+             SSM_TRAIN_SEQ),
+            (get_config("whisper-medium"), ENCDEC_TRAIN_BATCH,
+             ENCDEC_TRAIN_SEQ),
+            (cut("llava-next-mistral-7b", VLM_TRAIN_LAYERS),
+             VLM_TRAIN_BATCH, VLM_TRAIN_SEQ)]
+
+
+def cell_key(cfg, b: int, s: int) -> str:
+    return f"{cfg!r} {b} x {s}"
+
+
+def analysis_counts(out: str) -> None:
+    """Host work: the cost reference's counts of the six training cells
+    (``cost_reference``, counted anew, each with its seconds), by
+    :func:`cell_key`, as JSON at ``out``; phase 12 reads them."""
+    import torch
+
+    from repro_torch.core.costref import cost_reference
+    from repro_torch.models.config import ShapeConfig
+
+    torch.set_num_threads(1)
+    counts = {cell_key(cfg, b, s): cost_reference(
+        cfg, ShapeConfig("smoke_train", "train", s, b), use_cache=False)
+        for cfg, b, s in train_cells()}
+    Path(out).write_text(json.dumps(counts))
+
+
+def dryrun_mesh(recs: dict, smollm_argument_bytes: int) -> None:
+    """Logs ``dryrun_mesh`` from the subprocess's records; fails where the
+    16 x 16 record lacks a collective or a temp size, or where the 1 x 1
+    record's argument bytes are not ``smollm_argument_bytes`` (phase
+    13's static state plus batch) or it shows a collective."""
+    mesh, one = recs["16x16"], recs["1x1"]
+    m, c = mesh["memory"], mesh["collectives"]
+    log({"phase": "dryrun_mesh", "arch": mesh["arch"],
+         "shape": mesh["shape"], "mesh": mesh["mesh"],
+         "chips": mesh["chips"], "mesh_device": "cuda",
+         "count_by_kind": c["count_by_kind"],
+         "bytes_by_kind": c["bytes_by_kind"],
+         "total_bytes": c["total_bytes"],
+         "argument_bytes": m["argument_bytes"],
+         "temp_bytes": m["temp_bytes"], "peak_bytes": m["peak_bytes"],
+         "hbm_per_chip": m["hbm_per_chip"],
+         "peak_share_of_hbm": m["peak_bytes"] / m["hbm_per_chip"],
+         "flops_once": mesh["cost"]["flops_once"],
+         "bytes_once": mesh["cost"]["bytes_once"],
+         "top_collectives": mesh["top_collectives"][:3],
+         "lower_s": mesh["lower_s"], "compile_s": mesh["compile_s"],
+         "one_by_one": {"shape": one["shape"],
+                        "argument_bytes": one["memory"]["argument_bytes"],
+                        "phase13_state_batch_bytes": smollm_argument_bytes,
+                        "count_by_kind": one["collectives"]["count_by_kind"],
+                        "peak_bytes": one["memory"]["peak_bytes"],
+                        "compile_s": one["compile_s"]},
+         "subprocess_s": recs["subprocess_s"],
+         "waited_s": recs["waited_s"]})
+    if not c["count_by_kind"] or m["temp_bytes"] is None:
+        raise AssertionError(f"dryrun_mesh: the 16 x 16 record has no "
+                             f"collectives or no temp size: {mesh}")
+    if one["memory"]["argument_bytes"] != smollm_argument_bytes:
+        raise AssertionError(
+            f"dryrun_mesh: the 1 x 1 record's argument bytes "
+            f"{one['memory']['argument_bytes']} are not phase 13's smollm "
+            f"state plus batch, {smollm_argument_bytes}")
+    if one["collectives"]["count_by_kind"]:
+        raise AssertionError(f"dryrun_mesh: the 1 x 1 record issues "
+                             f"{one['collectives']['count_by_kind']}")
 
 
 # ---------------------------------------------------------------------------
@@ -3966,6 +4138,7 @@ def sharded_vs_train_step(torch, cfg, b: int, s: int, mesh, phase: str):
     (replays counted): both steps', and the sharded step's alone."""
     import numpy as np
 
+    from repro_torch.launch.dryrun import tree_bytes
     from repro_torch.launch.strategy import (ShardedTrainStep, TrainStep,
                                              init_train_state)
     from repro_torch.optim import AdamWConfig
@@ -4017,6 +4190,8 @@ def sharded_vs_train_step(torch, cfg, b: int, s: int, mesh, phase: str):
                "losses": [float(x["loss"]) for x in metrics]}
         if kind == "sharded":
             c = st.collectives
+            row["argument_bytes"] = tree_bytes(st.state) + tree_bytes(
+                st.batch)
             row["collectives"] = {
                 "count_by_kind": c.stats().count_by_kind,
                 "bytes_by_kind": c.stats().bytes_by_kind,
@@ -4058,7 +4233,7 @@ def sharded_vs_train_step(torch, cfg, b: int, s: int, mesh, phase: str):
         raise AssertionError(f"{phase}: no all-to-all in the EP step's "
                              f"collectives {kinds}")
     del seen, s0
-    return launches, own["sharded"]
+    return launches, own["sharded"], row_s["argument_bytes"]
 
 
 # the sharded serving cells: 8 prompts of 200 tokens into a 264-slot
@@ -4501,7 +4676,9 @@ def distributed_serve(torch, mesh, cells):
 def distributed(torch, train_cells, serve_cells):
     """Phase 13 (the module note): the training cells ((cfg, batch, seq,
     phase) each) and the serving sub-phase (``serve_cells``, (cfg, phase)
-    each) on a 1 x 1 mesh through NCCL; returns the launches made."""
+    each) on a 1 x 1 mesh through NCCL; returns the launches made and
+    each training cell's sharded argument bytes (its static state plus
+    batch, by phase)."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import init_distributed, make_dev_mesh
@@ -4521,9 +4698,10 @@ def distributed(torch, train_cells, serve_cells):
              "at_start_gb": {
                  "allocated": torch.cuda.memory_allocated() / 1e9,
                  "reserved": torch.cuda.memory_reserved() / 1e9}})
-        launches, sharded = {}, {}
+        launches, sharded, arg_bytes = {}, {}, {}
         for cfg, b, s, phase in train_cells:
-            both, own = sharded_vs_train_step(torch, cfg, b, s, mesh, phase)
+            both, own, arg_bytes[phase] = sharded_vs_train_step(
+                torch, cfg, b, s, mesh, phase)
             for k, n in both.items():
                 launches[k] = launches.get(k, 0) + n
             for k, n in own.items():
@@ -4545,7 +4723,7 @@ def distributed(torch, train_cells, serve_cells):
         # unlaunched
         if done:
             dist.destroy_process_group()
-    return launches
+    return launches, arg_bytes
 
 
 def main() -> int:
@@ -4567,16 +4745,25 @@ def main() -> int:
          "device": torch.cuda.get_device_name(0),
          "count": torch.cuda.device_count()})
     t_start = t0 = time.perf_counter()
+    # phase 12's host work, beside the build on the host cores it leaves
+    # idle, joined before any timed phase
+    host_work = [start_host_work("dryrun_mesh_records"),
+                 start_host_work("analysis_counts")]
     part_builds = start_gmm_bwd_part_builds()
     try:
         reports = _build.build()
     except BaseException:
-        for proc, _ in part_builds.values():
+        for proc, *_ in [*part_builds.values(), *host_work]:
             proc.kill()
             proc.wait()
         raise
     gmm_bwd_parts = gmm_bwd_part_entries(part_builds)
-    log({"phase": "build", "seconds": time.perf_counter() - t0,
+    build_s = time.perf_counter() - t0
+    dry_recs, counts = (join_host_work(w) for w in host_work)
+    log({"phase": "build", "seconds": build_s,
+         "host_work": {w: {k: r[k] for k in ("subprocess_s", "waited_s")}
+                       for w, r in (("dryrun_mesh_records", dry_recs),
+                                    ("analysis_counts", counts))},
          "ptxas": {k: [ln.strip() for ln in v.splitlines()
                        if "Used" in ln or "spill" in ln]
                    for k, v in reports.items()}})
@@ -4838,13 +5025,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # phase 12: the compile-time analysis of the six training cells
+    # phase 12: the compile-time analysis of the six training cells (its
+    # counts and the dry run's mesh records were made beside the build)
     analysis(torch, [m_train, m_train_moe, m_train_hyb, m_train_ssm,
-                     m_train_encdec, m_train_vlm])
+                     m_train_encdec, m_train_vlm], counts)
 
     # phase 13: the sharded steps through NCCL at world size 1
     bf16_params = {"param_dtype": torch.bfloat16}
-    c_dist = distributed(torch, (
+    c_dist, dist_arg_bytes = distributed(torch, (
         (cfg, TRAIN_BATCH, TRAIN_SEQ, "distributed_smollm"),
         (dataclasses.replace(dst, moe_impl="ep"), MOE_TRAIN_BATCH,
          MOE_TRAIN_SEQ, "distributed_deepseek_ep"),
@@ -4868,6 +5056,7 @@ def main() -> int:
          "distributed_serve_whisper"),
         (dataclasses.replace(ll, **bf16_params),
          "distributed_serve_llava")))
+    dryrun_mesh(dry_recs, dist_arg_bytes["distributed_smollm"])
 
     # the summary: the main paths' shapes and dtypes (bf16 flash at the
     # longest smollm prompt, bf16 paged at smollm's mixed batch, the bf16

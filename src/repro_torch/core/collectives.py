@@ -6,7 +6,9 @@ each by the trip counts of its enclosing loops; the port's layer stacks
 are Python loops, so :class:`CollectiveCounter`, a ``TorchDispatchMode``,
 sees every collective a step issues as it runs: the ``_c10d_functional``
 ops that DTensor redistributions and ``local_map`` bodies issue, and the
-``c10d`` ops of direct calls (a ring's sends).  Each is recorded under
+``c10d`` ops of direct calls (a ring's sends), and DTensor's own
+all-to-all of a re-split (``_dtensor::shard_dim_alltoall``, on a CUDA
+mesh; a CPU mesh gathers instead).  Each is recorded under
 the reference's kind names with the reference's byte rule
 (``hlo_analysis._operand_bytes``): an all-gather counts its input, a
 reduce-scatter its full input, the other kinds their operand.  A
@@ -20,8 +22,8 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import threading
-from collections import defaultdict
-from typing import Dict, List
+from collections import Counter, defaultdict
+from typing import Dict, List, Optional
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -37,6 +39,8 @@ _KINDS = {
     "_c10d_functional::all_reduce_coalesced": "all-reduce",
     "_c10d_functional::all_to_all_single": "all-to-all",
     "_c10d_functional_autograd::all_to_all_single": "all-to-all",
+    # DTensor's Shard(i) -> Shard(j) on a CUDA mesh
+    "_dtensor::shard_dim_alltoall": "all-to-all",
     "c10d::allgather_": "all-gather",
     "c10d::_allgather_base_": "all-gather",
     "c10d::allreduce_": "all-reduce",
@@ -125,6 +129,20 @@ class CollectiveCounter(TorchDispatchMode):
         return CollectiveStats(dict(by_bytes), dict(by_count))
 
     def top(self, n: int = 10) -> List[dict]:
-        """The n largest collectives by bytes (the reference's
-        ``top_collectives``: each once, as the port has no trip counts)."""
+        """The n largest collectives by bytes, each record once."""
         return sorted(self.records, key=lambda r: -r["bytes"])[:n]
+
+    def top_grouped(self, n: Optional[int] = 8) -> List[dict]:
+        """The reference's ``top_collectives`` records: identical
+        collectives (kind, bytes, region) grouped, ``trips`` the times
+        the step issued one (where the reference multiplies by its loop
+        trips), ``bytes_total`` = trips x ``bytes_once``, ``op_name``
+        the region; the n largest by ``bytes_total`` (all with None),
+        ties in issue order."""
+        trips = Counter((r["kind"], r["bytes"], r["name"])
+                        for r in self.records)
+        out = [{"kind": k, "bytes_once": b, "trips": t,
+                "bytes_total": b * t, "op_name": name}
+               for (k, b, name), t in trips.items()]
+        out.sort(key=lambda r: -r["bytes_total"])
+        return out if n is None else out[:n]

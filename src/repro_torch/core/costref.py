@@ -67,9 +67,10 @@ from typing import Dict, List, Tuple
 from unittest import mock
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
-from torch.utils.flop_counter import FlopCounterMode
+from torch.utils.flop_counter import FlopCounterMode, flop_registry
 
 from repro_torch.core.roofline import fit_poly_and_eval
 from repro_torch.models import model
@@ -87,12 +88,22 @@ _SCAN_FAMILIES = ("hybrid", "ssm")
 _SCAN_SEQ_POINTS = (16, 32, 48)
 
 
+def in_sharding_propagation() -> bool:
+    """Whether the op a dispatch mode sees is one DTensor's sharding
+    propagation runs on fake tensors to find an output's shape: no rank
+    runs it.  (The modes here return ``NotImplemented`` for a DTensor op
+    and see the local ops DTensor runs for it, each rank's.)"""
+    return torch._C._get_dispatch_mode(
+        torch._C._TorchDispatchModeKey.FAKE) is not None
+
+
 class ByteCounter(TorchDispatchMode):
     """Sums the bytes of every tensor each non-view aten op reads or
     writes (inputs and outputs, ``empty`` allocations left out): the
     unfused byte count of what runs under it.  A gather counts its whole
     source (an embedding lookup, the table).  A function wrapped by
-    :meth:`as_kernel` counts as one op."""
+    :meth:`as_kernel` counts as one op.  A DTensor op counts as the
+    local ops this rank runs for it: a rank's bytes on a mesh."""
 
     def __init__(self):
         super().__init__()
@@ -100,9 +111,12 @@ class ByteCounter(TorchDispatchMode):
         self._in_kernel = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
         out = func(*args, **(kwargs or {}))
         if (not self._in_kernel and not func.is_view
-                and func.overloadpacket not in _NO_TRAFFIC):
+                and func.overloadpacket not in _NO_TRAFFIC
+                and not in_sharding_propagation()):
             self.bytes += _tensor_bytes((args, kwargs, out))
         return out
 
@@ -121,6 +135,27 @@ class ByteCounter(TorchDispatchMode):
                 self.bytes += _tensor_bytes((args, kwargs, out))
             return out
         return kernel
+
+
+class LocalFlops(TorchDispatchMode):
+    """``FlopCounterMode``'s count (its formulas, ``flop_registry``) of
+    the ops run under it, a DTensor op as the local ops this rank runs
+    for it: a rank's flops on a mesh, FlopCounterMode's total on plain
+    tensors."""
+
+    def __init__(self):
+        super().__init__()
+        self.flops = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        formula = flop_registry.get(func.overloadpacket)
+        if formula is not None and not in_sharding_propagation():
+            self.flops += formula(*args, **kwargs, out_val=out)
+        return out
 
 
 _NO_TRAFFIC = (torch.ops.aten.empty, torch.ops.aten.empty_strided,

@@ -24,6 +24,12 @@ encoder, self- and cross-attention on each rank's heads
 (``repro_torch.models.whisper``), the vlm's patches split with its
 tokens' batch.
 
+:func:`lower_cell` is the reference's ``lower_cell``: one cell's step
+function, the one each sharded step runs, over its arguments as
+``meta`` DTensors on a mesh (each rank's block only, nothing allocated:
+the dry run's ``repro_torch.launch.dryrun`` runs it on a fake process
+group), and the cell's :class:`ParallelCtx`.
+
 Mixed precision as the reference's: the loss is differentiated with
 respect to compute-dtype copies of every fp32 parameter with more than
 one dimension (``p.detach().to(compute_dtype).requires_grad_()``, the
@@ -41,7 +47,7 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.core.collectives import CollectiveCounter, region
 from repro_torch.models import model
@@ -439,15 +445,47 @@ def _whole(t) -> torch.Tensor:
     return t.full_tensor() if isinstance(t, DTensor) else t
 
 
-def _prefill_in_place(pfn: Callable, bufs: Dict[str, Any]) -> None:
-    logits, cache = pfn(bufs["params"], bufs["batch"])
-    bufs["logits"].copy_(_whole(logits))
+def sharded_prefill_fn(cfg: ModelConfig, mesh: DeviceMesh,
+                       max_len: int = 0) -> Callable:
+    """f(params, batch) -> (logits, cache): ``model.prefill_fn(cfg,
+    max_len)`` with its logits whole on every rank and its cache placed
+    by ``cache_placements``, as :class:`ShardedPrefillStep` keeps them."""
+    pfn = model.prefill_fn(cfg, max_len)
+
+    def place(t, parts):
+        plc = shlib.placements(parts, mesh)
+        if isinstance(t, DTensor):
+            return t.redistribute(mesh, plc)
+        return DTensor.from_local(shlib.local_slice(t, plc, mesh), mesh,
+                                  plc, run_check=False, shape=t.shape,
+                                  stride=t.stride())
+
+    def step(params, batch):
+        logits, cache = pfn(params, batch)
+        return _whole(logits), tree_map(
+            place, cache, shlib.cache_placements(cfg, cache, mesh))
+
+    return step
+
+
+def sharded_decode_fn(cfg: ModelConfig) -> Callable:
+    """f(params, token, cache) -> logits: ``model.decode_inplace_fn``
+    (the cache updated in place, the reference's donated cache) with
+    its logits whole on every rank, as :class:`ShardedDecodeStep`
+    keeps them."""
+    dfn = model.decode_inplace_fn(cfg)
+    return lambda params, token, cache: _whole(dfn(params, token, cache))
+
+
+def _prefill_in_place(step: Callable, bufs: Dict[str, Any]) -> None:
+    logits, cache = step(bufs["params"], bufs["batch"])
+    bufs["logits"].copy_(logits)
     _load(bufs["cache"], cache, "cache")
 
 
-def _decode_in_place(dfn: Callable, bufs: Dict[str, Any]) -> None:
-    bufs["logits"].copy_(_whole(dfn(bufs["params"], bufs["token"],
-                                    bufs["cache"])))
+def _decode_in_place(step: Callable, bufs: Dict[str, Any]) -> None:
+    bufs["logits"].copy_(step(bufs["params"], bufs["token"],
+                              bufs["cache"]))
 
 
 def _placed_cache(cfg: ModelConfig, mesh: DeviceMesh, batch: int,
@@ -496,7 +534,7 @@ class ShardedPrefillStep:
         counters: list = []
         self.graph = StepGraph(
             functools.partial(_sharded_step, functools.partial(
-                _prefill_in_place, model.prefill_fn(cfg, max_len)),
+                _prefill_in_place, sharded_prefill_fn(cfg, mesh, max_len)),
                 self.ctx, counters),
             {"params": self.params, "batch": self.batch,
              "cache": self.cache, "logits": self.logits},
@@ -551,7 +589,7 @@ class ShardedDecodeStep:
         counters: list = []
         self.graph = StepGraph(
             functools.partial(_sharded_step, functools.partial(
-                _decode_in_place, model.decode_inplace_fn(cfg)),
+                _decode_in_place, sharded_decode_fn(cfg)),
                 self.ctx, counters),
             {"params": self.params, "token": self.token,
              "cache": self.cache, "logits": self.logits},
@@ -576,3 +614,64 @@ class ShardedDecodeStep:
         _load({"token": self.token}, {"token": token}, "token")
         self.graph()
         return self.logits
+
+
+# ---------------------------------------------------------------------------
+# the dry run's lowering: a cell's step over meta DTensors
+# ---------------------------------------------------------------------------
+
+def local_block(t: torch.Tensor, plc, mesh: DeviceMesh,
+                device="meta") -> DTensor:
+    """A DTensor of ``t``'s shape and dtype and placements ``plc`` whose
+    local tensor is this rank's block of zeros only, on ``device``
+    (``meta``: nothing allocated).  A dim split over n ranks keeps
+    ``torch.chunk``'s block, the larger where n does not divide it (as
+    XLA pads); no full tensor is made anywhere."""
+    shape = list(t.shape)
+    for i, p in enumerate(plc):
+        if isinstance(p, Shard):
+            n, r, size = mesh.size(i), mesh.get_local_rank(i), shape[p.dim]
+            c = -(-size // n)
+            shape[p.dim] = max(0, min(size, (r + 1) * c) - r * c)
+    return DTensor.from_local(torch.zeros(shape, dtype=t.dtype,
+                                          device=device),
+                              mesh, tuple(plc), run_check=False,
+                              shape=t.shape, stride=t.stride())
+
+
+def lower_cell(cfg: ModelConfig, shape: ShapeConfig, mesh: DeviceMesh,
+               rules=None, device="meta"):
+    """The reference's ``lower_cell``: (step, args, ctx) of one cell, the
+    step to be called as ``step(*args)`` under ``parallel_ctx(ctx)``.
+    The step is the one each sharded step runs: train,
+    :func:`make_train_step` over the state placed by
+    :func:`train_state_shardings` and the batch by ``batch_placements``
+    (:class:`ShardedTrainStep`); prefill, :func:`sharded_prefill_fn`
+    over the params placed by ``param_placements`` and the batch
+    (:class:`ShardedPrefillStep`); decode, :func:`sharded_decode_fn`
+    over the params, the token and the cache placed by
+    ``cache_placements`` (:class:`ShardedDecodeStep`).  Every argument
+    leaf is a :func:`local_block` on ``device``."""
+    def placed(tree, parts):
+        return tree_map(lambda t, pt: local_block(
+            t, shlib.placements(pt, mesh), mesh, device), tree, parts)
+
+    specs = model.input_specs(cfg, shape)
+    ctx = make_ctx(cfg, mesh)
+    if shape.kind == "train":
+        state = tree_map(lambda t, plc: local_block(t, plc, mesh, device),
+                         abstract_train_state(cfg),
+                         train_state_shardings(cfg, mesh, rules))
+        batch = placed(specs, shlib.batch_placements(specs, mesh))
+        return make_train_step(cfg, AdamWConfig()), (state, batch), ctx
+    params = tree_map(lambda t, plc: local_block(t, plc, mesh, device),
+                      abstract_params(cfg),
+                      shlib.param_placements(cfg, mesh, rules))
+    if shape.kind == "prefill":
+        batch = placed(specs, shlib.batch_placements(specs, mesh))
+        return sharded_prefill_fn(cfg, mesh), (params, batch), ctx
+    tok = {"token": specs["token"]}
+    token = placed(tok, shlib.batch_placements(tok, mesh))["token"]
+    cache = placed(specs["cache"],
+                   shlib.cache_placements(cfg, specs["cache"], mesh))
+    return sharded_decode_fn(cfg), (params, token, cache), ctx

@@ -80,10 +80,29 @@ def seq_whole(x):
     return x.redistribute(x.device_mesh, plc)
 
 
+class SeqWholeGrad(torch.autograd.Function):
+    """The identity whose backward is :func:`seq_whole`: a product's
+    output cotangent, split on the sequence where the product's consumer
+    (the residual add of a sequence-parallel block) put it, is gathered
+    there before the product's backward flattens (b, s) into rows.
+    DTensor cannot view two split dims as one on every torch version
+    (2.11 refuses the flatten), so the gather is made explicit."""
+
+    @staticmethod
+    def forward(ctx, y):
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return seq_whole(g)
+
+
 def dense(x, w, b=None):
     """x @ w in compute dtype with fp32 accumulation; under a context
     with ``bf16_grad``, a 2-D weight already in x's dtype goes through
-    :class:`DenseBf16Grad`."""
+    :class:`DenseBf16Grad`.  A DTensor ``x`` is multiplied with its
+    sequence whole (:func:`seq_whole`), and the product's gradient
+    arrives so (:class:`SeqWholeGrad`)."""
     ctx = get_ctx()
     if isinstance(x, DTensor) and x.dim() > 2:
         x = seq_whole(x)
@@ -92,6 +111,8 @@ def dense(x, w, b=None):
         y = DenseBf16Grad.apply(x, w)
     else:
         y = torch.matmul(x, w.to(x.dtype))
+    if isinstance(y, DTensor) and y.dim() > 2:
+        y = SeqWholeGrad.apply(y)
     if b is not None:
         y = y + b.to(y.dtype)
     return y

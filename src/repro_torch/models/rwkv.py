@@ -104,6 +104,21 @@ def _wkv_blocks(r, k, v, logw, u, s0=None, *, impl: str = "auto"):
                          args, in_plc, (plc, s_plc), grads)
 
 
+def _wkv_step_blocks(r, k, v, w, u, s):
+    """One decode token's WKV (``wkv_step``) of DTensors r, k, v, w
+    (b, h, n), u (h, n) and the state s (b, h, n, n) on each rank's rows
+    and heads: the einsums over DTensors would flatten a batch split and
+    a head split into one dim, which some torch versions refuse (2.11);
+    returns (o, new state) DTensors split as r."""
+    mesh = r.device_mesh
+    plc = tuple(r.placements)
+    u_plc = tuple(Shard(0) if q == Shard(1) else Replicate() for q in plc)
+    with region("rwkv6_wkv"):
+        return run_local(wkv_step, mesh,
+                         (r, k, v, w, u.redistribute(mesh, u_plc), s),
+                         [plc] * 4 + [u_plc, plc], (plc, plc))
+
+
 def time_mix(x, p, cfg: ModelConfig, state=None, scan_impl: str = "auto"):
     """RWKV6 attention replacement. x: (b, s, d).
 
@@ -131,8 +146,9 @@ def time_mix(x, p, cfg: ModelConfig, state=None, scan_impl: str = "auto"):
 
     u = p["bonus"].float()
     if s == 1 and state is not None:
-        o, s1 = wkv_step(r[:, 0], k[:, 0], v[:, 0], torch.exp(logw)[:, 0], u,
-                         state["s"])
+        step = _wkv_step_blocks if isinstance(r, DTensor) else wkv_step
+        o, s1 = step(r[:, 0], k[:, 0], v[:, 0], torch.exp(logw)[:, 0], u,
+                     state["s"])
         o = o[:, None]
     else:
         wkv = _wkv_blocks if isinstance(r, DTensor) else rwkv6_wkv

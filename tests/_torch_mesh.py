@@ -7,7 +7,9 @@ module and pickles what it returns.  The reference's side runs in one
 subprocess with 4 host devices (``--xla_force_host_platform_device_count``)
 on a (2, 2) mesh of ``AxisType.Auto`` axes that the harness builds
 itself: the reference's own ``make_dev_mesh`` makes ``Explicit`` axes on
-this jax, on which its ``shard_activation`` raises.
+this jax, on which its ``shard_activation`` raises.  A test that needs
+another mesh gives the subprocess more host devices (``devices``) and
+takes the mesh's from the front.
 """
 from __future__ import annotations
 
@@ -22,28 +24,52 @@ WORLD = 4
 
 
 def auto_mesh(shape=(2, 2), names=("data", "model")):
-    """The reference's 2 x 2 mesh with Auto axes (reference side only)."""
+    """The reference's 2 x 2 mesh with Auto axes (reference side only),
+    or one of ``shape`` over the first of the host devices."""
+    import math
+
     import jax
     from jax.sharding import AxisType
 
     return jax.make_mesh(shape, names,
-                         axis_types=(AxisType.Auto,) * len(shape))
+                         axis_types=(AxisType.Auto,) * len(shape),
+                         devices=jax.devices()[:math.prod(shape)])
 
 
-def run_reference(module: str, fn: str, out: pathlib.Path,
-                  timeout: int = 600):
-    """``module.fn(out)`` in a subprocess with 4 host devices; returns
-    what it pickled at ``out``."""
+def start_subprocess(module: str, fn: str, out: pathlib.Path,
+                     devices: int = WORLD) -> subprocess.Popen:
+    """``module.fn(out)`` started in a subprocess with ``devices`` host
+    devices; :func:`finish` waits for it."""
     env = dict(os.environ,
-               XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               XLA_FLAGS=f"--xla_force_host_platform_device_count={devices}",
                JAX_PLATFORMS="cpu",
                PYTHONPATH=os.pathsep.join(
                    [str(ROOT / "src"), str(ROOT), str(ROOT / "tests")]))
-    subprocess.run([sys.executable, "-c",
-                    f"import {module} as m; m.{fn}({str(out)!r})"],
-                   env=env, check=True, timeout=timeout, cwd=ROOT)
+    return subprocess.Popen([sys.executable, "-c",
+                             f"import {module} as m; m.{fn}({str(out)!r})"],
+                            env=env, cwd=ROOT)
+
+
+def finish(proc: subprocess.Popen, out: pathlib.Path, timeout: int = 600):
+    """Wait for ``proc`` (killed past ``timeout``), check its exit code
+    and return what it pickled at ``out``."""
+    try:
+        rc = proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if rc:
+        raise subprocess.CalledProcessError(rc, proc.args)
     with open(out, "rb") as f:
         return pickle.load(f)
+
+
+def run_reference(module: str, fn: str, out: pathlib.Path,
+                  timeout: int = 600, devices: int = WORLD):
+    """``module.fn(out)`` in a subprocess with ``devices`` (4) host
+    devices; returns what it pickled at ``out``."""
+    return finish(start_subprocess(module, fn, out, devices), out, timeout)
 
 
 def save(obj, path) -> None:

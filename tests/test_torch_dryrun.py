@@ -142,7 +142,8 @@ def test_fits_against_the_h100():
 
 def test_cli_exits_zero_on_one_cell(capsys):
     with pytest.raises(SystemExit) as e:
-        dryrun.main(["--arch", "smollm-135m", "--shape", "decode_32k"])
+        dryrun.main(["--arch", "smollm-135m", "--shape", "decode_32k",
+                     "--one-device"])
     assert e.value.code == 0
     lines = [ln for ln in capsys.readouterr().out.splitlines() if ln]
     ok = [ln for ln in lines if ln.startswith("OK")]

@@ -28,7 +28,13 @@ decode steps, fp32:
   ``decode_attention``;
 * at world size 1 (a gloo group in this process) both steps, sharing
   the caller's parameter tensors, equal the unsharded prefill and 2 decode
-  steps bit for bit.
+  steps bit for bit;
+* mixtral-8x7b SMOKE: its decode cache is a 16-slot window ring, split
+  8 slots a model rank;
+* rank 0's counted collectives of the prefill and of one decode step,
+  count and bytes by kind, equal the dry run's records of the same
+  cells (``repro_torch.launch.dryrun`` on a "cpu"-typed fake 2 x 2 mesh,
+  made in the reference's subprocess).
 """
 from __future__ import annotations
 
@@ -45,8 +51,10 @@ CASES = {
     "smollm": ("smollm-135m", {}),
     "deepseek": ("deepseek-moe-16b", {}),
     "deepseek_ep": ("deepseek-moe-16b", {"moe_impl": "ep"}),
+    # a 16-slot window ring in the sequence-sharded decode cache
+    "mixtral": ("mixtral-8x7b", {}),
 }
-DECODE = ("smollm", "deepseek")     # the EP decode is refused
+DECODE = ("smollm", "deepseek", "mixtral")     # the EP decode is refused
 TOL = dict(atol=1e-5, rtol=1e-5)
 B, S, STEPS = 4, 32, 4
 MAX_LEN = S + 64                     # the reference's default cache
@@ -110,7 +118,35 @@ def reference(out):
                 res[case, "logits"].append(np.asarray(logits))
         res[case, "tokens"] = toks
         res[case, "cache"] = jax.tree.map(np.asarray, cache)
+    res["dryrun"] = _dryrun_records()
     save(res, out)
+
+
+def _dryrun_records():
+    """The dry run's collectives (count and bytes by kind) of each case's
+    prefill and decode cells on a "cpu"-typed fake 2 x 2 mesh: the plan
+    the gloo ranks run."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import dryrun
+    from repro_torch.models.config import ShapeConfig
+
+    out = {}
+    for case in CASES:
+        cfg = _cfg(get_smoke, case)
+        cells = [("prefill", S)] + ([("decode", MAX_LEN)]
+                                    if case in DECODE else [])
+        for kind, seq in cells:
+            c = dryrun.run_cell(cfg.name, ShapeConfig(kind, kind, seq, B),
+                                save=False, cfg_override=cfg,
+                                mesh_shape=(2, 2),
+                                mesh_device="cpu")["collectives"]
+            out[case, kind] = (c["count_by_kind"], c["bytes_by_kind"])
+    return out
+
+
+def _kinds(counter):
+    stats = counter.stats()
+    return stats.count_by_kind, stats.bytes_by_kind
 
 
 def _placements(tree):
@@ -147,7 +183,8 @@ def port(rank, mesh, ref):
              "local_shapes": tree_map(lambda t: tuple(t.to_local().shape),
                                       pre.cache),
              "local_bytes": shlib.local_bytes(pre.params),
-             "want_bytes": shlib.sharded_param_bytes(cfg, mesh)}
+             "want_bytes": shlib.sharded_param_bytes(cfg, mesh),
+             "kinds": {"prefill": _kinds(pre.collectives)}}
         res[case] = r
         if case not in DECODE:
             try:
@@ -159,6 +196,7 @@ def port(rank, mesh, ref):
         dec = strategy.ShardedDecodeStep(cfg, mesh, params, B, MAX_LEN,
                                          "eager")
         r["records"] = _records(dec.collectives)
+        r["kinds"]["decode"] = _kinds(dec.collectives)
         r["softmax_records"] = _records(dec.collectives, "decode_attention")
         dec.load_cache(pre.cache)
         ptrs = [t.to_local().data_ptr() for t in flatten(dec.cache)[0]]
@@ -276,7 +314,9 @@ def test_each_rank_holds_its_blocks(results, case):
     _, ranks = results
     cfg = _cfg(get_smoke, case)
     n = cfg.num_layers - cfg.first_k_dense
-    kv = (B // 2, MAX_LEN // 2, cfg.num_kv_heads, cfg.head_dim)
+    # the 96 slots, or a window's ring of fewer (mixtral's 16)
+    slots = min(cfg.attention_window or MAX_LEN, MAX_LEN)
+    kv = (B // 2, slots // 2, cfg.num_kv_heads, cfg.head_dim)
     for r in ranks:
         shapes = r[case]["local_shapes"]
         assert shapes["blocks"]["k"] == (n, *kv)   # (3, 2, 48, 1, 16)
@@ -300,6 +340,19 @@ def test_decode_step_counts_the_split_softmax(results, case):
     for r in ranks:
         assert r[case]["softmax_records"] == want
         assert len(r[case]["records"]) > len(want)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_collectives_equal_the_dry_run_records(results, case):
+    # the record is rank 0's: the second model rank's decode step
+    # gathers smaller blocks where a dim does not split evenly over the
+    # two (768 B less for smollm, 1024 B for deepseek and mixtral)
+    ref, ranks = results
+    kinds = ranks[0][case]["kinds"]
+    assert set(kinds) == ({"prefill", "decode"} if case in DECODE
+                          else {"prefill"})
+    for kind, got in kinds.items():
+        assert got == ref["dryrun"][case, kind], kind
 
 
 @pytest.mark.parametrize("case", DECODE)

@@ -30,7 +30,13 @@ steps from the reference's initial state on the same (4, 32) batches:
   divide: the "logits" kind keeps the vocab whole (split on the batch
   only), so the loss and the step match the reference; on fixed logits
   at V = 127 the sharded ``softmax_xent`` equals the plain one, and
-  ``_xent_sharded`` refuses logits whose vocab is split unevenly.
+  ``_xent_sharded`` refuses logits whose vocab is split unevenly;
+* mixtral-8x7b SMOKE, with the default ``moe_impl`` and with "ep": a
+  MoE with no shared experts and no dense first layer, every layer
+  windowed (16 slots);
+* each rank's counted collectives, count and bytes by kind, equal the
+  dry run's record of the same cell (``repro_torch.launch.dryrun`` on a
+  "cpu"-typed fake 2 x 2 mesh, made in the reference's subprocess).
 """
 from __future__ import annotations
 
@@ -51,6 +57,9 @@ CASES = {
     # an odd vocab (129), which the model axis does not divide: the
     # logits keep it whole
     "granite": ("granite-3-8b", {}),
+    # no shared experts, no dense first layer, a 16-slot window
+    "mixtral": ("mixtral-8x7b", {}),
+    "mixtral_ep": ("mixtral-8x7b", {"moe_impl": "ep"}),
 }
 TOL = dict(atol=1e-5, rtol=1e-5)
 PARAM_ATOL = 1e-4
@@ -91,7 +100,25 @@ def reference(out):
                 losses.append(float(m["loss"]))
         res[case, "losses"] = losses
         res[case, "state"] = jax.tree.map(np.asarray, state)
+    res["dryrun"] = _dryrun_records()
     save(res, out)
+
+
+def _dryrun_records():
+    """Each case's dry-run collectives (count and bytes by kind) on a
+    "cpu"-typed fake 2 x 2 mesh: the plan the gloo ranks run."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import dryrun
+    from repro_torch.models.config import ShapeConfig
+
+    out = {}
+    for case in CASES:
+        cfg = _cfg(get_smoke, case)
+        c = dryrun.run_cell(cfg.name, ShapeConfig("t", "train", S, B),
+                            save=False, cfg_override=cfg, mesh_shape=(2, 2),
+                            mesh_device="cpu")["collectives"]
+        out[case] = (c["count_by_kind"], c["bytes_by_kind"])
+    return out
 
 
 def port(rank, mesh, ref):
@@ -117,6 +144,7 @@ def port(rank, mesh, ref):
             "local_bytes": local_bytes(st.state["params"]),
             "want_bytes": sharded_param_bytes(cfg, mesh),
             "kinds": st.collectives.stats().count_by_kind,
+            "bytes": st.collectives.stats().bytes_by_kind,
         }
         if case == "smollm" and rank == 0:
             step = strategy.make_train_step(cfg, AdamWConfig())
@@ -229,8 +257,15 @@ def test_counter_sees_gathers_and_reductions(results, case):
     kinds = ranks[0][case]["kinds"]
     assert kinds.get("all-gather", 0) > 0
     assert kinds.get("reduce-scatter", 0) + kinds.get("all-reduce", 0) > 0
-    if case == "deepseek_ep":
+    if case.endswith("_ep"):
         assert kinds.get("all-to-all", 0) > 0
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_collectives_equal_the_dry_run_record(results, case):
+    ref, ranks = results
+    for r in ranks:
+        assert (r[case]["kinds"], r[case]["bytes"]) == ref["dryrun"][case]
 
 
 def test_sharded_step_matches_one_process_step(results):
@@ -298,7 +333,11 @@ def test_world_one_step_is_train_step_bit_for_bit(world_one, case):
         _leaves(ref.state), _leaves(tree_map(lambda t: t.to_local(),
                                              got.state))))
     kinds = got.collectives.stats().count_by_kind
-    assert kinds == ({"all-to-all": 12} if cfg.moe_impl == "ep" else {})
+    # EP: two all-to-alls a MoE layer, in the forward, remat's recompute
+    # and the backward
+    moe_layers = cfg.num_layers - cfg.first_k_dense
+    assert kinds == ({"all-to-all": 6 * moe_layers} if cfg.moe_impl == "ep"
+                     else {})
 
 
 def test_mesh_refuses_a_second_group_and_a_missing_card(world_one):
