@@ -104,8 +104,8 @@ each of which raises on failure (nothing is caught):
    captured and a direct-call step from the same state over the same 3
    batches, bit-identical params, m, v, step and metrics; (g) 10
    captured steps on one fixed batch, whose loss must fall, and 5
-   direct-call ones with the same losses; (h) a profile of 2 steps of
-   each for the device busy share;
+   direct-call ones with the same losses; (h) a profile of 2 captured
+   steps for the device busy share;
 7. training deepseek-moe-16b at its published widths with the depth cut
    28 -> 2 (the dense first layer and one MoE layer of 64 routed top-6
    and 2 shared experts; bf16 compute, fp32 master params, batch 4 x
@@ -233,6 +233,18 @@ each of which raises on failure (nothing is caught):
    ``distributed_smollm``'s static state plus batch exactly, with no
    collective, and the subprocess's wall and the seconds the smoke
    waited for it after the build; a failed subprocess fails the smoke;
+12b. the fleet layer on the host, no kernel (``fleet``): the reference's
+   simulated TPU fleet (``repro_torch.fleet``), each trained
+   architecture's PG the card's ``pg_measured`` of phase 12
+   (``fleet_pg_table``, beside the ``nvidia-smi`` line; the four
+   untrained keep the workload's seeded draw); ``steady`` and
+   ``hetero_fleet`` at ``build_sim``'s defaults (200 jobs, 8 pods of
+   256, one week) on both event cores, whose trace bytes must be equal
+   and whose attribution waterfalls must conserve, beside the same
+   preset with the draws alone (``fleet_week``: SG / RG / PG / MPG, the
+   three largest losses); the what-if advisor on ``steady`` with the
+   card's table (``fleet_what_if``: its top three knobs).  Every fleet
+   figure is the simulator's, for a simulated TPU fleet;
 13. distribution (``distributed``), on a freed card: the default process
    group started through NCCL at world size 1 (a file store; its
    seconds and ``torch.cuda.nccl.version()`` logged), a 1 x 1
@@ -325,9 +337,10 @@ sight and an eager prefill, the graph's device time, capture seconds
 and pool bytes).  The logit checks run the
 kernels' compute-dtype models on the cast tree and everything else on
 the raw tree, require the kernels' logits on both trees to be
-bit-identical, and time a decode step and a 200-token prefill on both
-(``full_model_timing``: the eager span, the device time, and for the
-step the wall time of one graph replay).
+bit-identical, and time a decode step and a 200-token prefill on the
+cast tree, the one the executors serve from (``full_model_timing``: the
+eager span, the device time, and for the step the wall time of one
+graph replay).
 
 Each static server run (``serve_cli_static``, ``serve_static``) decodes
 with one CUDA graph captured at the full batch and replayed for every
@@ -1872,15 +1885,15 @@ def logits_kernel_vs_plain(torch, cfg, params, serving, tol):
             del k32, p32
         # where a full-model call's time goes: its span on the device
         # timeline when issued eagerly against its device time alone
-        # (CUDA-graph replay), on the raw tree (every weight cast per
-        # call) and on the executor's cast tree; for the decode step also
-        # the host's wall time of one replay of it as the executors
-        # capture it (DecodeGraph), to the end of its work on the card
+        # (CUDA-graph replay), on the executor's cast tree (the tree every
+        # executor serves from); for the decode step also the host's wall
+        # time of one replay of it as the executors capture it
+        # (DecodeGraph), to the end of its work on the card
         p200 = prompts[lens.index(200)]
         frontend = model.frontend_inputs(cfg, 1, dev)
         step_name = "decode_step_w8" if paged else "decode_step_b1"
         timing = {step_name: {}, "prefill_s200": {}}
-        for tree_name, tree in (("raw", params), ("cast", serving)):
+        for tree_name, tree in (("cast", serving),):
             if paged:
                 tok, lengths, kp, vp, tables, cfg_dec = kern[2]
                 step = lambda: transformer.paged_decode_step(  # noqa: E731
@@ -2643,8 +2656,8 @@ def train_runs(torch, cfg):
     from the same state over the same batches, bit-identical state and
     metrics after every step; (d) 10 captured steps on one fixed batch,
     whose loss must fall, and 5 direct-call ones that must give the same
-    losses; (e) the device busy share of both steps from a profile of 2
-    steps each.  Checks the emissions, the launches and the losses;
+    losses; (e) the captured step's device busy share from a profile of
+    2 steps.  Checks the emissions, the launches and the losses;
     reports step time, tokens/s, MFU, peak memory, capture seconds and
     bytes, checkpoint seconds, compile seconds and RG.  Returns the
     launches of (a) and (b), replays counted, and the measured step
@@ -2865,11 +2878,11 @@ def train_runs(torch, cfg):
             raise AssertionError(f"fixed batch: eager losses {fixed_e} are "
                                  f"not the graph's {fixed[:5]}")
 
-        # (e) device busy share of each step: its kernel time in a profile
-        # of 2 steps over the wall time of an unprofiled step (the last 5
-        # fixed-batch steps; the profiler's own host cost stretches the
-        # profiled steps' wall, also reported), and for the graph the
-        # device span of one replay by CUDA events
+        # (e) device busy share of the captured step: its kernel time in a
+        # profile of 2 steps over the wall time of an unprofiled step (the
+        # last 5 fixed-batch steps; the profiler's own host cost stretches
+        # the profiled steps' wall, also reported), and the device span of
+        # one replay by CUDA events
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -2878,8 +2891,7 @@ def train_runs(torch, cfg):
         torch.cuda.synchronize()
         replay_ms = start.elapsed_time(end)
         prof = {}
-        for name, step, unprofiled in (("graph", graph, walls[5:]),
-                                       ("eager", eager, walls_e[1:])):
+        for name, step, unprofiled in (("graph", graph, walls[5:]),):
             kernels, span = _profile_steps(torch, step, batch)
             dev_us = sum(e.self_device_time_total for e in kernels)
             wall = float(np.mean(unprofiled)) / 1e3
@@ -3587,7 +3599,8 @@ def analysis(torch, cells, counts):
     measured step.  The counts (``counts``: :func:`analysis_counts`'s,
     made beside the build) must hold every cell.  A lower bound above
     the measured step fails: the counts would not describe the step
-    that ran."""
+    that ran.  Returns, per cell, its phase, ``arch``, depth as cut,
+    ``pg_measured`` and ``pg_overlap`` (the ``fleet`` phase's table)."""
     from repro_torch.core.flops import model_flops
     from repro_torch.core.roofline import RooflineCell
     from repro_torch.models.config import ShapeConfig
@@ -3603,6 +3616,7 @@ def analysis(torch, cells, counts):
         raise AssertionError(f"H100_SXM.hbm_bytes {H100_SXM.hbm_bytes} is "
                              f"{share:.3f} away from the card's {total}")
     peak = H100_SXM.peak_flops_bf16
+    pgs = []
     for m in cells:
         cfg, b, s, step_s = m["cfg"], m["batch"], m["seq"], m["step_s"]
         shape = ShapeConfig("smoke_train", "train", s, b)
@@ -3647,8 +3661,106 @@ def analysis(torch, cells, counts):
                 f"{1e3 * cell.t_lower_bound:.2f} ms is above the measured "
                 f"step {1e3 * step_s:.2f} ms: the counts do not describe "
                 f"the step that ran")
+        pgs.append({"cell": m["phase"], "arch": cfg.name,
+                    "num_layers": cfg.num_layers,
+                    "encoder_layers": cfg.encoder_layers,
+                    "pg_measured": cell.t_ideal / step_s,
+                    "pg_overlap": cell.pg_optimistic})
     log({"phase": "analysis_total", "cells": len(cells),
          "seconds": time.perf_counter() - t_phase})
+    return pgs
+
+
+# ---------------------------------------------------------------------------
+# phase 12b: the fleet layer, on the host
+# ---------------------------------------------------------------------------
+
+FLEET_PRESETS = ("steady", "hetero_fleet")
+
+
+def _fleet_week(preset: str, pg_table: dict, engine: str):
+    """One simulated week of ``preset`` at ``build_sim``'s defaults (200
+    jobs, 8 pods of 256 chips): its trace text, its SG / RG / PG / MPG
+    and seconds, and its attribution waterfall, checked to conserve."""
+    from repro_torch.core.attribution import AttributionWaterfall
+    from repro_torch.fleet.scenarios import SCENARIOS, build_sim
+    from repro_torch.fleet.trace import record
+
+    t0 = time.perf_counter()
+    sim = build_sim(SCENARIOS[preset], pg_table=pg_table, engine=engine)
+    wf = AttributionWaterfall().attach(sim.ledger)
+    trace = record(sim)
+    text = trace.dumps()
+    wf.assert_conserves(sim.ledger)
+    rep = sim.report()
+    return text, {**rep.as_dict(), "events": len(trace.events),
+                  "seconds": time.perf_counter() - t0}, wf
+
+
+def fleet(smi: str, cells) -> None:
+    """The fleet layer on the host, no kernel: the reference's simulated
+    TPU fleet (``repro_torch.fleet``: the simulator, its traces, the
+    attribution waterfall and the what-if advisor), each trained
+    architecture's Program Goodput taken from this run's card.
+    (a) ``fleet_pg_table``: {arch: pg_measured} of the six training
+    cells (``analysis``'s ``cells``), each with its depth as cut and its
+    pg_overlap, beside the card's ``nvidia-smi`` line ``smi``; the four
+    architectures the smoke does not train keep the workload's seeded
+    draw (``pg_table.get(arch, rng.uniform(...))`` draws either way, so
+    the job stream is the same).  (b) ``fleet_week``: steady and
+    hetero_fleet with that table on both event cores, whose trace bytes
+    must be equal and whose waterfalls must conserve; beside them the
+    same preset with the draws alone, whose SG and RG must be the
+    table's.  (c) ``fleet_what_if``: the advisor on steady with the
+    table, its top three knobs.  Every SG / RG / PG / MPG is the
+    simulator's output for a simulated TPU fleet; only pg_measured is
+    the card's."""
+    import math
+
+    from repro_torch.fleet.advisor import what_if
+    from repro_torch.fleet.workload import ARCH_IDS
+
+    t_phase = time.perf_counter()
+    table = {c["arch"]: c["pg_measured"] for c in cells}
+    log({"phase": "fleet_pg_table", "card": smi, "table": table,
+         "cells": cells, "drawn": [a for a in ARCH_IDS if a not in table]})
+    if len(table) != len(cells) or not all(0 < v < 1
+                                           for v in table.values()):
+        raise AssertionError(f"fleet_pg_table: {table} from {cells}")
+    for preset in FLEET_PRESETS:
+        ref_text, ref, _ = _fleet_week(preset, table, "reference")
+        text, card, wf = _fleet_week(preset, table, "vectorized")
+        _, draws, _ = _fleet_week(preset, {}, "vectorized")
+        log({"phase": "fleet_week", "preset": preset, "jobs": 200,
+             "pods": 8, "pod_chips": 256, "horizon_days": 7,
+             "card_pg": card, "reference_engine_seconds": ref["seconds"],
+             "engines_equal": ref_text == text, "trace_bytes": len(text),
+             "draws": draws,
+             "largest_losses": [
+                 {k: r[k] for k in ("bucket", "layer", "frac_of_capacity")}
+                 for r in wf.report()["losses"][:3]]})
+        if ref_text != text:
+            raise AssertionError(f"fleet_week {preset}: the reference and "
+                                 f"vectorized engines' traces differ")
+        if (card["SG"], card["RG"]) != (draws["SG"], draws["RG"]):
+            raise AssertionError(f"fleet_week {preset}: the PG table "
+                                 f"moved SG / RG: {card} vs {draws}")
+        if not all(math.isfinite(r[k]) and 0 < r[k] <= 1
+                   for r in (card, draws) for k in ("SG", "RG", "PG")):
+            raise AssertionError(f"fleet_week {preset}: {card}, {draws}")
+    t0 = time.perf_counter()
+    rep = what_if("steady", pg_table=table)
+    log({"phase": "fleet_what_if", "preset": "steady",
+         "baseline_mpg": rep["baseline"]["MPG"],
+         "target_load": rep["baseline"]["target_load"],
+         "top": [{k: r[k] for k in ("knob", "recovered_mpg", "d_sg",
+                                    "d_rg", "d_pg", "skipped")}
+                 for r in rep["ranking"][:3]],
+         "seconds": time.perf_counter() - t0})
+    if not rep["ranking"][0]["recovered_mpg"] > 0:
+        raise AssertionError(f"fleet_what_if: no knob recovers MPG: "
+                             f"{rep['ranking'][:3]}")
+    log({"phase": "fleet_total", "seconds": time.perf_counter() - t_phase})
 
 
 # the host-only work that runs beside the build, in subprocesses that see
@@ -5027,8 +5139,10 @@ def main() -> int:
 
     # phase 12: the compile-time analysis of the six training cells (its
     # counts and the dry run's mesh records were made beside the build)
-    analysis(torch, [m_train, m_train_moe, m_train_hyb, m_train_ssm,
-                     m_train_encdec, m_train_vlm], counts)
+    pgs = analysis(torch, [m_train, m_train_moe, m_train_hyb, m_train_ssm,
+                           m_train_encdec, m_train_vlm], counts)
+    # phase 12b: the simulated fleet priced with those PGs, host only
+    fleet(smi, pgs)
 
     # phase 13: the sharded steps through NCCL at world size 1
     bf16_params = {"param_dtype": torch.bfloat16}

@@ -220,3 +220,31 @@ def segment_goodput(intervals: Iterable[Interval],
 def rg_breakdown(intervals: Iterable[Interval]) -> Dict[str, float]:
     """Where allocated-but-unproductive chip-time goes (paper Fig. 10)."""
     return _ledger_over(intervals).rg_breakdown()
+
+
+# ---------------------------------------------------------------------------
+# Heterogeneous hardware generations (paper §3.1: the fleet mixes TPU
+# generations; PG normalizes productive time against peak FLOPS)
+# ---------------------------------------------------------------------------
+
+def generation_pg_weights(generations: Iterable[str]) -> Dict[str, float]:
+    """Per-generation PG weights from peak-FLOPS ratios.
+
+    Ideal chip-time is defined against the *best* generation present, so
+    a STEP second on a slower generation contributes proportionally less
+    ideal time: weight = peak_flops(gen) / max peak_flops over the given
+    generations.  All weights land in (0, 1], keeping PG <= 1.  The
+    generations are the simulated fleet's (``repro_torch.fleet.
+    generations``).
+    """
+    from repro_torch.fleet.generations import GENERATIONS
+
+    gens = sorted(set(generations))
+    unknown = [g for g in gens if g not in GENERATIONS]
+    if unknown:
+        raise ValueError(f"unknown hardware generation(s) {unknown}; "
+                         f"choose from {sorted(GENERATIONS)}")
+    if not gens:
+        return {}
+    best = max(GENERATIONS[g].peak_flops_bf16 for g in gens)
+    return {g: GENERATIONS[g].peak_flops_bf16 / best for g in gens}

@@ -1,7 +1,8 @@
 """Target-hardware constants for the roofline terms: the card the port
 runs on (the reference's ``repro.core.hardware`` holds its TPU
 generations; the port keeps the ``ChipSpec`` fields and
-``ideal_step_time`` and states the H100 alone)."""
+``ideal_step_time`` and states the H100 alone).  The TPU generations of
+the simulated fleet are ``repro_torch.fleet.generations``."""
 from __future__ import annotations
 
 import dataclasses
